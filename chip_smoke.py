@@ -18,7 +18,8 @@ Phases, each printing its own lines:
    through new_scheduler("tpu-batch", ..., device="cuda"): 1 warm-up and 5
    timed evals. Every task placed, only on dc1 nodes, capacity held.
 4. service: a tpu-service job of count 100 over both datacenters (the
-   object path and the exact greedy scan).
+   object path and the exact greedy scan): 1 warm-up and 5 timed evals,
+   with e2e p50 and the solver's stage p50s.
 5. burst: 8 batch evals of 12,500 tasks from 8 threads through the
    coalescer.
 
@@ -62,10 +63,24 @@ WF_SHAPES = [(8192, 1, False, False), (8192, 8, False, False),
              (16384, 8, True, False),
              (16384, 8, False, True), (131072, 1, False, False),
              (131072, 8, True, True)]
-GREEDY_SHAPES = [(16384, 1, 8), (16384, 1, 128), (16384, 8, 128),
-                 (8192, 1, 128)]
+# Greedy rows are (N, B, k, job_distinct, tg_distinct, node data): the
+# score cache sits in shared memory up to 16384 rows and in a device
+# scratch above; "ties" is the headline's identical nodes with identical
+# usage (the lowest index decides every step), "infeasible" an eval no node
+# fits, and N = 64 has fewer nodes than the kernel's 1024 slots.
+GREEDY_SHAPES = [(16384, 1, 8, False, False, "random"),
+                 (16384, 1, 128, False, False, "random"),
+                 (16384, 8, 128, False, False, "random"),
+                 (8192, 1, 128, False, False, "random"),
+                 (16384, 8, 128, True, False, "random"),
+                 (16384, 8, 128, False, True, "random"),
+                 (131072, 1, 128, False, False, "random"),
+                 (131072, 8, 128, False, False, "random"),
+                 (16384, 2, 128, False, False, "ties"),
+                 (16384, 1, 128, False, False, "infeasible"),
+                 (64, 1, 8, False, False, "random")]
 MAIN_WF_SHAPE = (8192, 1, False, False)
-MAIN_GREEDY_SHAPE = (16384, 1, 128)
+MAIN_GREEDY_SHAPE = (16384, 1, 128, False, False, "random")
 
 
 def log(msg: str) -> None:
@@ -192,12 +207,39 @@ def waterfill_case(rng, n: int, b: int, jd: bool, td: bool, dev):
     return (*args, jd, td)
 
 
-def greedy_case(rng, n: int, b: int, k: int, dev):
+def tie_arrays(n: int):
+    """The headline's node (4000 MHz, 8192 MB, 100 GiB disk, 150 iops, no
+    network) n times, each a quarter used, and its 100 MHz / 128 MB ask."""
+    total = np.tile(np.array([4000, 8192, 100 * 1024, 150], np.int32), (n, 1))
+    sched = total[:, :2].astype(np.float32)
+    used = np.tile(np.array([1000, 2048, 0, 0], np.int32), (n, 1))
+    zeros = np.zeros(n, dtype=np.int32)
+    ask = np.array([100, 128, 0, 0], dtype=np.int32)
+    return (total, sched, zeros, used, zeros, zeros, zeros,
+            np.ones(n, dtype=bool), ask, np.int32(0))
+
+
+def greedy_case(rng, n: int, b: int, k: int, dev, jd: bool = False,
+                td: bool = False, mode: str = "random"):
+    """B evals over one shared node set. ``mode`` "random" draws nodes and
+    usage; "ties" repeats one node (penalties 0 and 10 alternate, so a
+    node is both chosen again and passed over); "infeasible" is random with
+    no node eligible."""
     import torch
 
-    live = min(n, int(n * 0.61) + 1)
-    total, sched, bw_avail = node_arrays(rng, n, live)
-    per = [eval_arrays(rng, total, bw_avail, live) for _ in range(b)]
+    if mode == "ties":
+        total, sched, bw_avail, *one = tie_arrays(n)
+        per = [one] * b
+        penalty = np.resize([0.0, 10.0], b)
+    else:
+        live = min(n, int(n * 0.61) + 1)
+        total, sched, bw_avail = node_arrays(rng, n, live)
+        per = [list(eval_arrays(rng, total, bw_avail, live))
+               for _ in range(b)]
+        if mode == "infeasible":
+            for p in per:
+                p[4] = np.zeros(n, dtype=bool)
+        penalty = rng.choice([10.0, 5.0], b)
     t = lambda a, dtype: torch.tensor(np.stack(a), dtype=dtype, device=dev)
     counts = rng.integers(1, k + 1, b)
     counts[0] = k
@@ -209,9 +251,8 @@ def greedy_case(rng, n: int, b: int, k: int, dev):
         t([p[3] for p in per], torch.int32), t([p[4] for p in per], torch.bool),
         t([p[5] for p in per], torch.int32), t([p[6] for p in per], torch.int32),
         torch.tensor(active, device=dev),
-        torch.tensor(rng.choice([10.0, 5.0], b), dtype=torch.float32,
-                     device=dev),
-        k, False, False,
+        torch.tensor(penalty, dtype=torch.float32, device=dev),
+        k, jd, td,
     )
 
 
@@ -227,7 +268,8 @@ def bound_ms(n_bytes: int, n_ops: int):
 
 
 # Per-node float32 operations of one BestFit score (2 div, 2 sub, 2 pow,
-# 2 max, add, sub, 2 clamp, mul, sub).
+# 2 max, add, sub, 2 clamp, mul, sub). The greedy scan needs N + k scores
+# an eval: every node once, then the placed node once a step.
 SCORE_OPS = 15
 
 
@@ -269,8 +311,9 @@ def phase_kernels(dev, rng):
     results["waterfill_err"] = worst
 
     worst = 0
-    for n, b, k in GREEDY_SHAPES:
-        args = greedy_case(rng, n, b, k, dev)
+    for row in GREEDY_SHAPES:
+        n, b, k, jd, td, mode = row
+        args = greedy_case(rng, n, b, k, dev, jd, td, mode)
         out_k = greedy.solve_greedy_batched_shared(*args)
         out_p = greedy.solve_greedy_batched_shared_plain(*args)
         torch.cuda.synchronize()
@@ -279,8 +322,11 @@ def phase_kernels(dev, rng):
         worst = max(worst, err)
         if not all(torch.equal(x, y) for x, y in zip(out_k, out_p)):
             raise AssertionError(
-                f"greedy kernel != plain at N={n} B={b} k={k}: "
-                f"idx max abs err {err}")
+                f"greedy kernel != plain at {row}: idx max abs err {err}")
+        if mode == "infeasible" and (bool(out_k[1].any())
+                                     or bool(out_k[0].any())):
+            raise AssertionError("an all-infeasible eval must give idx 0 "
+                                 "and ok false at every step")
         raw = greedy.kernel_only(*args)
         k_ms = cuda_ms(raw, 10)
         prof_ms = profiler_ms(raw, 10, "greedy_kernel")
@@ -288,13 +334,13 @@ def phase_kernels(dev, rng):
         p_ms = host_ms(
             lambda: greedy.solve_greedy_batched_shared_plain(*args), 1)
         in_bytes = bytes_of(*args[:12]) + bytes_of(*out_k)
-        ops = SCORE_OPS * n * b * k
+        ops = SCORE_OPS * b * (n + k)
         bms, by = bound_ms(in_bytes, ops)
-        log(f"greedy N={n} B={b} k={k}: equal, placed="
-            f"{int(out_k[1].sum())} kernel_ms={k_ms:.4f} "
+        log(f"greedy N={n} B={b} k={k} jd={jd} td={td} {mode}: equal, "
+            f"placed={int(out_k[1].sum())} kernel_ms={k_ms:.4f} "
             f"profiler_kernel_ms={fmt_ms(prof_ms)} wrapper_ms={w_ms:.4f} "
             f"plain_ms={p_ms:.2f} bound_ms={bms:.6f} ({by})")
-        results["greedy"][(n, b, k)] = dict(
+        results["greedy"][row] = dict(
             ms=k_ms, profiler_ms=prof_ms, wrapper_ms=w_ms, plain_ms=p_ms,
             bound_ms=bms, bound_by=by)
     results["greedy_err"] = worst
@@ -429,32 +475,47 @@ class StageSpan:
             self.ms[name] = self.ms.get(name, 0.0) + (t1 - t0) * 1000.0
 
 
-def phase_headline(h, dev):
+def timed_evals(h, dev, job, factory: str, label: str):
+    """1 warm-up and TIMED_EVALS timed evals of ``job`` through ``factory``,
+    each plan checked; returns (e2e ms, stage ms) of the timed ones."""
     import torch
     from nomad_tpu_torch import structs, trace
-    from nomad_tpu_torch.ops import greedy, waterfill
 
-    job = make_job("bench-batch", structs.JOB_TYPE_BATCH, N_TASKS, ["dc1"])
     e2e, stage_ms = [], []
-    waterfill.LAUNCHES = 0
-    greedy.LAUNCHES = 0
     for i in range(1 + TIMED_EVALS):
         ev = register_eval(h, job)
         span = StageSpan()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with trace.use_span(span):
-            h.process("tpu-batch", ev, device=dev)
+            h.process(factory, ev, device=dev)
         wall = (time.perf_counter() - t0) * 1000.0
-        placed = check_plan(h.state, h.plans[-1], job, N_TASKS)
+        placed = check_plan(h.state, h.plans[-1], job,
+                            job.task_groups[0].count)
         if h.evals[-1].status != structs.EVAL_STATUS_COMPLETE:
             raise AssertionError(f"eval status {h.evals[-1].status}")
         if i:
             e2e.append(wall)
             stage_ms.append(span.ms)
-        log(f"headline eval {i}{' (warm-up)' if i == 0 else ''}: "
+        log(f"{label} eval {i}{' (warm-up)' if i == 0 else ''}: "
             f"placed={placed} e2e_ms={wall:.2f} stages_ms="
             + json.dumps({k: round(v, 3) for k, v in span.ms.items()}))
+    return e2e, stage_ms
+
+
+def stage_p50s(stage_ms):
+    return {k: float(np.median([s.get(k, 0.0) for s in stage_ms]))
+            for k in ("staging", "transfer", "execute", "readback")}
+
+
+def phase_headline(h, dev):
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    job = make_job("bench-batch", structs.JOB_TYPE_BATCH, N_TASKS, ["dc1"])
+    waterfill.LAUNCHES = 0
+    greedy.LAUNCHES = 0
+    e2e, stage_ms = timed_evals(h, dev, job, "tpu-batch", "headline")
     launches = waterfill.LAUNCHES
     if launches == 0:
         raise AssertionError("the headline eval never launched the "
@@ -462,8 +523,7 @@ def phase_headline(h, dev):
     solve = [sum(s.values()) for s in stage_ms]
     p50 = float(np.median(solve))
     e2e_p50 = float(np.median(e2e))
-    stages_p50 = {k: float(np.median([s.get(k, 0.0) for s in stage_ms]))
-                  for k in ("staging", "transfer", "execute", "readback")}
+    stages_p50 = stage_p50s(stage_ms)
     log(f"headline: {N_NODES} nodes x {N_TASKS} tasks, solve_p50_ms="
         f"{p50:.3f} e2e_p50_ms={e2e_p50:.3f} placements_per_s="
         f"{N_TASKS / (e2e_p50 / 1000.0):.0f} waterfill_launches={launches} "
@@ -479,18 +539,18 @@ def phase_service(h, dev):
 
     job = make_job("svc", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
                    ["dc1", "dc2"])
-    ev = register_eval(h, job)
     greedy.LAUNCHES = 0
-    t0 = time.perf_counter()
-    h.process("tpu-service", ev, device=dev)
-    wall = (time.perf_counter() - t0) * 1000.0
+    e2e, stage_ms = timed_evals(h, dev, job, "tpu-service", "service")
     launches = greedy.LAUNCHES
-    placed = check_plan(h.state, h.plans[-1], job, SERVICE_COUNT)
     if launches == 0:
         raise AssertionError("the service eval never launched the greedy "
                              "kernel")
-    log(f"service: placed={placed} e2e_ms={wall:.2f} "
-        f"greedy_launches={launches}")
+    solve = [sum(s.values()) for s in stage_ms]
+    log(f"service: count {SERVICE_COUNT}, solve_p50_ms="
+        f"{float(np.median(solve)):.3f} e2e_p50_ms="
+        f"{float(np.median(e2e)):.3f} greedy_launches={launches}")
+    log("service stage p50 ms: " + json.dumps(
+        {k: round(v, 3) for k, v in stage_p50s(stage_ms).items()}))
     return launches
 
 
@@ -571,7 +631,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
     for name, report in sorted(kernels.BUILD_INFO.get("ptxas", {}).items()):
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 log(f"ptxas {name}: {line.strip()}")
     card = card_line()
     log(f"card: {card}")

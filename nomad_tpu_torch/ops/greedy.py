@@ -23,6 +23,11 @@ from nomad_tpu_torch.ops.waterfill import _check
 # Kernel launches made by the wrapper (the plain path never counts).
 LAUNCHES = 0
 
+# Node rows up to which the kernel keeps an eval's score cache in shared
+# memory (kSmemCacheRows in csrc/greedy.cu); above it the wrapper allocates
+# a [B, N] float32 scratch for it.
+SMEM_CACHE_ROWS = 16384
+
 
 def solve_greedy(
     total, sched_cap, used0, job_count0, tg_count0, bw_avail, bw_used0,
@@ -138,17 +143,20 @@ def _bind_launch(total, sched_cap, used0, job_count0, tg_count0, bw_avail,
     returns its cudaError_t, (idx, ok, score))."""
     b, n, _ = used0.shape
     dev = used0.device
-    fn = kernels.entry("greedy", "nomad_greedy", 16, 5)
+    fn = kernels.entry("greedy", "nomad_greedy", 17, 5)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     ok = torch.empty((b, k), dtype=torch.bool, device=dev)
     score = torch.empty((b, k), dtype=torch.float32, device=dev)
     placed = torch.empty((b, n), dtype=torch.int32, device=dev)
+    cache = (torch.empty((b, n), dtype=torch.float32, device=dev)
+             if n > SMEM_CACHE_ROWS else None)
     ptrs = [t.data_ptr() for t in (
         total, sched_cap, bw_avail, used0, job_count0, tg_count0, bw_used0,
         eligible, ask, bw_ask, active, penalty, idx, ok, score, placed)]
+    ptrs.append(None if cache is None else cache.data_ptr())
     args = (*ptrs, b, n, int(k), int(bool(job_distinct)),
             int(bool(tg_distinct)), torch.cuda.current_stream(dev).cuda_stream)
-    bufs = (idx, ok, score, placed)
+    bufs = (idx, ok, score, placed, cache)
 
     def launch():
         with torch.cuda.device(dev):

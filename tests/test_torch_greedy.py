@@ -231,3 +231,161 @@ def test_greedy_wrapper_checks_inputs():
     before = greedy.LAUNCHES
     greedy.solve_greedy_batched_shared(*args)
     assert greedy.LAUNCHES == before
+
+
+# -- the property the CUDA kernel's incremental design rests on -------------
+#
+# csrc/greedy.cu scores every node once, then per step rescores only the
+# node it placed on and recomputes that node's slot best. That is exact if
+# (1) a step changes the score vector at most at the placed node, and (2)
+# the slot bookkeeping (S = ceil(N / W) contiguous slots of
+# W = ceil(N / 1024) nodes, argmax over the slot bests) picks what the
+# plain argmax over all N picks. The tests below hold the port's plain
+# version to both, on the fuzz corpus and on tie-heavy identical nodes.
+
+KERNEL_SLOTS = 1024
+
+
+def tie_case(n, k, penalty, jd=False, td=False):
+    """The headline's node (4000 MHz, 8192 MB, 100 GiB, 150 iops, no
+    network) n times, each a quarter used, and a 100 MHz / 128 MB ask:
+    every untouched node ties, so the lowest index decides."""
+    total = np.tile(np.array([4000, 8192, 100 * 1024, 150], np.int32), (n, 1))
+    zeros = np.zeros(n, dtype=np.int32)
+    return dict(
+        total=total, sched_cap=total[:, :2].astype(np.float32),
+        used=np.tile(np.array([1000, 2048, 0, 0], np.int32), (n, 1)),
+        job_count=zeros, tg_count=zeros, bw_avail=zeros, bw_used=zeros,
+        eligible=np.ones(n, dtype=bool),
+        ask=np.array([100, 128, 0, 0], np.int32), bw_ask=np.int32(0),
+        count=k, penalty=float(penalty), jd=jd, td=td, k=k, k_live=k,
+    )
+
+
+def sized_case(n, k, seed, jd=False, td=False):
+    """A fuzz-corpus instance (tests/test_fuzz_differential.py's draws)
+    at n nodes, scanning k steps with all of them live."""
+    rng = np.random.default_rng(20_000 + seed)
+    c = to_numpy_case(_random_solve_inputs(rng))
+    idx = rng.integers(0, len(c["eligible"]), n)  # resample the node axis
+    for key in ("total", "used", "job_count", "tg_count", "bw_avail",
+                "bw_used", "eligible"):
+        c[key] = np.ascontiguousarray(c[key][idx])
+    c["sched_cap"] = c["total"][:, :2].astype(np.float32)
+    c.update(jd=jd, td=td, k=k, k_live=k, count=k)
+    return c
+
+
+def step_scores(c, placed):
+    """The plain score vector after ``placed[i]`` copies on each node."""
+    (total, sched_cap, used, jc, tc, bw_avail, bw_used, elig, ask,
+     bw_ask) = port_tensors(c)
+    p = torch.as_tensor(placed, dtype=torch.int32)
+    score, _fit = greedy._greedy_step_state(
+        total, sched_cap, used + p[:, None] * ask, jc + p, tc + p, bw_avail,
+        bw_used + p * bw_ask, elig, ask, bw_ask, c["penalty"], c["jd"],
+        c["td"])
+    return score.numpy()
+
+
+def bits(x):
+    return np.asarray(x, dtype=np.float32).view(np.int32)
+
+
+def slot_model(c):
+    """The kernel's bookkeeping in numpy: one full scoring pass, S slot
+    bests, and per step one argmax over the slots, one rescore and one
+    slot recompute. The rescore reads the placed node's row of a
+    whole-vector evaluation: torch's CPU pow rounds a lone element
+    differently from a vectorised run, where the card's powf is one call
+    per element either way."""
+    n, k = len(c["eligible"]), c["k"]
+    w = -(-n // KERNEL_SLOTS)
+    n_slots = -(-n // w)
+    placed = np.zeros(n, dtype=np.int32)
+    cache = step_scores(c, placed)
+
+    def best(lo, hi):
+        seg = cache[lo:hi]
+        j = int(np.flatnonzero(seg == seg.max())[0])  # first maximal index
+        return seg[j], lo + j
+
+    slots = [best(s * w, min(s * w + w, n)) for s in range(n_slots)]
+    out = []
+    for step in range(k):
+        s_best = max(s for s, _ in slots)
+        i_best = next(i for s, i in slots if s == s_best)  # lowest slot
+        ok = bool(s_best > -np.inf) and step < c["k_live"]
+        out.append((i_best, ok, s_best))
+        if ok:
+            placed[i_best] += 1
+            cache[i_best] = step_scores(c, placed)[i_best]
+            slot = i_best // w
+            slots[slot] = best(slot * w, min(slot * w + w, n))
+    idx, ok, score = zip(*out)
+    return (np.array(idx, np.int32), np.array(ok, bool),
+            np.array(score, np.float32))
+
+
+PROPERTY_CASES = (
+    [("fuzz", seed) for seed in range(N_FUZZ_SEEDS)]
+    + [("ties", pen, flags) for pen in (0.0, 10.0)
+       for flags in ("", "jd", "td")])
+
+
+def property_case(spec):
+    if spec[0] == "fuzz":
+        return greedy_case(spec[1])
+    _, pen, flags = spec
+    return tie_case(96, 64, pen, jd=flags == "jd", td=flags == "td")
+
+
+@pytest.mark.parametrize("spec", PROPERTY_CASES, ids=str)
+def test_greedy_scores_change_only_at_placed_node(spec):
+    """Between consecutive steps of the plain version the score vector
+    changes at most at idx[t], and only when ok[t]; each step's idx and
+    score are that vector's first maximum."""
+    c = property_case(spec)
+    idx, ok, score = port_greedy(c)
+    placed = np.zeros(len(c["eligible"]), dtype=np.int32)
+    before = step_scores(c, placed)
+    for t in range(c["k"]):
+        j = int(np.argmax(before))
+        assert (idx[t], bits(score[t])) == (j, bits(before[j])), t
+        if ok[t]:
+            placed[idx[t]] += 1
+        after = step_scores(c, placed)
+        changed = np.flatnonzero(bits(after) != bits(before))
+        assert set(changed) <= ({int(idx[t])} if ok[t] else set()), t
+        before = after
+
+
+@pytest.mark.parametrize("flags", ["", "jd", "td"])
+@pytest.mark.parametrize("kind", ["random", "ties0", "ties10"])
+@pytest.mark.parametrize("k", [8, 128])
+@pytest.mark.parametrize("n", [8, 64, 1024, 4096])
+def test_greedy_slot_model_equals_plain(n, k, kind, flags):
+    """The kernel's slot bookkeeping gives idx, ok and score bit-equal to
+    the plain version, with fewer nodes than slots (N = 8, 64), one node
+    a slot (1024) and four (4096). On tied nodes a penalty of 0 keeps
+    choosing one node until it is full; 10 moves to the next each step."""
+    jd, td = flags == "jd", flags == "td"
+    if kind == "random":
+        c = sized_case(n, k, n + k, jd, td)
+    else:
+        c = tie_case(n, k, float(kind[4:]), jd, td)
+    m_idx, m_ok, m_score = slot_model(c)
+    idx, ok, score = port_greedy(c)
+    np.testing.assert_array_equal(m_ok, ok)
+    np.testing.assert_array_equal(m_idx, idx)
+    np.testing.assert_array_equal(bits(m_score), bits(score))
+
+
+@pytest.mark.parametrize("flags", ["", "jd", "td"])
+@pytest.mark.parametrize("penalty", [0.0, 10.0])
+def test_greedy_ties_match_jax(penalty, flags):
+    """On identical nodes nomad_tpu's solve_greedy and the port make the
+    same decisions (the lowest index breaks every tie), and their scores
+    agree within the pow contract's 256 ulp."""
+    c = tie_case(64, 32, penalty, jd=flags == "jd", td=flags == "td")
+    assert compare_with_jax(c) == "equal"
