@@ -8,11 +8,13 @@ Phases, each printing its own lines:
 1. build: compile every kernel under nomad_tpu_torch/csrc with nvcc for
    sm_90a; print the build seconds, ptxas' register report and the card.
 2. kernels vs plain: each kernel's wrapper against its plain PyTorch
-   version on the same CUDA tensors, at the main path's shapes and the
-   water-fill's 16384/131072-row buckets; outputs must be exactly equal.
-   Prints kernel ms (CUDA events around back-to-back launches of the
-   kernel alone, pre-checked and pre-allocated; cross-checked against
+   version on the same CUDA tensors, at the main path's shapes, the
+   buckets up to 262144 rows and the edge cases of each design (see
+   WF_SHAPES, GREEDY_SHAPES); outputs must be exactly equal. Prints
+   kernel ms (CUDA events around a CUDA graph of back-to-back launches of
+   the kernel alone, pre-checked and pre-allocated; cross-checked against
    torch.profiler's device time), the full wrapper's ms, and plain ms.
+   ptxas must report no spill.
 3. headline: 10,000 nodes (dc1/dc2, 4000 MHz / 8192 MB, kernel.name=linux,
    driver exec) and one batch job of 100,000 tasks restricted to dc1,
    through new_scheduler("tpu-batch", ..., device="cuda"): 1 warm-up and 5
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -58,11 +61,37 @@ SEED = 42
 # Kernel-vs-plain shapes. The headline eval restricts its job to dc1, so
 # its mirror holds 5,000 nodes in the 8192-row bucket; the service job
 # spans both datacenters (16384 rows, count bucket 128).
-WF_SHAPES = [(8192, 1, False, False), (8192, 8, False, False),
-             (16384, 1, False, False), (16384, 8, False, False),
-             (16384, 8, True, False),
-             (16384, 8, False, True), (131072, 1, False, False),
-             (131072, 8, True, True)]
+# Water-fill rows are (N, B, job_distinct, tg_distinct, node data):
+# "random" draws nodes, usage and count; "headline" is the headline eval's
+# 5,000 empty nodes and 100,000 tasks (remaining 0 after the level);
+# "ties" repeats the headline node with 2.5 tasks a node (the burst's
+# 12,500 on 5,000 at N=8192; above it every row is live and 5,001 more
+# tasks cut the boundary inside a block of cluster rank > 0, so the fill
+# crosses iterations, warps, blocks and ranks); "saturated" asks more than
+# every cap together (no candidates); "count0" asks nothing; "ineligible"
+# has no eligible node; "bigcaps" gives caps above 2^16 (3 or 4 level
+# passes).
+# The kernel holds an eval's rows in one block up to 16384, in a cluster
+# of 2-8 blocks up to 131072, and in a device scratch above.
+WF_SHAPES = [(8192, 1, False, False, "random"),
+             (8192, 8, False, False, "random"),
+             (8192, 1, False, False, "headline"),
+             (8192, 8, False, False, "ties"),
+             (16384, 1, False, False, "random"),
+             (16384, 8, False, False, "random"),
+             (16384, 8, True, False, "random"),
+             (16384, 8, False, True, "random"),
+             (32768, 2, False, False, "random"),
+             (32768, 1, False, False, "ties"),
+             (131072, 1, False, False, "random"),
+             (131072, 8, True, True, "random"),
+             (131072, 1, False, False, "ties"),
+             (8192, 2, False, False, "saturated"),
+             (8192, 2, False, False, "count0"),
+             (8192, 2, False, False, "ineligible"),
+             (8192, 2, False, False, "bigcaps"),
+             (64, 1, False, False, "random"),
+             (262144, 1, False, False, "random")]
 # Greedy rows are (N, B, k, job_distinct, tg_distinct, node data): the
 # score cache sits in shared memory up to 16384 rows and in a device
 # scratch above; "ties" is the headline's identical nodes with identical
@@ -79,7 +108,7 @@ GREEDY_SHAPES = [(16384, 1, 8, False, False, "random"),
                  (16384, 2, 128, False, False, "ties"),
                  (16384, 1, 128, False, False, "infeasible"),
                  (64, 1, 8, False, False, "random")]
-MAIN_WF_SHAPE = (8192, 1, False, False)
+MAIN_WF_SHAPE = (8192, 1, False, False, "headline")
 MAIN_GREEDY_SHAPE = (16384, 1, 128, False, False, "random")
 
 
@@ -106,6 +135,34 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(bind, reps: int) -> float:
+    """Mean ms a launch of a kernel alone: CUDA events around one replay of
+    a CUDA graph that holds ``reps`` back-to-back launches. ``bind()``
+    returns a zero-argument launch bound to the current stream (a
+    ``kernel_only``); a graph keeps the host's launch rate out of the
+    time, which events around launches from Python do not for kernels
+    under about 0.02 ms."""
+    import torch
+
+    run = bind()
+    run()  # first launch: one-time set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run = bind()
+        for _ in range(reps):
+            run()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -185,19 +242,55 @@ def eval_arrays(rng, total, bw_avail, live: int):
     return used, job_count, tg_count, bw_used, eligible, ask, bw_ask
 
 
-def waterfill_case(rng, n: int, b: int, jd: bool, td: bool, dev):
+def headline_arrays(n: int, live: int):
+    """The headline's node (4000 MHz, 8192 MB, 100 GiB disk, 150 iops, no
+    network), empty, in the first ``live`` of n rows (the rest are
+    padding), and its 100 MHz / 128 MB ask."""
+    total = np.zeros((n, 4), dtype=np.int32)
+    total[:live] = [4000, 8192, 100 * 1024, 150]
+    zeros = np.zeros(n, dtype=np.int32)
+    eligible = np.arange(n) < live
+    return (total, total[:, :2].astype(np.float32), np.zeros((n, 4), np.int32),
+            zeros, zeros, zeros, zeros, eligible,
+            np.array([100, 128, 0, 0], np.int32), np.int32(0))
+
+
+def waterfill_case(rng, n: int, b: int, jd: bool, td: bool, mode: str, dev):
+    """B evals (see WF_SHAPES for the modes), each with its own node
+    rows, as the coalescer stacks them."""
     import torch
 
     live = min(n, int(n * 0.61) + 1)
     cols = [[] for _ in range(12)]
     for _ in range(b):
-        total, sched, bw_avail = node_arrays(rng, n, live)
-        used, jc, tc, bwu, elig, ask, bw_ask = eval_arrays(
-            rng, total, bw_avail, live)
-        count = int(rng.integers(1, 4 * live))
-        penalty = float(rng.choice([10.0, 5.0, 0.0]))
-        for i, v in enumerate((total, sched, used, jc, tc, bw_avail, bwu,
-                               elig, ask, bw_ask, count, penalty)):
+        if mode in ("headline", "ties"):
+            nodes = min(n, 5000) if (mode == "headline" or n <= 8192) else n
+            row = headline_arrays(n, nodes)
+            count = (N_TASKS if mode == "headline" else nodes * 5 // 2
+                     + (5001 if n > 8192 else 0))
+            penalty = 10.0
+        else:
+            total, sched, bw_avail = node_arrays(rng, n, live)
+            used, jc, tc, bwu, elig, ask, bw_ask = eval_arrays(
+                rng, total, bw_avail, live)
+            count = int(rng.integers(1, 4 * live))
+            if mode == "bigcaps":
+                total[:live, :2] = rng.integers(1 << 17, 1 << 24, (live, 2))
+                sched = total[:, :2].astype(np.float32)
+                used = (total * rng.uniform(0.0, 0.5, (n, 1))).astype(np.int32)
+                ask = np.array([1, 1, 0, 0], np.int32)
+                bw_ask = np.int32(0)
+                count = 1 << 30
+            elif mode == "saturated":
+                count = 2_000_000_000
+            elif mode == "count0":
+                count = 0
+            elif mode == "ineligible":
+                elig = np.zeros(n, dtype=bool)
+            row = (total, sched, used, jc, tc, bw_avail, bwu, elig, ask,
+                   bw_ask)
+            penalty = float(rng.choice([10.0, 5.0, 0.0]))
+        for i, v in enumerate((*row, count, penalty)):
             cols[i].append(v)
     dt = [torch.int32, torch.float32, torch.int32, torch.int32, torch.int32,
           torch.int32, torch.int32, torch.bool, torch.int32, torch.int32,
@@ -207,16 +300,40 @@ def waterfill_case(rng, n: int, b: int, jd: bool, td: bool, dev):
     return (*args, jd, td)
 
 
+def check_wf_mode(mode: str, counts, left, count, block_rows: int) -> None:
+    """The row reached the case its mode names. ``block_rows``: the rows
+    one block of the kernel holds."""
+    placed = counts.sum(dim=1)
+    if mode == "ties" and block_rows < counts.shape[1]:
+        # Every row is live and identical: the first `fill` rows take one
+        # copy more than the rest, and that cut must fall inside a block
+        # of cluster rank > 0.
+        for c in counts:
+            top = int(c.max())
+            cut = int((c == top).sum())
+            if not (top > int(c.min()) and bool((c[:cut] == top).all())
+                    and cut > block_rows and cut % block_rows):
+                raise AssertionError("water-fill row 'ties' did not cut "
+                                     "the boundary inside a block of rank "
+                                     "> 0")
+    want = {"headline": bool((left == 0).all()),
+            "ties": bool((left == 0).all()),
+            "saturated": bool((left > 0).all() and (placed > 0).all()),
+            "count0": bool((placed == 0).all() and (left == 0).all()),
+            "ineligible": bool((placed == 0).all() and (left == count).all()),
+            "bigcaps": bool((counts.max() > 1 << 16).item()
+                            and (left == 0).all())}
+    if not want.get(mode, True):
+        raise AssertionError(f"water-fill row {mode!r} missed its case")
+
+
 def tie_arrays(n: int):
-    """The headline's node (4000 MHz, 8192 MB, 100 GiB disk, 150 iops, no
-    network) n times, each a quarter used, and its 100 MHz / 128 MB ask."""
-    total = np.tile(np.array([4000, 8192, 100 * 1024, 150], np.int32), (n, 1))
-    sched = total[:, :2].astype(np.float32)
-    used = np.tile(np.array([1000, 2048, 0, 0], np.int32), (n, 1))
-    zeros = np.zeros(n, dtype=np.int32)
-    ask = np.array([100, 128, 0, 0], dtype=np.int32)
-    return (total, sched, zeros, used, zeros, zeros, zeros,
-            np.ones(n, dtype=bool), ask, np.int32(0))
+    """headline_arrays with every one of the n nodes live and a quarter
+    used, in the order greedy_case takes them."""
+    total, sched, used, jc, tc, bw_avail, bw_used, elig, ask, bw_ask = (
+        headline_arrays(n, n))
+    used[:] = [1000, 2048, 0, 0]
+    return total, sched, bw_avail, used, jc, tc, bw_used, elig, ask, bw_ask
 
 
 def greedy_case(rng, n: int, b: int, k: int, dev, jd: bool = False,
@@ -273,14 +390,59 @@ def bound_ms(n_bytes: int, n_ops: int):
 SCORE_OPS = 15
 
 
+def waterfill_work(total, sched_cap, used, job_count, tg_count, bw_avail,
+                   bw_used, eligible, ask, bw_ask, count, penalty, jd, td):
+    """(bytes, score operations) the water-fill must spend on these
+    inputs, from the plain version's caps and level (numpy): each row's
+    eligible flag (1 B); an eligible row's totals, usage and bandwidth (40
+    B), and its job or group count where a distinct flag reads it; a
+    candidate's (cap > level, with tasks left after the base) schedulable
+    capacity and job count, and one score; each eval's ask, bandwidth ask,
+    count and penalty; the counts and remaining written once."""
+    np_ = lambda t: t.cpu().numpy().astype(np.int64)
+    total, used, jc, tc, bwa, bwu, ask, bwk, cnt = map(
+        np_, (total, used, job_count, tg_count, bw_avail, bw_used, ask,
+              bw_ask, count))
+    elig = eligible.cpu().numpy()
+    b, n, _ = total.shape
+    avail = total - used
+    nonneg = (avail >= 0).all(-1) & (bwu <= bwa)
+    a = ask[:, None, :]
+    cap = np.where(a > 0, avail // np.maximum(a, 1), 1 << 30).min(-1)
+    bw_cap = (bwa - bwu) // np.maximum(bwk, 1)[:, None]
+    cap = np.where(bwk[:, None] > 0, np.minimum(cap, bw_cap), cap)
+    if jd:
+        cap = np.minimum(cap, jc == 0)
+    if td:
+        cap = np.minimum(cap, tc == 0)
+    cap = np.where(elig & nonneg, np.clip(cap, 0, cnt[:, None]), 0)
+    cands = 0
+    for e in range(b):
+        lo, hi = 0, int(min(cnt[e], cap[e].max()))
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if np.minimum(cap[e], mid).sum() <= cnt[e]:
+                lo = mid
+            else:
+                hi = mid - 1
+        if cnt[e] > np.minimum(cap[e], lo).sum():
+            cands += int((cap[e] > lo).sum())
+    live = int(elig.sum())
+    n_bytes = (b * n + live * (40 + 4 * jd + 4 * td)
+               + cands * (8 + 4 * (not jd)) + b * (16 + 4 + 4 + 4)
+               + b * n * 4 + b * 4)
+    return n_bytes, SCORE_OPS * cands
+
+
 def phase_kernels(dev, rng):
     import torch
     from nomad_tpu_torch.ops import greedy, waterfill
 
     results = {"waterfill": {}, "greedy": {}}
     worst = 0
-    for n, b, jd, td in WF_SHAPES:
-        args = waterfill_case(rng, n, b, jd, td, dev)
+    for row in WF_SHAPES:
+        n, b, jd, td, mode = row
+        args = waterfill_case(rng, n, b, jd, td, mode, dev)
         counts_k, rem_k = waterfill.solve_waterfill_batched(*args)
         counts_p, rem_p = waterfill.solve_waterfill_batched_plain(*args)
         torch.cuda.synchronize()
@@ -289,23 +451,23 @@ def phase_kernels(dev, rng):
         worst = max(worst, err)
         if not (torch.equal(counts_k, counts_p) and torch.equal(rem_k, rem_p)):
             raise AssertionError(
-                f"waterfill kernel != plain at N={n} B={b} jd={jd} td={td}: "
-                f"max abs err {err}")
-        raw = waterfill.kernel_only(*args)
-        k_ms = cuda_ms(raw, 20)
-        prof_ms = profiler_ms(raw, 20, "waterfill_kernel")
+                f"waterfill kernel != plain at {row}: max abs err {err}")
+        check_wf_mode(mode, counts_k, rem_k, args[10],
+                      waterfill.block_rows(n))
+        k_ms = graph_ms(lambda: waterfill.kernel_only(*args), 20)
+        prof_ms = profiler_ms(waterfill.kernel_only(*args), 20,
+                              "waterfill_kernel")
         w_ms = cuda_ms(lambda: waterfill.solve_waterfill_batched(*args), 20)
         p_ms = host_ms(lambda: waterfill.solve_waterfill_batched_plain(*args),
                        1)
-        in_bytes = bytes_of(*args[:12]) + bytes_of(counts_k, rem_k)
-        ops = SCORE_OPS * n * b
-        bms, by = bound_ms(in_bytes, ops)
+        bms, by = bound_ms(*waterfill_work(*args))
         placed = int(counts_k.sum())
-        log(f"waterfill N={n} B={b} jd={jd} td={td}: equal, placed={placed} "
+        log(f"waterfill N={n} B={b} jd={jd} td={td} {mode}: equal, "
+            f"placed={placed} unplaced={int(rem_k.sum())} "
             f"kernel_ms={k_ms:.4f} profiler_kernel_ms={fmt_ms(prof_ms)} "
             f"wrapper_ms={w_ms:.4f} plain_ms={p_ms:.2f} "
             f"bound_ms={bms:.6f} ({by})")
-        results["waterfill"][(n, b, jd, td)] = dict(
+        results["waterfill"][row] = dict(
             ms=k_ms, profiler_ms=prof_ms, wrapper_ms=w_ms, plain_ms=p_ms,
             bound_ms=bms, bound_by=by)
     results["waterfill_err"] = worst
@@ -327,9 +489,8 @@ def phase_kernels(dev, rng):
                                      or bool(out_k[0].any())):
             raise AssertionError("an all-infeasible eval must give idx 0 "
                                  "and ok false at every step")
-        raw = greedy.kernel_only(*args)
-        k_ms = cuda_ms(raw, 10)
-        prof_ms = profiler_ms(raw, 10, "greedy_kernel")
+        k_ms = graph_ms(lambda: greedy.kernel_only(*args), 10)
+        prof_ms = profiler_ms(greedy.kernel_only(*args), 10, "greedy_kernel")
         w_ms = cuda_ms(lambda: greedy.solve_greedy_batched_shared(*args), 10)
         p_ms = host_ms(
             lambda: greedy.solve_greedy_batched_shared_plain(*args), 1)
@@ -601,6 +762,7 @@ def phase_burst(h, dev):
     log(f"burst: {BURST_EVALS} evals x {BURST_TASKS} tasks placed={placed} "
         f"wall_ms={wall:.2f} waterfill_launches={launches} "
         f"dispatch_widths={json.dumps(widths)}")
+    return launches
 
 
 def main() -> int:
@@ -634,6 +796,8 @@ def main() -> int:
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 log(f"ptxas {name}: {line.strip()}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                raise AssertionError(f"ptxas reports spills in {name}")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -648,7 +812,7 @@ def main() -> int:
     log(f"cluster: {N_NODES} nodes in {time.perf_counter() - t0:.1f}s")
     wf_launches = phase_headline(h, dev)
     gr_launches = phase_service(h, dev)
-    phase_burst(h, dev)
+    wf_launches += phase_burst(h, dev)
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]

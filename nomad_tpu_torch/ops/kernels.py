@@ -111,11 +111,13 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def entry(name: str, symbol: str, n_ptrs: int, n_ints: int,
+          stream: bool = True):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, declared as
     ``int symbol(void* x n_ptrs, int x n_ints, void* stream)``: pointers
-    first, then ints, then the CUDA stream; returns the cudaError_t.
-    Declared once, at the first call for that symbol."""
+    first, then ints, then the CUDA stream (none where ``stream`` is
+    false); a launch returns the cudaError_t. Declared once, at the first
+    call for that symbol."""
     fn = _entries.get((name, symbol))
     if fn is not None:
         return fn
@@ -125,7 +127,8 @@ def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
         if fn is None:
             fn = getattr(lib, symbol)
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                           + [ctypes.c_int] * n_ints
+                           + [ctypes.c_void_p] * int(stream))
             fn.restype = ctypes.c_int
             _entries[(name, symbol)] = fn
         return fn

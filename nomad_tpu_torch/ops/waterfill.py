@@ -25,6 +25,21 @@ LAUNCHES = 0
 _BIG = 2**30
 
 
+def block_rows(n: int) -> int:
+    """Rows of an eval of n rows that one block of the kernel holds (the
+    kernel spreads an eval over a cluster of blocks; csrc/waterfill.cu
+    decides)."""
+    return kernels.entry("waterfill", "nomad_waterfill_block_rows", 0, 1,
+                         stream=False)(n)
+
+
+def needs_scratch(n: int) -> bool:
+    """Whether the kernel keeps an eval's caps and keys in a [B, N] device
+    scratch rather than shared memory (csrc/waterfill.cu decides)."""
+    return bool(kernels.entry("waterfill", "nomad_waterfill_needs_scratch",
+                              0, 1, stream=False)(n))
+
+
 def solve_waterfill(
     total, sched_cap, used0, job_count0, tg_count0, bw_avail, bw_used0,
     eligible, ask, bw_ask, count: int, penalty: float,
@@ -195,12 +210,16 @@ def _bind_launch(total, sched_cap, used0, job_count0, tg_count0, bw_avail,
     fn = kernels.entry("waterfill", "nomad_waterfill", 16, 4)
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
     remaining = torch.empty((b,), dtype=torch.int32, device=dev)
-    cap_scratch = torch.empty((b, n), dtype=torch.int32, device=dev)
-    key_scratch = torch.empty((b, n), dtype=torch.int32, device=dev)
+    scratch = needs_scratch(n)
+    cap_scratch = (torch.empty((b, n), dtype=torch.int32, device=dev)
+                   if scratch else None)
+    key_scratch = (torch.empty((b, n), dtype=torch.int32, device=dev)
+                   if scratch else None)
     ptrs = [t.data_ptr() for t in (
         total, used0, sched_cap, job_count0, tg_count0, bw_avail, bw_used0,
-        eligible, ask, bw_ask, count, penalty, counts, remaining,
-        cap_scratch, key_scratch)]
+        eligible, ask, bw_ask, count, penalty, counts, remaining)]
+    ptrs += [None if t is None else t.data_ptr()
+             for t in (cap_scratch, key_scratch)]
     args = (*ptrs, b, n, int(bool(job_distinct)), int(bool(tg_distinct)),
             torch.cuda.current_stream(dev).cuda_stream)
     bufs = (counts, remaining, cap_scratch, key_scratch)
