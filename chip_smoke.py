@@ -24,6 +24,16 @@ Phases, each printing its own lines:
    with e2e p50 and the solver's stage p50s.
 5. burst: 8 batch evals of 12,500 tasks from 8 threads through the
    coalescer.
+6. server: the same 10,000 nodes through the port's Server
+   (nomad_tpu_torch.server: eval broker, worker, plan queue, plan
+   pipeline, FSM) on the card, by node_batch_register. The headline job
+   and the service job, each 1 warm-up and 5 timed rounds of register ->
+   complete -> deregister -> complete, and (after a warm-up round) an
+   8-eval burst drained by one worker (eval_batch_size=8). Each round checks the COMMITTED allocs in
+   the server's state store (count, datacenter, constraint, and every
+   node's summed asks within its capacity, in numpy) and that every eval
+   ended complete. Logs register->complete and deregister->complete p50
+   and placements/s, and the p50 of each span stage from the tracer.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -537,23 +547,30 @@ class FixedStatePlanner:
         pass
 
 
-def build_cluster():
+def cluster_nodes():
+    """bench.py's 10,000 nodes: dc1/dc2 alternating, 4000 MHz / 8192 MB,
+    kernel.name=linux, driver exec."""
     from nomad_tpu_torch import structs
-    from nomad_tpu_torch.harness import Harness
     from nomad_tpu_torch.structs import Node, Resources
+
+    return [Node(
+        id=f"node-{i:05d}",
+        datacenter="dc1" if i % 2 == 0 else "dc2",
+        name=f"n{i}",
+        attributes={"kernel.name": "linux", "driver.exec": "1"},
+        resources=Resources(cpu=4000, memory_mb=8192,
+                            disk_mb=100 * 1024, iops=150),
+        status=structs.NODE_STATUS_READY,
+    ) for i in range(N_NODES)]
+
+
+def build_cluster():
+    from nomad_tpu_torch.harness import Harness
 
     h = Harness()
     h.planner = FixedStatePlanner(h)
-    for i in range(N_NODES):
-        h.state.upsert_node(h.next_index(), Node(
-            id=f"node-{i:05d}",
-            datacenter="dc1" if i % 2 == 0 else "dc2",
-            name=f"n{i}",
-            attributes={"kernel.name": "linux", "driver.exec": "1"},
-            resources=Resources(cpu=4000, memory_mb=8192,
-                                disk_mb=100 * 1024, iops=150),
-            status=structs.NODE_STATUS_READY,
-        ))
+    for node in cluster_nodes():
+        h.state.upsert_node(h.next_index(), node)
     return h
 
 
@@ -765,6 +782,273 @@ def phase_burst(h, dev):
     return launches
 
 
+# -- the server loop -----------------------------------------------------------
+
+# No client heartbeats reach the server in this run: the TTL outlives it.
+SERVER_HEARTBEAT_TTL_S = 3600.0
+SERVER_WAIT_S = 120.0
+# Span stages read from each eval's trace, in pipeline order. The solver's
+# four cuts are children of worker.invoke_scheduler. The last is derived:
+# worker.submit_plan less the three plan.* spans inside it, the hand-offs
+# between the worker and the plan pipeline's thread that no span covers.
+SERVER_STAGES = ("broker.wait", "worker.invoke_scheduler", "solver.staging",
+                 "solver.transfer", "solver.execute", "solver.readback",
+                 "worker.submit_plan", "plan.queue_wait", "plan.evaluate",
+                 "plan.apply", "fsm.apply:alloc_update",
+                 "submit_plan.outside_plan_spans")
+
+
+def check_committed(snap, job, want: int) -> int:
+    """From a state snapshot: ``job`` holds ``want`` live tasks, all on
+    nodes of its datacenters with kernel.name=linux (make_job's
+    constraint), and every node's summed live asks of all jobs plus its
+    reserved resources fit its capacity (numpy over the stored blocks'
+    runs and the object rows). Returns the live count."""
+    usage, job_nodes = {}, {}
+
+    def add(nid, vec, cnt, own):
+        usage[nid] = usage.get(nid, 0) + vec * cnt
+        if own:
+            job_nodes[nid] = job_nodes.get(nid, 0) + cnt
+
+    for blk in snap.alloc_blocks():
+        vec = np.asarray(blk.resource_vector(), dtype=np.int64)
+        for nid, cnt in blk.live_node_counts():
+            add(nid, vec, int(cnt), blk.job_id == job.id)
+    for a in snap.allocs_objects():
+        if not a.terminal_status():
+            add(a.node_id, np.asarray(a.resources.as_vector(),
+                                      dtype=np.int64), 1, a.job_id == job.id)
+    live = sum(job_nodes.values())
+    if live != want:
+        raise AssertionError(f"{live} live tasks of job {job.name} "
+                             f"committed, want {want}")
+    for nid in sorted(job_nodes):
+        node = snap.node_by_id(nid)
+        if (node is None or node.datacenter not in job.datacenters
+                or node.attributes.get("kernel.name") != "linux"):
+            raise AssertionError(f"a task of job {job.name} was committed "
+                                 f"on {nid}, outside its datacenters or "
+                                 "its constraint")
+    ids = sorted(usage)
+    if not ids:
+        return live
+    nodes = [snap.node_by_id(nid) for nid in ids]
+    if any(n is None for n in nodes):
+        raise AssertionError("a task was committed on an unknown node")
+    cap = np.array([n.resources.as_vector() for n in nodes], dtype=np.int64)
+    res = np.array([n.reserved.as_vector() if n.reserved else (0, 0, 0, 0)
+                    for n in nodes], dtype=np.int64)
+    used = np.array([usage[nid] for nid in ids], dtype=np.int64)
+    over = np.any(used + res > cap, axis=1)
+    if over.any():
+        raise AssertionError(f"node {ids[int(np.argmax(over))]}'s committed "
+                             "tasks exceed its capacity")
+    return live
+
+
+def wait_complete(srv, eval_id: str) -> float:
+    """Poll the state store (0.5 ms) until the eval is terminal; returns
+    the perf_counter stamp it was seen. Any end but complete fails."""
+    from nomad_tpu_torch import structs
+
+    deadline = time.perf_counter() + SERVER_WAIT_S
+    while time.perf_counter() < deadline:
+        ev = srv.state_store.eval_by_id(eval_id)
+        if ev is not None and ev.terminal_status():
+            if ev.status != structs.EVAL_STATUS_COMPLETE:
+                raise AssertionError(f"server eval {eval_id} ended "
+                                     f"{ev.status}: {ev.status_description}")
+            return time.perf_counter()
+        time.sleep(0.0005)
+    raise AssertionError(f"server eval {eval_id} did not end in "
+                         f"{SERVER_WAIT_S}s")
+
+
+def eval_stages(eval_id: str):
+    """ms per span stage of one eval's trace (SERVER_STAGES), summed over
+    the eval's spans of that name; fsm.apply is split by message type."""
+    from nomad_tpu_torch import trace
+
+    out = {}
+    for span in trace.get_tracer().get_trace(eval_id) or []:
+        name = span["name"]
+        if name == "fsm.apply":
+            name += ":" + str(span["annotations"].get("msg_type"))
+        if span["duration_ms"] is not None:
+            out[name] = out.get(name, 0.0) + span["duration_ms"]
+    out["submit_plan.outside_plan_spans"] = out.get(
+        "worker.submit_plan", 0.0) - sum(
+        out.get(k, 0.0) for k in ("plan.queue_wait", "plan.evaluate",
+                                  "plan.apply"))
+    return out
+
+
+def p50(xs) -> float:
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def server_round(srv, job):
+    """register -> complete -> check -> deregister -> complete -> check ->
+    reap. Returns (register ms, deregister ms, live tasks, eval id)."""
+    t0 = time.perf_counter()
+    eid, _ = srv.job_register(job)
+    reg = (wait_complete(srv, eid) - t0) * 1000.0
+    live = check_committed(srv.state_store.snapshot(), job,
+                           job.task_groups[0].count)
+    t0 = time.perf_counter()
+    did, _ = srv.job_deregister(job.id)
+    dereg = (wait_complete(srv, did) - t0) * 1000.0
+    snap = srv.state_store.snapshot()
+    check_committed(snap, job, 0)
+    # The stopped allocs stay as object rows until the eval GC reaps them;
+    # reap this round's now (outside the timed spans), so every round
+    # starts from the same state.
+    srv.eval_reap([eid, did], [a.id for a in snap.allocs_by_job(job.id)])
+    return reg, dereg, live, eid
+
+
+def server_rounds(srv, job, label: str):
+    """1 warm-up and TIMED_EVALS timed server_rounds. Returns (register
+    ms, deregister ms, stage ms dicts) of the timed rounds."""
+    reg_ms, dereg_ms, stages = [], [], []
+    for i in range(1 + TIMED_EVALS):
+        reg, dereg, live, eid = server_round(srv, job)
+        st = eval_stages(eid)
+        if i:
+            reg_ms.append(reg)
+            dereg_ms.append(dereg)
+            stages.append(st)
+        log(f"server {label} round {i}{' (warm-up)' if i == 0 else ''}: "
+            f"committed={live} register_ms={reg:.2f} "
+            f"deregister_ms={dereg:.2f} stages_ms="
+            + json.dumps({k: round(st.get(k, 0.0), 3)
+                          for k in SERVER_STAGES}))
+    return reg_ms, dereg_ms, stages
+
+
+def log_server_summary(label: str, tasks: int, reg_ms, dereg_ms, stages):
+    reg = p50(reg_ms)
+    log(f"server {label}: register_complete_p50_ms={reg:.3f} "
+        f"placements_per_s={tasks / (reg / 1000.0):.0f} "
+        f"deregister_complete_p50_ms={p50(dereg_ms):.3f}")
+    log(f"server {label} stage p50 ms: " + json.dumps(
+        {k: round(p50([s.get(k, 0.0) for s in stages]), 3)
+         for k in SERVER_STAGES}))
+
+
+def new_server(dev, **kw):
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+
+    srv = Server(ServerConfig(scheduler_backend="tpu", device=str(dev),
+                              min_heartbeat_ttl=SERVER_HEARTBEAT_TTL_S,
+                              **kw))
+    srv.start()
+    t0 = time.perf_counter()
+    srv.node_batch_register(cluster_nodes())
+    log(f"server: {N_NODES} nodes by node_batch_register in "
+        f"{(time.perf_counter() - t0) * 1000.0:.1f} ms")
+    return srv
+
+
+def phase_server(dev):
+    """The headline and the service job through the server loop. Returns
+    (water-fill launches, greedy launches) of the two runs."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    srv = new_server(dev)
+    try:
+        job = make_job("server-batch", structs.JOB_TYPE_BATCH, N_TASKS,
+                       ["dc1"])
+        waterfill.LAUNCHES = 0
+        reg, dereg, stages = server_rounds(srv, job, "headline")
+        wf = waterfill.LAUNCHES
+        if wf == 0:
+            raise AssertionError("the server's headline rounds never "
+                                 "launched the water-fill kernel")
+        log_server_summary("headline", N_TASKS, reg, dereg, stages)
+
+        job = make_job("server-svc", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+                       ["dc1", "dc2"])
+        greedy.LAUNCHES = 0
+        reg, dereg, stages = server_rounds(srv, job, "service")
+        gr = greedy.LAUNCHES
+        if gr == 0:
+            raise AssertionError("the server's service rounds never "
+                                 "launched the greedy kernel")
+        log_server_summary("service", SERVICE_COUNT, reg, dereg, stages)
+        log(f"server: waterfill_launches={wf} greedy_launches={gr} "
+            f"stats={json.dumps(srv.solver_stats())}")
+    finally:
+        srv.shutdown()
+    return wf, gr
+
+
+def phase_server_burst(dev):
+    """After one warm-up round, 8 batch jobs of 12,500 dc1 tasks registered
+    while the one worker is paused, then drained by it as one broker batch
+    (eval_batch_size=8): one width-8 water-fill dispatch. Returns the
+    water-fill launches."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import waterfill
+    from nomad_tpu_torch.server.worker import DEQUEUE_TIMEOUT
+    from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
+
+    srv = new_server(dev, num_schedulers=1, eval_batch_size=BURST_EVALS)
+    try:
+        # Warm-up round: this server's first eval builds its mirror, which
+        # would otherwise stagger the members' arrivals past the
+        # coalescer's burst hold.
+        reg, dereg, _, _ = server_round(srv, make_job(
+            "server-burst-warm", structs.JOB_TYPE_BATCH, BURST_TASKS,
+            ["dc1"]))
+        log(f"server burst warm-up: register_ms={reg:.2f} "
+            f"deregister_ms={dereg:.2f}")
+        worker = srv.workers[0]
+        worker.set_pause(True)
+        # The worker parks once its current dequeue times out.
+        time.sleep(DEQUEUE_TIMEOUT + 0.2)
+        jobs = [make_job(f"server-burst-{i}", structs.JOB_TYPE_BATCH,
+                         BURST_TASKS, ["dc1"]) for i in range(BURST_EVALS)]
+        eids = [srv.job_register(j)[0] for j in jobs]
+        before = dict(SOLVER_PANEL.snapshot()["batch_widths"])
+        waterfill.LAUNCHES = 0
+        t0 = time.perf_counter()
+        worker.set_pause(False)
+        done = max(wait_complete(srv, eid) for eid in eids)
+        wall = (done - t0) * 1000.0
+        launches = waterfill.LAUNCHES
+        snap = srv.state_store.snapshot()
+        placed = sum(check_committed(snap, j, BURST_TASKS) for j in jobs)
+        after = SOLVER_PANEL.snapshot()["batch_widths"]
+        widths = {w: row["dispatches"] - before.get(w, {}).get("dispatches", 0)
+                  for w, row in after.items()}
+        widths = {w: d for w, d in widths.items() if d}
+        if worker.last_batch_size != BURST_EVALS:
+            raise AssertionError(f"the worker drained {worker.last_batch_size}"
+                                 f" evals at once, want {BURST_EVALS}")
+        if not widths.get(str(BURST_EVALS)):
+            raise AssertionError("the server burst made no width-"
+                                 f"{BURST_EVALS} water-fill dispatch: "
+                                 f"{widths}")
+        if launches == 0:
+            raise AssertionError("the server burst never launched the "
+                                 "water-fill kernel")
+        stages = [eval_stages(eid) for eid in eids]
+        log(f"server burst: {BURST_EVALS} evals x {BURST_TASKS} tasks "
+            f"committed={placed} wall_ms={wall:.2f} placements_per_s="
+            f"{placed / (wall / 1000.0):.0f} worker_batch="
+            f"{worker.last_batch_size} waterfill_launches={launches} "
+            f"dispatch_widths={json.dumps(widths)}")
+        log("server burst stage p50 ms: " + json.dumps(
+            {k: round(p50([s.get(k, 0.0) for s in stages]), 3)
+             for k in SERVER_STAGES}))
+    finally:
+        srv.shutdown()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -806,13 +1090,18 @@ def main() -> int:
     # 2. kernels vs plain
     kres = phase_kernels(dev, rng)
 
-    # 3-5. the main path
+    # 3-5. the main path through the harness
     t0 = time.perf_counter()
     h = build_cluster()
     log(f"cluster: {N_NODES} nodes in {time.perf_counter() - t0:.1f}s")
     wf_launches = phase_headline(h, dev)
     gr_launches = phase_service(h, dev)
     wf_launches += phase_burst(h, dev)
+
+    # 6. the server loop
+    wf, gr = phase_server(dev)
+    wf_launches += wf + phase_server_burst(dev)
+    gr_launches += gr
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]

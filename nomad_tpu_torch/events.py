@@ -1,0 +1,299 @@
+"""Cluster event stream: bounded broker of typed, monotonically indexed events.
+
+Upstream Nomad 1.0 solved "what did the cluster just do?" with a
+Raft-indexed event broker behind ``/v1/event/stream`` (nomad/stream/
+event_broker.go): every FSM apply publishes typed events, the stream is
+totally ordered by index, and a consumer resumes from any index it has
+seen. This module reproduces that shape for the reproduction's control
+plane.
+
+Ordering contract:
+
+- Every event gets a **strictly increasing, gapless** broker index
+  (``Event.index``) assigned at publish time under the broker lock — the
+  resume cursor for ``?index=N``. Events born from a replicated log entry
+  additionally carry ``raft_index``, the apply index where the state
+  changed (several events may share one raft_index: an eval batch is one
+  entry; a plan is one entry that yields PlanApplied + AllocUpserted).
+- The buffer is bounded; eviction moves the horizon forward. A consumer
+  resuming below the horizon gets ``truncated=True`` — events were lost
+  and a full re-list is needed (the reference returns a 404/"event index
+  out of range" for the same situation).
+
+Producer topology (who publishes where):
+
+- ``server/fsm.py`` owns one broker per FSM (each replica applies each
+  committed entry exactly once, so each server's log records e.g. exactly
+  one PlanApplied per committed plan — the per-server posture of the
+  reference's event broker).
+- Process-scoped emitters with no server handle — ``faults.fire`` and
+  ``backoff.CircuitBreaker`` transitions — ``broadcast()`` to every live
+  broker via a weak registry, so a chaos injection shows up in the event
+  log of every in-process server it could have affected.
+
+Topics/types (key in parens):
+
+=========  ==============================================================
+Job        JobRegistered, JobDeregistered (job id)
+Node       NodeRegistered, NodeDeregistered, NodeStatusUpdated,
+           NodeDrainUpdated, NodeHeartbeatExpired (node id)
+Eval       EvalUpdated, EvalDeleted (eval id)
+Alloc      AllocUpserted, AllocClientUpdated (alloc id; columnar blocks
+           publish ONE event per block keyed by eval id — per-member
+           fan-out would cost O(placements) per commit, the same
+           granularity contract as the state store's watch items)
+Plan       PlanApplied (eval id)
+Express    ExpressPlaced (eval id; ONE deterministic event per express
+           submission, payload carries the in-line placed_ms — commit/
+           bounce outcomes are counters + the lane's decision ring, so
+           the canonical digest never depends on commit timing)
+Leader     LeaderAcquired, LeaderLost (server node id)
+Breaker    BreakerStateChanged (breaker name)
+Fault      FaultInjected (site)
+Capacity   CapacitySnapshot (fixed key "capacity"; OBSERVER topic — the
+           capacity accountant's periodic utilization/stranded-capacity
+           snapshots, published on a wall-clock cadence and therefore
+           excluded from the canonical determinism digest, see
+           OBSERVER_TOPICS)
+Raft       RaftSnapshot (fixed key "raft"; OBSERVER topic like Capacity
+           — the raft observatory's periodic replication/log-economy
+           snapshots, nomad_tpu_torch/raft_observe.py)
+Read       ReadSnapshot (fixed key "reads"; OBSERVER topic like Capacity
+           — the read-path observatory's periodic serving-attribution/
+           watch-economy/freshness snapshots,
+           nomad_tpu_torch/read_observe.py)
+Runtime    RuntimeSnapshot (fixed key "runtime"; OBSERVER topic like
+           Capacity — the runtime self-observatory's periodic
+           profiler/lock-contention/byte-economy snapshots,
+           nomad_tpu_torch/profile_observe.py)
+=========  ==============================================================
+
+Blocking consumption reuses the state store's watch registry
+(``EventBroker.watch`` is a ``state.store._Watch``), so
+``server/blocking.py:blocking_query`` long-polls the broker exactly like
+it long-polls a table: ``get_index()`` is the probe, publish notifies.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from nomad_tpu_torch.state.store import _Watch, WatchItem
+
+# Watch-item vocabulary: one "any event" item plus one per topic, so a
+# topic-filtered long-poll only wakes for publishes it could return.
+ITEM_ANY: WatchItem = ("events", "_any_")
+
+# Topics published by read-only OBSERVERS on a wall-clock cadence (the
+# capacity accountant's periodic snapshots) rather than by decision-path
+# transitions. The canonical determinism digest (simcluster
+# canonical_events, tests/test_events.py replay digests) excludes them by
+# construction: how many ticks a run's wall time fits is scheduling
+# noise, and an observer being ON vs OFF must be digest-invariant — the
+# observatory's decision-invariance proof depends on exactly that.
+OBSERVER_TOPICS = frozenset({"Capacity", "Raft", "Read", "Runtime"})
+
+
+def item_topic(topic: str) -> WatchItem:
+    return ("events_topic", topic)
+
+
+class Event:
+    """One cluster state transition. Immutable after publish."""
+
+    __slots__ = ("index", "topic", "type", "key", "raft_index", "time",
+                 "emitter", "payload")
+
+    def __init__(self, index: int, topic: str, etype: str, key: str = "",
+                 raft_index: int = 0, emitter: str = "",
+                 payload: Optional[Dict[str, Any]] = None):
+        self.index = index
+        self.topic = topic
+        self.type = etype
+        self.key = key
+        self.raft_index = raft_index
+        # nomadlint: allow(DET002) -- user-facing event timestamp served
+        # over /v1/event/stream and compared across processes; latency
+        # math on it (scenario.py) accepts NTP-step noise by design.
+        self.time = time.time()
+        self.emitter = emitter
+        self.payload = payload or {}
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "index": self.index,
+            "topic": self.topic,
+            "type": self.type,
+            "key": self.key,
+            "raft_index": self.raft_index,
+            "time": self.time,
+            "emitter": self.emitter,
+            "payload": dict(self.payload),
+        }
+
+
+class TopicFilter:
+    """Parsed ``?topic=`` selections: ``Topic``, ``Topic:key``, or ``*``.
+    No selections (or any ``*``) matches everything, like the reference's
+    default ``{"*": ["*"]}`` subscription."""
+
+    __slots__ = ("topics", "match_all")
+
+    def __init__(self, selections: Optional[Iterable[str]] = None):
+        # topic -> set of keys ("" = any key of that topic)
+        self.topics: Dict[str, set] = {}
+        self.match_all = True
+        for sel in selections or ():
+            sel = sel.strip()
+            if not sel:
+                continue
+            if sel == "*":
+                self.topics.clear()
+                self.match_all = True
+                return
+            topic, _, key = sel.partition(":")
+            self.match_all = False
+            keys = self.topics.setdefault(topic, set())
+            if key:
+                keys.add(key)
+            else:
+                # Bare topic subsumes any keyed selection of it.
+                keys.clear()
+                keys.add("")
+
+    def matches(self, event: Event) -> bool:
+        if self.match_all:
+            return True
+        keys = self.topics.get(event.topic)
+        if keys is None:
+            return False
+        return "" in keys or event.key in keys
+
+    def watch_items(self) -> List[WatchItem]:
+        """Items a blocking consumer parks on: per-topic when filtered so
+        unrelated publishes don't wake it, the any-event item otherwise."""
+        if self.match_all:
+            return [ITEM_ANY]
+        return [item_topic(t) for t in sorted(self.topics)]
+
+
+# Process-wide registry of live brokers, for process-scoped emitters
+# (fault injections, breaker transitions) that have no server handle.
+# Weak: a broker dies with its FSM/server — test suites churn hundreds.
+_brokers_lock = threading.Lock()
+_BROKERS: "weakref.WeakSet[EventBroker]" = weakref.WeakSet()
+
+
+def broadcast(topic: str, etype: str, key: str = "",
+              payload: Optional[Dict[str, Any]] = None) -> None:
+    """Publish one process-scoped event to every live broker. In the
+    common one-agent-per-process deployment this is one broker; in-process
+    test clusters see the injection in every member's log."""
+    with _brokers_lock:
+        brokers = list(_BROKERS)
+    for broker in brokers:
+        broker.publish(topic, etype, key=key, payload=payload)
+
+
+class EventBroker:
+    """Bounded, lock-protected ring of events with a strictly monotonic
+    index. All methods are thread-safe."""
+
+    def __init__(self, capacity: int = 2048, emitter: str = "",
+                 register: bool = True):
+        self.capacity = max(1, int(capacity))
+        self.emitter = emitter
+        self.watch = _Watch()
+        self._lock = threading.Lock()
+        self._events: "deque[Event]" = deque()
+        self._index = 0
+        # topic -> index of that topic's newest event: the long-poll probe
+        # for FILTERED consumers. Probing the global index instead would
+        # wake a filtered poll on every unrelated publish — on a busy
+        # cluster that degenerates into one empty page per event batch.
+        self._topic_index: Dict[str, int] = {}
+        if register:
+            with _brokers_lock:
+                _BROKERS.add(self)
+
+    # -- producing ---------------------------------------------------------
+
+    def publish(self, topic: str, etype: str, key: str = "",
+                raft_index: int = 0,
+                payload: Optional[Dict[str, Any]] = None) -> Event:
+        with self._lock:
+            self._index += 1
+            event = Event(self._index, topic, etype, key=key,
+                          raft_index=raft_index, emitter=self.emitter,
+                          payload=payload)
+            self._events.append(event)
+            self._topic_index[topic] = self._index
+            while len(self._events) > self.capacity:
+                self._events.popleft()
+        # Notify outside the broker lock: the watch registry has its own
+        # lock, and waiters re-read get_index() before parking anyway.
+        self.watch.notify([ITEM_ANY, item_topic(topic)])
+        return event
+
+    # -- consuming ---------------------------------------------------------
+
+    def get_index(self) -> int:
+        """Index of the newest published event (the long-poll probe)."""
+        with self._lock:
+            return self._index
+
+    def index_for(self, tfilter: Optional[TopicFilter] = None) -> int:
+        """The newest index that could matter to ``tfilter``: the global
+        index unfiltered, else the max last-published index over the
+        filter's topics — so a filtered long-poll only returns when a
+        potentially matching event has landed. Key-level filters probe at
+        topic granularity (bounded by the topic's rate, not the
+        cluster's)."""
+        with self._lock:
+            if tfilter is None or tfilter.match_all:
+                return self._index
+            return max(
+                (self._topic_index.get(t, 0) for t in tfilter.topics),
+                default=0,
+            )
+
+    def horizon(self) -> int:
+        """Oldest retained index; a resume cursor below ``horizon - 1``
+        has missed evicted events. 0 when the buffer is empty."""
+        with self._lock:
+            return self._events[0].index if self._events else 0
+
+    def events_after(
+        self, min_index: int, tfilter: Optional[TopicFilter] = None,
+    ) -> Tuple[int, List[Event], bool]:
+        """(latest_index, matching events with index > min_index,
+        truncated). ``truncated`` is True when events in
+        (min_index, horizon) were evicted — the consumer's cursor fell off
+        the ring and the gap is unrecoverable from this broker. The page
+        is always complete up to latest_index: a partial page would make
+        the returned index lie as a resume cursor."""
+        with self._lock:
+            latest = self._index
+            oldest = self._events[0].index if self._events else self._index + 1
+            truncated = min_index < oldest - 1
+            out = [e for e in self._events if e.index > min_index
+                   and (tfilter is None or tfilter.matches(e))]
+        return latest, out, truncated
+
+    def all_events(self) -> List[Event]:
+        """Snapshot of the retained buffer, oldest first (tests, bundle)."""
+        with self._lock:
+            return list(self._events)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "index": self._index,
+                "retained": len(self._events),
+                "capacity": self.capacity,
+                "horizon": self._events[0].index if self._events else 0,
+            }

@@ -396,14 +396,49 @@ def _stack_and_solve_exact(rows, k: int, jd: bool, td: bool):
 # Process-wide engine shared by all workers (like GLOBAL_MIRROR_CACHE).
 GLOBAL_SOLVER = CoalescingSolver()
 
+# Direct device work outside the queue: a worker's scheduler pass stages
+# mirror tensors and reads results back on its own thread, which the
+# dispatcher's idle flag cannot see.
+_activity_lock = threading.Lock()
+_active_direct = 0
+
+
+class device_activity:
+    """Context manager marking a thread as inside direct device work
+    (staging, exact-path fetches, readbacks outside the coalescer queue),
+    so quiesce_all can drain it before interpreter teardown."""
+
+    def __enter__(self):
+        global _active_direct
+        with _activity_lock:
+            _active_direct += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _active_direct
+        with _activity_lock:
+            _active_direct -= 1
+        return False
+
 
 def quiesce_all(timeout: float = 10.0) -> bool:
-    """Wait until no coalescer solve is queued or in flight."""
-    return GLOBAL_SOLVER.quiesce(timeout)
+    """Wait until no device work is in flight anywhere: queued or
+    dispatching coalescer solves AND threads inside device_activity.
+    Returns False on timeout."""
+    deadline = time.monotonic() + timeout
+    if not GLOBAL_SOLVER.quiesce(max(deadline - time.monotonic(), 0.01)):
+        return False
+    while time.monotonic() < deadline:
+        with _activity_lock:
+            if _active_direct == 0:
+                return True
+        time.sleep(0.02)
+    return False
 
 
-# Drain the dispatcher before interpreter teardown, so no daemon thread is
-# inside a kernel launch when CPython finalizes.
+# Drain device work before interpreter teardown, so no daemon thread is
+# inside a kernel launch or a copy when CPython finalizes. An embedder
+# exiting under load stops its Server first (Server.shutdown drains).
 import atexit  # noqa: E402
 
 atexit.register(quiesce_all, 2.0)

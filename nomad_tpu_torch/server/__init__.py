@@ -1,2 +1,2 @@
-"""Server-side helpers the scheduler path calls. The broker, worker, plan
-applier and FSM are the next slice of the port."""
+"""The server loop: eval broker, worker, plan queue, plan pipeline, FSM and
+the single-process Server (copies of nomad_tpu/server, imports rewritten)."""

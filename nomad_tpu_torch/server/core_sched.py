@@ -1,0 +1,82 @@
+"""Core scheduler: internal garbage collection of evals, allocs, and nodes.
+
+Port of nomad_tpu/server/core_sched.py (upstream nomad/core_sched.go).
+Registered for ``_core`` evals (worker.go:246-248); the eval's JobID
+encodes which GC to run.
+"""
+
+from __future__ import annotations
+
+import time
+
+from nomad_tpu_torch.structs import (
+    CORE_JOB_EVAL_GC,
+    CORE_JOB_NODE_GC,
+    Evaluation,
+)
+
+
+class CoreScheduler:
+    """core_sched.go:15-47"""
+
+    def __init__(self, server, snapshot):
+        self.server = server
+        self.snap = snapshot
+
+    def process(self, ev: Evaluation) -> None:
+        if ev.job_id == CORE_JOB_EVAL_GC:
+            self._eval_gc(ev)
+        elif ev.job_id == CORE_JOB_NODE_GC:
+            self._node_gc(ev)
+        else:
+            raise ValueError(f"core scheduler cannot handle job '{ev.job_id}'")
+
+    def _eval_gc(self, ev: Evaluation) -> None:
+        """Reap terminal evals (and their allocs) older than the GC
+        threshold, when every alloc is terminal (core_sched.go:42-101)."""
+        threshold = self.server.config.eval_gc_threshold
+        # nomadlint: allow(DET002) -- compared against TimeTable's
+        # persisted WALL stamps (survive restarts); monotonic clocks
+        # don't span processes.
+        oldest = time.time() - threshold
+        old_index = self.server.time_table.nearest_index(oldest)
+
+        gc_evals = []
+        gc_allocs = []
+        for e in self.snap.evals():
+            if not e.terminal_status() or e.modify_index > old_index:
+                continue
+            allocs = self.snap.allocs_by_eval(e.id)
+            if any(not a.terminal_status() for a in allocs):
+                continue
+            gc_evals.append(e.id)
+            gc_allocs.extend(a.id for a in allocs)
+
+        if gc_evals or gc_allocs:
+            self.server.logger.debug(
+                "core.sched: eval GC: %d evaluations, %d allocs eligible",
+                len(gc_evals), len(gc_allocs),
+            )
+            self.server.raft.apply(
+                "eval_delete", {"evals": gc_evals, "allocs": gc_allocs}
+            ).result()
+
+    def _node_gc(self, ev: Evaluation) -> None:
+        """Reap down nodes with no non-terminal allocs
+        (core_sched.go:103-188)."""
+        threshold = self.server.config.node_gc_threshold
+        # nomadlint: allow(DET002) -- same wall-stamp comparison as
+        # _eval_gc above.
+        oldest = time.time() - threshold
+        old_index = self.server.time_table.nearest_index(oldest)
+
+        for node in self.snap.nodes():
+            if not node.terminal_status() or node.modify_index > old_index:
+                continue
+            allocs = self.snap.allocs_by_node(node.id)
+            if any(not a.terminal_status() for a in allocs):
+                continue
+            self.server.logger.debug("core.sched: node GC: %s eligible", node.id)
+            self.server.raft.apply(
+                "node_deregister", {"node_id": node.id}
+            ).result()

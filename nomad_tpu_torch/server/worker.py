@@ -1,0 +1,411 @@
+"""Scheduling worker: dequeues evals, runs the scheduler, submits plans.
+
+Port of nomad_tpu/server/worker.py (upstream nomad/worker.go). Each server
+runs N workers (NumSchedulers, config.go:223). The worker implements the
+scheduler's Planner interface: SubmitPlan stamps the EvalToken and routes
+through the plan queue; a RefreshIndex response forces a state refresh
+before retry. Workers bind the port's coalescer (burst hint, device
+activity), and pass the server's device to the scheduler factory.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional, Tuple
+
+from nomad_tpu_torch import telemetry, trace
+from nomad_tpu_torch.backoff import Backoff
+from nomad_tpu_torch.ops.coalesce import (
+    GLOBAL_SOLVER,
+    MAX_BATCH_BUCKET,
+    device_activity,
+)
+from nomad_tpu_torch.scheduler import new_scheduler
+from nomad_tpu_torch.server.core_sched import CoreScheduler
+from nomad_tpu_torch.server.eval_broker import BrokerError
+from nomad_tpu_torch.structs import JOB_TYPE_CORE, Evaluation, Plan, PlanResult
+
+RAFT_SYNC_LIMIT = 2.0  # reference raftSyncLimit (worker.go:31-34)
+DEQUEUE_TIMEOUT = 0.5
+
+
+class Worker(threading.Thread):
+    """One scheduling thread (worker.go:45-125)."""
+
+    def __init__(self, server, worker_id: int = 0):
+        super().__init__(daemon=True, name=f"worker-{worker_id}")
+        self.server = server
+        self.logger = server.logger.getChild(f"worker{worker_id}")
+        self._stop = threading.Event()
+        self._paused = False
+        self._pause_cond = threading.Condition()
+        self.eval_token: Optional[str] = None
+        # State snapshot used for the current eval
+        self._snapshot = None
+        # Size of the most recent broker batch drain (observability/tests)
+        self.last_batch_size = 0
+        # Shared jittered backoff for dequeue failures (broker disabled,
+        # leader-forwarding blips, injected broker.dequeue faults): resets
+        # on any successful dequeue so a healthy broker pays nothing, and
+        # decorrelates N workers hammering the same recovering leader.
+        # max_delay deliberately small: a worker mid-sleep when leadership
+        # returns adds this much to first-eval pickup after failover, so
+        # the cap trades retry rate (<=4/s/worker while down) against
+        # recovery latency (<=0.25s added).
+        self._dequeue_backoff = Backoff(base=0.05, max_delay=0.25)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.set_pause(False)
+
+    def set_pause(self, paused: bool) -> None:
+        """Leader pauses one worker to reduce contention (worker.go:77-93)."""
+        with self._pause_cond:
+            self._paused = paused
+            self._pause_cond.notify_all()
+
+    def _check_paused(self) -> None:
+        """Pure condition-notify park: both exits (set_pause(False) and
+        stop(), which routes through set_pause) notify the condition, so
+        the 0.2s poll the loop used to carry bought nothing but wakeups —
+        at N workers it was N/0.2 spurious scheduler passes per second of
+        paused time."""
+        with self._pause_cond:
+            while self._paused and not self._stop.is_set():
+                self._pause_cond.wait()
+
+    def run(self) -> None:
+        batch_size = getattr(self.server.config, "eval_batch_size", 1)
+        while not self._stop.is_set():
+            self._check_paused()
+            if batch_size > 1:
+                batch = self._dequeue_batch(batch_size)
+                if not batch:
+                    continue
+                self.last_batch_size = len(batch)
+                if len(batch) == 1:
+                    self._process(*batch[0])
+                    continue
+                # Concurrent compatible evals (distinct jobs) from one
+                # broker drain: run them in parallel so their device
+                # solves stack into one coalesced dispatch
+                # (ops/coalesce.py; SURVEY.md §7 "Batched evals").
+                telemetry.add_sample(
+                    ("worker", "eval_batch_size"), float(len(batch))
+                )
+                # Announce the burst so the coalescer holds its dispatch
+                # until all of these evals' solves have stacked (or a
+                # short window passes) instead of fragmenting on their
+                # staggered host prep.
+                # Clamped at the dispatch chunk size: holding for more
+                # arrivals than one chunk can carry buys no coalescing.
+                burst_token = GLOBAL_SOLVER.hint_burst(
+                    min(len(batch), MAX_BATCH_BUCKET)
+                )
+
+                def process_burst_member(ev, token, wait_index):
+                    # Account this eval against ITS announced burst
+                    # exactly once: its first solve submit, or — for
+                    # evals that never reach the coalescer (exact-path
+                    # small counts, scale-downs, failed prep) — its
+                    # completion, so the hold never waits on a solve
+                    # that will never come.
+                    GLOBAL_SOLVER.burst_begin(burst_token)
+                    try:
+                        self._process(ev, token, wait_index)
+                    finally:
+                        GLOBAL_SOLVER.burst_done()
+
+                threads = [
+                    threading.Thread(
+                        target=process_burst_member,
+                        args=(ev, token, wait_index),
+                        daemon=True, name=f"{self.name}-batch{i}",
+                    )
+                    for i, (ev, token, wait_index) in enumerate(batch)
+                ]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            else:
+                dequeued = self._dequeue_evaluation()
+                if dequeued is None:
+                    continue
+                self._process(*dequeued)
+
+    def _process(self, ev: Evaluation, token: str,
+                 wait_index: int = 0) -> None:
+        # Wait for the local FSM to reach both the eval's modify index and
+        # the broker's wait_index (worker.go:209-230 + Dequeue WaitIndex):
+        # a redelivered eval's wait_index covers any plan an earlier
+        # delivery committed before a leader died — snapshotting short of
+        # it double-places the eval.
+        tracer = trace.get_tracer()
+        root_ctx = tracer.root_ctx(ev.id)
+        sync_span = tracer.start_span(
+            ev.id, "worker.wait_for_index", parent=root_ctx,
+            annotations={"index": max(ev.modify_index, wait_index)},
+        )
+        try:
+            self._wait_for_index(
+                max(ev.modify_index, wait_index), RAFT_SYNC_LIMIT
+            )
+        except TimeoutError as e:
+            sync_span.annotate("error", str(e)).finish()
+            self.logger.error("error waiting for state sync: %s", e)
+            self._send_ack(ev.id, token, ack=False)
+            return
+        sync_span.finish()
+        # Touch the broker's nack timer while the scheduler runs: a
+        # kernel's first build (nvcc at first use) can exceed
+        # eval_nack_timeout before any plan is submitted, and a redelivered eval mid-solve
+        # would double-schedule (OutstandingReset, eval_broker.go:396-412;
+        # the plan applier's reset only fires once a plan exists).
+        stop_touch = threading.Event()
+        interval = max(self.server.config.eval_nack_timeout / 3.0, 0.05)
+
+        def touch_loop():
+            while not stop_touch.wait(interval):
+                try:
+                    self.server.eval_touch(ev.id, token)
+                except BrokerError as e:
+                    # The eval is no longer outstanding (acked/nacked/lost
+                    # leadership): touching is moot.
+                    self.logger.debug(
+                        "eval touch stopped for %s: %s", ev.id, e
+                    )
+                    return
+                except Exception as e:
+                    # Transient forwarding failure (follower -> leader blip):
+                    # keep trying — one miss must not disable the keep-alive
+                    # for the rest of a long solve. Counted so a touch loop
+                    # that NEVER succeeds shows up in metrics, not just a
+                    # debug log (nomadlint EXC001).
+                    telemetry.incr_counter(("worker", "touch_error"))
+                    self.logger.debug(
+                        "eval touch failed for %s (retrying): %s", ev.id, e
+                    )
+
+        toucher = threading.Thread(
+            target=touch_loop, daemon=True, name=f"{self.name}-touch"
+        )
+        toucher.start()
+        # device_activity: scheduler invocation does device work on THIS
+        # thread (mirror uploads, result fetches);
+        # quiesce_all must be able to drain it before interpreter teardown
+        # — a daemon worker of a shut-down server can still be mid-solve.
+        inv_span = tracer.start_span(
+            ev.id, "worker.invoke_scheduler", parent=root_ctx,
+            annotations={"worker": self.name, "type": ev.type},
+        )
+        ok = False
+        try:
+            with device_activity(), trace.use_span(inv_span):
+                ok = self._invoke_scheduler(
+                    ev, token, planner=_EvalRun(self, token)
+                )
+        finally:
+            stop_touch.set()
+            inv_span.annotate("ok", ok).finish()
+        self._send_ack(ev.id, token, ack=ok)
+
+    # -- internals ---------------------------------------------------------
+
+    def _dequeue_evaluation(self) -> Optional[Tuple[Evaluation, str, int]]:
+        start = time.perf_counter()
+        try:
+            ev, token, wait_index = self.server.eval_dequeue(
+                self.server.config.enabled_schedulers, timeout=DEQUEUE_TIMEOUT
+            )
+        except BrokerError:
+            self._dequeue_backoff.sleep(stop=self._stop)
+            return None
+        except Exception as e:
+            # Transient cluster conditions (no leader yet, forwarding error)
+            telemetry.incr_counter(("worker", "dequeue_error"))
+            self.logger.debug("dequeue failed, retrying: %s", e)
+            self._dequeue_backoff.sleep(stop=self._stop)
+            return None
+        self._dequeue_backoff.reset()
+        if ev is None:
+            return None
+        telemetry.measure_since(("worker", "dequeue_eval"), start)
+        self.logger.debug("dequeued evaluation %s", ev.id)
+        return ev, token, wait_index
+
+    def _dequeue_batch(self, max_batch: int):
+        start = time.perf_counter()
+        try:
+            batch = self.server.eval_dequeue_batch(
+                self.server.config.enabled_schedulers, max_batch,
+                timeout=DEQUEUE_TIMEOUT,
+            )
+        except BrokerError:
+            self._dequeue_backoff.sleep(stop=self._stop)
+            return []
+        except Exception as e:
+            telemetry.incr_counter(("worker", "dequeue_error"))
+            self.logger.debug("batch dequeue failed, retrying: %s", e)
+            self._dequeue_backoff.sleep(stop=self._stop)
+            return []
+        self._dequeue_backoff.reset()
+        if batch:
+            telemetry.measure_since(("worker", "dequeue_eval"), start)
+            self.logger.debug(
+                "dequeued %d evaluation(s): %s",
+                len(batch), [ev.id for ev, _, _ in batch],
+            )
+        return batch
+
+    def _send_ack(self, eval_id: str, token: str, ack: bool) -> None:
+        """Best effort ack/nack (worker.go:172-202)."""
+        start = time.perf_counter()
+        try:
+            if ack:
+                self.server.eval_ack(eval_id, token)
+            else:
+                self.server.eval_nack(eval_id, token)
+        except Exception as e:
+            # Best-effort, but an ack that never lands re-delivers the
+            # eval after nack_timeout — count it so a systematically
+            # failing ack path alarms (nomadlint EXC001).
+            telemetry.incr_counter(
+                ("worker", "send_ack_error" if ack else "send_nack_error")
+            )
+            self.logger.error(
+                "failed to %s evaluation '%s': %s", "ack" if ack else "nack",
+                eval_id, e,
+            )
+        else:
+            telemetry.measure_since(
+                ("worker", "send_ack" if ack else "send_nack"), start
+            )
+
+    def _wait_for_index(self, index: int, timeout: float) -> None:
+        """Spin until the FSM has applied ``index`` (worker.go:204-230).
+        Timing recorded as nomad.worker.wait_for_index (worker.go:212)."""
+        t0 = time.perf_counter()
+        bo = Backoff(base=0.001, max_delay=0.1, jitter=0.0, deadline=timeout)
+        alive = True
+        while True:
+            if self.server.raft.applied_index >= index:
+                telemetry.measure_since(("worker", "wait_for_index"), t0)
+                return
+            if not alive:
+                raise TimeoutError("sync wait timeout reached")
+            alive = bo.sleep()  # one final index check after expiry
+
+    def _invoke_scheduler(self, ev: Evaluation, token: str,
+                          planner: Optional["_EvalRun"] = None) -> bool:
+        """worker.go:232-261. ``planner`` carries per-eval token/snapshot
+        state for batched processing; defaults to the worker itself (the
+        single-eval posture, kept for the legacy call shape)."""
+        start = time.perf_counter()
+        # Transaction timestamp BEFORE the snapshot: the snapshot can only
+        # be newer than the index read, so conflict attribution against it
+        # errs toward reporting a conflict, never toward missing one.
+        snapshot_index = self.server.raft.applied_index
+        snapshot = self.server.state_store.snapshot()
+        if planner is not None:
+            planner.snapshot_index = snapshot_index
+        if planner is None:
+            # Legacy single-eval posture only: concurrent batch threads
+            # must not stamp shared worker state (their token rides in
+            # the per-eval _EvalRun).
+            self.eval_token = token
+            self._snapshot = snapshot
+        try:
+            if ev.type == JOB_TYPE_CORE:
+                sched = CoreScheduler(self.server, snapshot)
+            else:
+                factory = self.server.config.scheduler_factory(ev.type)
+                sched = new_scheduler(
+                    factory, snapshot, planner or self, self.logger,
+                    device=self.server.device,
+                )
+            sched.process(ev)
+            telemetry.measure_since(("worker", "invoke_scheduler", ev.type), start)
+            return True
+        except Exception:
+            # The eval is nack'd by the caller (at-least-once redelivery),
+            # but a scheduler crash is the highest-signal failure a worker
+            # can see — counted per eval type (nomadlint EXC001).
+            telemetry.incr_counter(("worker", "scheduler_failure", ev.type))
+            self.logger.exception("failed to process evaluation %s", ev.id)
+            return False
+
+    # -- Planner interface (worker.go:263-396) ------------------------------
+
+    def submit_plan(self, plan: Plan) -> Tuple[PlanResult, Optional[object]]:
+        return _EvalRun(self, self.eval_token).submit_plan(plan)
+
+    def update_eval(self, ev: Evaluation) -> None:
+        self.server.eval_upsert([ev])
+
+    def create_eval(self, ev: Evaluation) -> None:
+        self.server.eval_upsert([ev])
+
+
+class _EvalRun:
+    """Per-eval Planner context (worker.go:263-396 semantics).
+
+    Batched workers process several evals concurrently; each carries its
+    own EvalToken so concurrent submit_plans can't stamp each other's
+    token (the split-brain guard checked at plan apply,
+    upstream nomad/plan_apply.go:53-58)."""
+
+    def __init__(self, worker: Worker, token: Optional[str]):
+        self.worker = worker
+        self.eval_token = token
+        # Raft applied index of the snapshot this eval is planning
+        # against; stamped by _invoke_scheduler and re-stamped on every
+        # forced refresh. Rides each plan as Plan.snapshot_index — the
+        # pipeline's conflict-attribution timestamp.
+        self.snapshot_index = 0
+
+    def submit_plan(self, plan: Plan) -> Tuple[PlanResult, Optional[object]]:
+        start = time.perf_counter()
+        plan.eval_token = self.eval_token
+        plan.snapshot_index = self.snapshot_index
+        # The submit span's context rides the request envelope
+        # (Plan.span_ctx) so the leader's applier parents its plan.* spans
+        # on it even across the RPC boundary.
+        tracer = trace.get_tracer()
+        span = tracer.start_span(
+            plan.eval_id, "worker.submit_plan",
+            parent=trace.current_span() or tracer.root_ctx(plan.eval_id),
+        )
+        plan.span_ctx = span.ctx()
+        try:
+            result = self.worker.server.plan_submit(plan)
+        finally:
+            span.finish()
+        telemetry.measure_since(("worker", "submit_plan"), start)
+
+        new_state = None
+        if result.refresh_index != 0:
+            # Stale data: wait for the log to catch up, then refresh
+            # (worker.go:304-322). The wait MUST also cover this plan's
+            # own commit (alloc_index): refresh_index alone can be lower,
+            # and a worker on a lagging follower would re-snapshot WITHOUT
+            # the allocs it just placed — then re-place them. (The chaos
+            # test's dominant duplicate-placement mode: partial plan →
+            # stale refresh → the remainder solve re-places the whole
+            # group.)
+            self.worker._wait_for_index(
+                max(result.refresh_index, result.alloc_index),
+                RAFT_SYNC_LIMIT,
+            )
+            self.snapshot_index = self.worker.server.raft.applied_index
+            new_state = self.worker.server.state_store.snapshot()
+        return result, new_state
+
+    def update_eval(self, ev: Evaluation) -> None:
+        self.worker.server.eval_upsert([ev])
+
+    def create_eval(self, ev: Evaluation) -> None:
+        self.worker.server.eval_upsert([ev])

@@ -26,6 +26,8 @@ hold the two forms equal.
 
 from __future__ import annotations
 
+import bisect
+import itertools
 from typing import Dict, FrozenSet, Iterator, List, Optional, Tuple
 
 from nomad_tpu_torch.structs import AllocBatch, Allocation, generate_uuid
@@ -38,6 +40,7 @@ class StoredAllocBlock(AllocBatch):
     __slots__ = (
         "block_id", "job_id", "create_index", "modify_index", "excluded",
         "_id_pos", "_node_run", "_live_counts", "_materialized",
+        "_run_ends",
     )
 
     def __init__(self, *args, **kwargs):
@@ -51,6 +54,7 @@ class StoredAllocBlock(AllocBatch):
         self._node_run: Optional[Dict[str, Tuple[int, int]]] = None
         self._live_counts: Optional[Dict[str, int]] = None
         self._materialized: Optional[List[Allocation]] = None
+        self._run_ends: Optional[List[int]] = None
 
     @classmethod
     def from_batch(cls, batch: AllocBatch, index: int) -> "StoredAllocBlock":
@@ -89,13 +93,17 @@ class StoredAllocBlock(AllocBatch):
         return runs
 
     def node_of_pos(self, pos: int) -> str:
-        """Node id owning position ``pos`` of the run-length encoding."""
-        scan = 0
-        for nid, cnt in zip(self.node_ids, self.node_counts):
-            if scan <= pos < scan + cnt:
-                return nid
-            scan += cnt
-        return ""
+        """Node id owning position ``pos`` of the run-length encoding: a
+        bisection over the runs' cumulative ends (cached), so promoting
+        every member of a block to an object row (a job's stop) costs
+        O(n log runs), not O(n runs)."""
+        ends = self._run_ends
+        if ends is None:
+            ends = list(itertools.accumulate(int(c) for c in self.node_counts))
+            self._run_ends = ends
+        if pos < 0 or not ends or pos >= ends[-1]:
+            return ""
+        return self.node_ids[bisect.bisect_right(ends, pos)]
 
     def live_counts_map(self) -> Dict[str, int]:
         """node_id → total live member count, duplicate runs summed
@@ -249,6 +257,7 @@ class StoredAllocBlock(AllocBatch):
         blk.excluded = self.excluded | frozenset(positions)
         blk._id_pos = self._id_pos
         blk._node_run = self._node_run
+        blk._run_ends = self._run_ends
         return blk
 
     # -- persistence (FSM snapshot stream) --------------------------------
@@ -282,6 +291,7 @@ class StoredAllocBlock(AllocBatch):
         self._node_run = None
         self._live_counts = None
         self._materialized = None
+        self._run_ends = None
 
     def to_wire(self) -> dict:
         d = super().to_wire()

@@ -260,15 +260,28 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
+# The server loop's modules, named so a walk that missed one still fails.
+SERVER_LOOP_MODULES = [
+    "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
+    "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
+    "nomad_tpu_torch.server.eval_broker", "nomad_tpu_torch.events",
+    "nomad_tpu_torch.faults", "nomad_tpu_torch.backoff",
+]
+
+
 def test_port_imports_without_jax_or_nomad_tpu():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['nomad_tpu'] = None\n"
         "import nomad_tpu_torch\n"
+        f"for name in {SERVER_LOOP_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
         "for m in pkgutil.walk_packages(nomad_tpu_torch.__path__,"
         " 'nomad_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None"
+        " and m.split('.')[0] in ('jax', 'nomad_tpu')]\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
