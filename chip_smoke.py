@@ -28,12 +28,24 @@ Phases, each printing its own lines:
    (nomad_tpu_torch.server: eval broker, worker, plan queue, plan
    pipeline, FSM) on the card, by node_batch_register. The headline job
    and the service job, each 1 warm-up and 5 timed rounds of register ->
-   complete -> deregister -> complete, and (after a warm-up round) an
-   8-eval burst drained by one worker (eval_batch_size=8). Each round checks the COMMITTED allocs in
-   the server's state store (count, datacenter, constraint, and every
-   node's summed asks within its capacity, in numpy) and that every eval
-   ended complete. Logs register->complete and deregister->complete p50
-   and placements/s, and the p50 of each span stage from the tracer.
+   complete -> deregister -> complete, and, on a fresh server once its
+   start-time warm is done, an 8-eval burst drained by one worker
+   (eval_batch_size=8) as one width-8 dispatch. Each round checks the
+   COMMITTED allocs in the server's state store (count, datacenter,
+   constraint, and every node's summed asks within its capacity, in
+   numpy) and that every eval ended complete. Logs register->complete and
+   deregister->complete p50 and placements/s, and the p50 of each span
+   stage from the tracer.
+7. cluster: a three-member ClusterServer cell (raft over loopback RPC,
+   workers on every member, one card). The 10,000 nodes through a
+   follower (forwarded, then replicated); the headline and the service
+   job, each 1 warm-up and 3 timed rounds of register (through a
+   follower) -> complete -> deregister -> complete, with the time until
+   every member has applied each and check_committed on every member's
+   store; then 8 batch jobs of 12,500 tasks through the leader, the
+   leader shut down at a seeded point of their flight, and every eval
+   complete on the survivors with exactly 12,500 live tasks per job on
+   dc1 and no node over capacity, on both survivors' stores.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -770,10 +782,7 @@ def phase_burst(h, dev):
     by_eval = {p.eval_id: p for p in plans}
     placed = sum(check_plan(h.state, by_eval[ev.id], j, BURST_TASKS)
                  for j, ev in zip(jobs, evs))
-    after = SOLVER_PANEL.snapshot()["batch_widths"]
-    widths = {w: row["dispatches"] - before.get(w, {}).get("dispatches", 0)
-              for w, row in after.items()}
-    widths = {w: d for w, d in widths.items() if d}
+    widths = dispatch_widths(before)
     if launches == 0:
         raise AssertionError("the burst never launched the water-fill")
     log(f"burst: {BURST_EVALS} evals x {BURST_TASKS} tasks placed={placed} "
@@ -788,10 +797,13 @@ def phase_burst(h, dev):
 SERVER_HEARTBEAT_TTL_S = 3600.0
 SERVER_WAIT_S = 120.0
 # Span stages read from each eval's trace, in pipeline order. The solver's
-# four cuts are children of worker.invoke_scheduler. The last is derived:
-# worker.submit_plan less the three plan.* spans inside it, the hand-offs
-# between the worker and the plan pipeline's thread that no span covers.
-SERVER_STAGES = ("broker.wait", "worker.invoke_scheduler", "solver.staging",
+# four cuts are children of worker.invoke_scheduler. worker.wait_for_index
+# is a follower's worker waiting for the eval's raft index to reach its
+# own store. The last is derived: worker.submit_plan less the three plan.*
+# spans inside it, the hand-offs between the worker and the plan
+# pipeline's thread that no span covers.
+SERVER_STAGES = ("broker.wait", "worker.wait_for_index",
+                 "worker.invoke_scheduler", "solver.staging",
                  "solver.transfer", "solver.execute", "solver.readback",
                  "worker.submit_plan", "plan.queue_wait", "plan.evaluate",
                  "plan.apply", "fsm.apply:alloc_update",
@@ -937,7 +949,21 @@ def log_server_summary(label: str, tasks: int, reg_ms, dereg_ms, stages):
          for k in SERVER_STAGES}))
 
 
+def dispatch_widths(before):
+    """Coalesced dispatches per eval-axis width since ``before`` (a
+    SOLVER_PANEL batch_widths snapshot), widths with none left out."""
+    from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
+
+    after = SOLVER_PANEL.snapshot()["batch_widths"]
+    widths = {w: row["dispatches"] - before.get(w, {}).get("dispatches", 0)
+              for w, row in after.items()}
+    return {w: d for w, d in widths.items() if d}
+
+
 def new_server(dev, **kw):
+    """A started Server (prewarm_shapes on, its default) holding the
+    10,000 nodes, returned once its start-time warmer has warmed them:
+    the warmer's dispatch count is watched, not a sleep."""
     from nomad_tpu_torch.server.server import Server, ServerConfig
 
     srv = Server(ServerConfig(scheduler_backend="tpu", device=str(dev),
@@ -946,8 +972,16 @@ def new_server(dev, **kw):
     srv.start()
     t0 = time.perf_counter()
     srv.node_batch_register(cluster_nodes())
+    t1 = time.perf_counter()
     log(f"server: {N_NODES} nodes by node_batch_register in "
-        f"{(time.perf_counter() - t0) * 1000.0:.1f} ms")
+        f"{(t1 - t0) * 1000.0:.1f} ms")
+    deadline = t1 + SERVER_WAIT_S
+    while srv.warm_dispatches == 0:
+        if time.perf_counter() > deadline:
+            raise AssertionError("the server's start-time warm did not run")
+        time.sleep(0.005)
+    log(f"server: start-time warm done {(time.perf_counter() - t1) * 1000.0:.1f}"
+        f" ms after registration, {srv.warm_dispatches} dispatches")
     return srv
 
 
@@ -986,8 +1020,9 @@ def phase_server(dev):
 
 
 def phase_server_burst(dev):
-    """After one warm-up round, 8 batch jobs of 12,500 dc1 tasks registered
-    while the one worker is paused, then drained by it as one broker batch
+    """On a fresh server, once its start-time warm is done (no warm-up
+    round), 8 batch jobs of 12,500 dc1 tasks registered while the one
+    worker is paused, then drained by it as one broker batch
     (eval_batch_size=8): one width-8 water-fill dispatch. Returns the
     water-fill launches."""
     from nomad_tpu_torch import structs
@@ -997,14 +1032,6 @@ def phase_server_burst(dev):
 
     srv = new_server(dev, num_schedulers=1, eval_batch_size=BURST_EVALS)
     try:
-        # Warm-up round: this server's first eval builds its mirror, which
-        # would otherwise stagger the members' arrivals past the
-        # coalescer's burst hold.
-        reg, dereg, _, _ = server_round(srv, make_job(
-            "server-burst-warm", structs.JOB_TYPE_BATCH, BURST_TASKS,
-            ["dc1"]))
-        log(f"server burst warm-up: register_ms={reg:.2f} "
-            f"deregister_ms={dereg:.2f}")
         worker = srv.workers[0]
         worker.set_pause(True)
         # The worker parks once its current dequeue times out.
@@ -1021,15 +1048,12 @@ def phase_server_burst(dev):
         launches = waterfill.LAUNCHES
         snap = srv.state_store.snapshot()
         placed = sum(check_committed(snap, j, BURST_TASKS) for j in jobs)
-        after = SOLVER_PANEL.snapshot()["batch_widths"]
-        widths = {w: row["dispatches"] - before.get(w, {}).get("dispatches", 0)
-                  for w, row in after.items()}
-        widths = {w: d for w, d in widths.items() if d}
+        widths = dispatch_widths(before)
         if worker.last_batch_size != BURST_EVALS:
             raise AssertionError(f"the worker drained {worker.last_batch_size}"
                                  f" evals at once, want {BURST_EVALS}")
-        if not widths.get(str(BURST_EVALS)):
-            raise AssertionError("the server burst made no width-"
+        if widths != {str(BURST_EVALS): 1}:
+            raise AssertionError("the server burst was not one width-"
                                  f"{BURST_EVALS} water-fill dispatch: "
                                  f"{widths}")
         if launches == 0:
@@ -1047,6 +1071,305 @@ def phase_server_burst(dev):
     finally:
         srv.shutdown()
     return launches
+
+
+# -- the cluster tier ------------------------------------------------------------
+
+CLUSTER_MEMBERS = 3
+CLUSTER_ROUNDS = 3
+# Raft timing for three members' raft, RPC, broker, worker and pipeline
+# threads in one interpreter (nomad_tpu's tests widen theirs by the stall
+# they measure): 0.1 s heartbeats, 10-15 s elections. A raft node applies
+# committed entries under its lock, as nomad_tpu's does, and the headline
+# deregister's entry (100,000 stops) holds it 3.6-6.1 s on each member of
+# this cell on the H100's host: no heartbeat leaves the leader meanwhile.
+# With 1-2 s elections every such deregister cost 4-8 elections, and one
+# never completed: its plan was resubmitted across leader changes until
+# the wait ran out.
+CLUSTER_RAFT = dict(heartbeat_interval=0.1, election_timeout_min=10.0,
+                    election_timeout_max=15.0)
+# Nodes per Node.BatchRegister frame through the follower (all of them in
+# one frame, under the RPC tier's 64 MB cap).
+CLUSTER_NODE_CHUNK = N_NODES
+# Leader death: the kill lands this long (seeded draw, seconds) after the
+# burst's last registration, inside its flight window.
+CLUSTER_KILL_S = (0.0, 0.15)
+
+
+def cluster_call(fn, what: str):
+    """A cluster write through a member, retried across a leader change
+    (NotLeaderError, transport errors); each retry is logged."""
+    from nomad_tpu_torch.raft import NotLeaderError
+    from nomad_tpu_torch.rpc import RemoteError, RPCError
+
+    deadline = time.perf_counter() + SERVER_WAIT_S
+    while True:
+        try:
+            return fn()
+        except (NotLeaderError, RPCError) as exc:
+            if (isinstance(exc, RemoteError)
+                    and "not the leader" not in str(exc)):
+                raise
+            if time.perf_counter() > deadline:
+                raise
+            log(f"cluster: {what} retried after {type(exc).__name__}: {exc}")
+            time.sleep(0.05)
+
+
+def current_leader(servers):
+    from nomad_tpu_torch.server.cluster import wait_for_leader
+
+    return wait_for_leader(servers, timeout=SERVER_WAIT_S)
+
+
+def terms(servers):
+    return [s.raft.current_term for s in servers]
+
+
+def wait_members(servers, eval_id: str, index: int) -> float:
+    """Poll every member (0.5 ms) until it has applied ``index`` and its
+    store shows ``eval_id`` complete; returns the stamp of the last."""
+    from nomad_tpu_torch import structs
+
+    deadline = time.perf_counter() + SERVER_WAIT_S
+    pending = list(servers)
+    while pending:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{len(pending)} member(s) never applied "
+                                 f"index {index}")
+        for srv in list(pending):
+            ev = srv.state_store.eval_by_id(eval_id)
+            if (srv.raft.applied_index >= index and ev is not None
+                    and ev.status == structs.EVAL_STATUS_COMPLETE):
+                pending.remove(srv)
+        time.sleep(0.0005)
+    return time.perf_counter()
+
+
+def fsm_applies(msg_type: str, since: int):
+    """ms of the FSM applies of ``msg_type`` recorded (by every member of
+    the process) after the first ``since`` samples, longest first."""
+    from nomad_tpu_torch import telemetry
+
+    return sorted(telemetry.samples(("fsm", "apply", msg_type))[since:],
+                  reverse=True)
+
+
+def n_fsm_applies(msg_type: str) -> int:
+    from nomad_tpu_torch import telemetry
+
+    return len(telemetry.samples(("fsm", "apply", msg_type)))
+
+
+def settle(servers, index: int) -> None:
+    """Wait until every member has applied ``index`` and a leader is
+    known, so the next timed step starts on a quiet cell."""
+    deadline = time.perf_counter() + SERVER_WAIT_S
+    while min(s.raft.applied_index for s in servers) < index:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"members never applied index {index}")
+        time.sleep(0.0005)
+    current_leader(servers)
+
+
+def cluster_round(servers, leader, follower, job):
+    """register through ``follower`` -> complete on the leader -> every
+    member applied and checked; the same for the deregister; then the
+    leader reaps the round and the cell settles (every member applied
+    the reap) before the next round. Returns (register ms, all-members
+    ms, deregister ms, dereg all-members ms, live, eval id, notes)."""
+    want = job.task_groups[0].count
+    terms0 = terms(servers)
+    t0 = time.perf_counter()
+    eid, _ = cluster_call(lambda: follower.job_register(job), "Job.Register")
+    reg = (wait_complete(leader, eid) - t0) * 1000.0
+    every = (wait_members(servers, eid, leader.raft.applied_index)
+             - t0) * 1000.0
+    lives = [check_committed(s.state_store.snapshot(), job, want)
+             for s in servers]
+    terms1 = terms(servers)
+    n_alloc = n_fsm_applies("alloc_update")
+    t0 = time.perf_counter()
+    did, _ = cluster_call(lambda: follower.job_deregister(job.id),
+                          "Job.Deregister")
+    dereg = (wait_complete(leader, did) - t0) * 1000.0
+    dereg_every = (wait_members(servers, did, leader.raft.applied_index)
+                   - t0) * 1000.0
+    stop_applies = fsm_applies("alloc_update", n_alloc)[:CLUSTER_MEMBERS]
+    terms2 = terms(servers)
+    for srv in servers:
+        check_committed(srv.state_store.snapshot(), job, 0)
+    snap = leader.state_store.snapshot()
+    stopped = [a.id for a in snap.allocs_by_job(job.id)]
+    n_delete = n_fsm_applies("eval_delete")
+    t0 = time.perf_counter()
+    index = cluster_call(lambda: current_leader(servers).eval_reap(
+        [eid, did], stopped), "reap")
+    settle(servers, index)
+    notes = {
+        "terms": [terms0, terms1, terms2, terms(servers)],
+        "stop_fsm_apply_ms": [round(x, 1) for x in stop_applies],
+        "reap_settled_ms": round((time.perf_counter() - t0) * 1000.0, 1),
+        "reap_fsm_apply_ms": [round(x, 1) for x in
+                              fsm_applies("eval_delete", n_delete)[:3]],
+    }
+    return reg, every, dereg, dereg_every, lives[0], eid, notes
+
+
+def cluster_rounds(servers, job, label: str):
+    """1 warm-up and CLUSTER_ROUNDS timed cluster_rounds, each through a
+    follower of the leader of the moment."""
+    rows = []
+    for i in range(1 + CLUSTER_ROUNDS):
+        leader = current_leader(servers)
+        follower = next(s for s in servers if s is not leader)
+        reg, every, dereg, dereg_every, live, eid, notes = cluster_round(
+            servers, leader, follower, job)
+        st = eval_stages(eid)
+        if i:
+            rows.append((reg, every, dereg, dereg_every, st))
+        # terms: before the register, after it, after the deregister,
+        # after the reap settled; a rise is an election.
+        log(f"cluster {label} round {i}{' (warm-up)' if i == 0 else ''}: "
+            f"committed={live} on each of {len(servers)} members "
+            f"register_ms={reg:.2f} all_members_ms={every:.2f} "
+            f"deregister_ms={dereg:.2f} "
+            f"deregister_all_members_ms={dereg_every:.2f} "
+            f"{json.dumps(notes)} stages_ms="
+            + json.dumps({k: round(st.get(k, 0.0), 3)
+                          for k in SERVER_STAGES}))
+    tasks = job.task_groups[0].count
+    reg = p50([r[0] for r in rows])
+    log(f"cluster {label}: register_complete_p50_ms={reg:.3f} "
+        f"placements_per_s={tasks / (reg / 1000.0):.0f} "
+        f"all_members_p50_ms={p50([r[1] for r in rows]):.3f} "
+        f"deregister_complete_p50_ms={p50([r[2] for r in rows]):.3f} "
+        f"deregister_all_members_p50_ms={p50([r[3] for r in rows]):.3f}")
+    log(f"cluster {label} stage p50 ms: " + json.dumps(
+        {k: round(p50([r[4].get(k, 0.0) for r in rows]), 3)
+         for k in SERVER_STAGES}))
+
+
+def cluster_leader_death(servers, rng):
+    """8 batch jobs of 12,500 dc1 tasks through the leader, the leader
+    shut down at a seeded point of the burst's flight; the survivors
+    elect, finish every eval, and each survivor's store holds exactly
+    12,500 live tasks per job on dc1 with no node over capacity. Returns
+    the survivors."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.server.cluster import wait_for_leader
+    from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
+
+    leader = wait_for_leader(servers, timeout=SERVER_WAIT_S)
+    jobs = [make_job(f"cluster-burst-{i}", structs.JOB_TYPE_BATCH,
+                     BURST_TASKS, ["dc1"]) for i in range(BURST_EVALS)]
+    before = dict(SOLVER_PANEL.snapshot()["batch_widths"])
+    t0 = time.perf_counter()
+    eids = [cluster_call(lambda j=j: leader.job_register(j),
+                         "Job.Register")[0] for j in jobs]
+    delay = float(rng.uniform(*CLUSTER_KILL_S))
+    time.sleep(delay)
+    done_at_kill = sum(
+        1 for eid in eids
+        if getattr(leader.state_store.eval_by_id(eid), "status", "")
+        == structs.EVAL_STATUS_COMPLETE)
+    t_kill = time.perf_counter()
+    drained = leader.shutdown(drain_timeout=1.0)
+    t_down = time.perf_counter()
+    survivors = [s for s in servers if s is not leader]
+    new_leader = wait_for_leader(survivors, timeout=SERVER_WAIT_S)
+    t_elect = time.perf_counter()
+    done = max(wait_complete(new_leader, eid) for eid in eids)
+    wait_members(survivors, eids[-1], new_leader.raft.applied_index)
+    widths = dispatch_widths(before)
+    for srv in survivors:
+        snap = srv.state_store.snapshot()
+        for eid in eids:
+            ev = snap.eval_by_id(eid)
+            if ev is None or ev.status != structs.EVAL_STATUS_COMPLETE:
+                raise AssertionError(f"eval {eid} not complete on "
+                                     f"{srv.cluster.node_id}")
+        placed = sum(check_committed(snap, j, BURST_TASKS) for j in jobs)
+        log(f"cluster leader death: {srv.cluster.node_id} holds "
+            f"{placed} live tasks of {BURST_EVALS} jobs x {BURST_TASKS}")
+    log(f"cluster leader death: killed {leader.cluster.node_id} "
+        f"{(t_kill - t0) * 1000.0:.1f} ms after the first registration "
+        f"(seeded delay {delay * 1000.0:.1f} ms, {done_at_kill} of "
+        f"{BURST_EVALS} evals complete at the kill), shutdown "
+        f"{(t_down - t_kill) * 1000.0:.1f} ms (drained={drained}), "
+        f"new leader {new_leader.cluster.node_id} "
+        f"{(t_elect - t_kill) * 1000.0:.1f} ms after the kill, every eval "
+        f"complete {(done - t_kill) * 1000.0:.1f} ms after the kill, "
+        f"terms={terms(survivors)}, dispatch widths of every member's "
+        f"workers together {json.dumps(widths)}")
+    return survivors
+
+
+def phase_cluster(dev, rng):
+    """The headline, the service job and a leader death through a
+    three-member ClusterServer cell on the card. Returns (water-fill
+    launches, greedy launches) of the phase."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.server.cluster import (
+        ClusterConfig, form_cluster, wait_for_leader,
+    )
+    from nomad_tpu_torch.server.server import ServerConfig
+
+    waterfill.LAUNCHES = 0
+    greedy.LAUNCHES = 0
+    t0 = time.perf_counter()
+    servers = form_cluster(CLUSTER_MEMBERS, ServerConfig(
+        scheduler_backend="tpu", device=str(dev),
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL_S,
+    ), base_cluster=ClusterConfig(bind_host="127.0.0.1", **CLUSTER_RAFT))
+    live = servers
+    try:
+        leader = wait_for_leader(servers, timeout=SERVER_WAIT_S)
+        log(f"cluster: {CLUSTER_MEMBERS} members, leader "
+            f"{leader.cluster.node_id} after "
+            f"{(time.perf_counter() - t0) * 1000.0:.1f} ms")
+        follower = next(s for s in servers if s is not leader)
+        nodes = cluster_nodes()
+        before = terms(servers)
+        t0 = time.perf_counter()
+        for start in range(0, N_NODES, CLUSTER_NODE_CHUNK):
+            chunk = nodes[start:start + CLUSTER_NODE_CHUNK]
+            cluster_call(lambda c=chunk: follower.node_batch_register(c),
+                         "Node.BatchRegister")
+        t1 = time.perf_counter()
+        index = max(s.raft.applied_index for s in servers)
+        deadline = t1 + SERVER_WAIT_S
+        while min(s.raft.applied_index for s in servers) < index:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the node registration never reached "
+                                     "every member")
+            time.sleep(0.0005)
+        counts = [len(s.state_store.nodes()) for s in servers]
+        if counts != [N_NODES] * CLUSTER_MEMBERS:
+            raise AssertionError(f"members hold {counts} nodes")
+        log(f"cluster: {N_NODES} nodes through follower "
+            f"{follower.cluster.node_id} in frames of {CLUSTER_NODE_CHUNK}: "
+            f"{(t1 - t0) * 1000.0:.1f} ms to the reply, "
+            f"{(time.perf_counter() - t0) * 1000.0:.1f} ms to every member, "
+            f"terms={before}->{terms(servers)}")
+
+        cluster_rounds(servers, make_job(
+            "cluster-batch", structs.JOB_TYPE_BATCH, N_TASKS, ["dc1"]),
+            "headline")
+        cluster_rounds(servers, make_job(
+            "cluster-svc", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+            ["dc1", "dc2"]), "service")
+        live = cluster_leader_death(servers, rng)
+    finally:
+        for srv in live:
+            srv.shutdown()
+    wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+    log(f"cluster: waterfill_launches={wf} greedy_launches={gr}")
+    if wf == 0 or gr == 0:
+        raise AssertionError("the cluster phase did not launch both hand "
+                             f"kernels (water-fill {wf}, greedy {gr})")
+    return wf, gr
 
 
 def main() -> int:
@@ -1101,6 +1424,11 @@ def main() -> int:
     # 6. the server loop
     wf, gr = phase_server(dev)
     wf_launches += wf + phase_server_burst(dev)
+    gr_launches += gr
+
+    # 7. the cluster tier
+    wf, gr = phase_cluster(dev, rng)
+    wf_launches += wf
     gr_launches += gr
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]

@@ -5,8 +5,8 @@ Port of nomad_tpu/backoff.py's ``Backoff``: with d = min(cap,
 base*2^n), the sleep is drawn U(d*(1-jitter), d] ("equal jitter" at the
 default jitter=0.5; 1.0 gives full jitter), so workers retrying the same
 broker decorrelate while every retry still waits a floor that backs off.
-The RPC retry rule (``retry_undelivered``) comes with the RPC tier, and
-the port has no circuit breaker: a device fault fails the eval.
+``retry_undelivered`` is the RPC tier's one safe auto-retry. The port has
+no circuit breaker: a device fault fails the eval.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import random as _random
 import threading
 import time
 from random import Random
-from typing import Optional
+from typing import Callable, Optional
+
+from nomad_tpu_torch import telemetry
 
 
 class Backoff:
@@ -86,3 +88,66 @@ class Backoff:
         else:
             time.sleep(delay)
         return not self.expired
+
+
+# Ceiling on honoring a server's retry-after hint in one sleep: a hint of
+# minutes is the server's honest schedule, but a synchronous caller
+# blocked that long has usually out-lived its own deadline — surface the
+# typed rejection instead and let the caller decide.
+MAX_RETRY_AFTER_SLEEP = 30.0
+
+
+def retry_undelivered(fn: Callable, retries: int = 2,
+                      backoff: Optional[Backoff] = None,
+                      rate_limit_retries: int = 2):
+    """Run ``fn`` retrying only failures that are PROVABLY side-effect
+    free to replay.
+
+    Two such classes exist (rpc.py's RPCUndeliveredError and
+    structs.RejectError):
+
+    - RPCUndeliveredError: the frame never reached the peer — the handler
+      never ran, so even non-idempotent RPCs replay safely.
+    - A typed ``RATE_LIMITED`` rejection (nomad_tpu's admission front
+      door; the port has none yet, but a port client talking to a
+      nomad_tpu server may meet one): raised BEFORE any raft apply, so
+      nothing executed; the retry sleeps max(the server's retry-after
+      hint, the jittered backoff), bounded by ``rate_limit_retries``.
+
+    Every other rejection reason surfaces immediately as a typed
+    RejectError. Anything else (RemoteError, RPCTimeoutError, plain
+    RPCError) may have executed remotely and surfaces unchanged.
+    """
+    from nomad_tpu_torch.rpc import RemoteError, RPCUndeliveredError
+    from nomad_tpu_torch.structs import REJECT_RATE_LIMITED, parse_reject
+
+    bo = backoff or Backoff(base=0.05, max_delay=0.5)
+    attempt = 0
+    rl_attempt = 0
+    while True:
+        try:
+            return fn()
+        except RPCUndeliveredError:
+            attempt += 1
+            if attempt > retries:
+                raise
+            telemetry.incr_counter(("rpc", "client", "retry_undelivered"))
+            if not bo.sleep():
+                raise
+        except RemoteError as e:
+            rejection = parse_reject(str(e))
+            if rejection is None:
+                raise
+            if (rejection.reason != REJECT_RATE_LIMITED
+                    or rl_attempt >= rate_limit_retries
+                    or rejection.retry_after > MAX_RETRY_AFTER_SLEEP
+                    or bo.expired):
+                raise rejection from e
+            delay = max(rejection.retry_after, bo.next_delay())
+            if bo.deadline is not None:
+                remaining = bo.deadline - time.monotonic()
+                if delay > remaining:
+                    raise rejection from e
+            rl_attempt += 1
+            telemetry.incr_counter(("rpc", "client", "retry_rate_limited"))
+            time.sleep(delay)

@@ -7,14 +7,31 @@ nack/delivery-limit reaping (upstream nomad/eval_broker.go), missed
 heartbeats marking nodes down (nomad/heartbeat.go:84-104), Raft failover —
 and this module makes those paths drivable on demand, deterministically.
 
-Port of nomad_tpu/faults.py. The port fires the sites of the server loop
-it has; the RPC, raft-replication and ``solver.execute`` sites arrive with
-the slices that hold those paths, and until then arming one is rejected
-(an inert rule would read as a chaos run that injected nothing).
+Port of nomad_tpu/faults.py. The port fires the sites of the paths it
+has: the RPC tier, raft replication and the server loop. The
+``solver.execute`` site arrives with the slice that ports it, and until
+then arming it is rejected (an inert rule would read as a chaos run that
+injected nothing).
 
 Sites (the contract between this registry and the hot paths):
 
 ==================  =========================================================
+``rpc.send``        ConnPool.call, before the frame is written. ``drop`` /
+                    ``partition`` raise RPCUndeliveredError (the frame never
+                    left: provably-undelivered, retry-safe); ``error`` raises
+                    RPCError; ``delay`` sleeps. Target: ``"<addr> <method>"``.
+``rpc.recv``        RPCServer dispatch. ``drop`` runs the handler but
+                    swallows the response — the caller times out with the
+                    request POSSIBLY EXECUTED (RPCTimeoutError), the half of
+                    the undelivered-vs-executed distinction a client-side
+                    drop cannot produce; ``error`` fails the request WITHOUT
+                    running the handler; ``delay`` sleeps before dispatch.
+                    Target: the method name.
+``raft.append``     Leader replication fan-out (message loss). ``drop``
+                    skips one AppendEntries/InstallSnapshot to one peer.
+                    Target: ``"<self>-><peer>"`` so one-way partitions can
+                    match a single direction of a single edge.
+``raft.vote``       Candidate RequestVote fan-out; same semantics/target.
 ``fsm.apply``       State-machine apply. Only ``delay`` is honored (other
                     modes are REJECTED at arm time, see SITE_MODES): an
                     injected per-replica error would make a deterministic
@@ -46,7 +63,7 @@ decide() draws. Armed/disarmed transitions are counted per rule
 ``window_disarmed``); a rule past its last window's end is spent.
 
 The disabled path costs one module-global read and a falsy check — cheap
-enough for the fsm hot path. Every injected fault is counted in telemetry
+enough for rpc/fsm hot paths. Every injected fault is counted in telemetry
 (``faults.<site>.<mode>``) and annotated on the active trace span.
 
 Configured through ``get_registry().configure`` or ``.load``; the agent
@@ -69,6 +86,10 @@ from nomad_tpu_torch import telemetry, trace
 # telemetry/annotations, so a typo'd plan would read as a passing chaos
 # run that injected nothing.
 SITE_MODES = {
+    "rpc.send": ("drop", "delay", "error", "partition"),
+    "rpc.recv": ("drop", "delay", "error", "partition"),
+    "raft.append": ("drop", "delay", "partition"),
+    "raft.vote": ("drop", "delay", "partition"),
     "fsm.apply": ("delay",),
     "broker.dequeue": ("drop", "delay", "error"),
     "heartbeat.tick": ("drop", "delay", "partition"),

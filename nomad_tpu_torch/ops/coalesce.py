@@ -18,7 +18,10 @@ Differences from nomad_tpu, on purpose:
 - no mesh: one device;
 - kernels launch on the default CUDA stream; a recorded CUDA event marks
   each dispatch's completion for the fetchers;
-- no warm-up of shape buckets: there is no compile per shape to warm.
+- the warm-ups (``warm_batch_shapes``, ``warm_exact_batch_shapes``) have
+  no compile to key on: what they warm is what a width's first dispatch
+  allocates (the stacked [B, N] inputs, the water-fill's scratch above
+  131,072 rows) and the kernels' first load.
 """
 
 from __future__ import annotations
@@ -393,6 +396,66 @@ def _stack_and_solve_exact(rows, k: int, jd: bool, td: bool):
     return idxs, oks
 
 
+def _noop_row(n_padded: int, device):
+    """One no-op solve row at a node bucket: zero capacity, nothing
+    eligible, count 0."""
+    zero4 = torch.zeros((n_padded, 4), dtype=torch.int32, device=device)
+    zcap = torch.zeros((n_padded, 2), dtype=torch.float32, device=device)
+    zvec = torch.zeros((n_padded,), dtype=torch.int32, device=device)
+    elig = torch.zeros((n_padded,), dtype=torch.bool, device=device)
+    return (zero4, zcap, zero4, zvec, zvec, zvec, zvec, elig,
+            torch.zeros((4,), dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device),
+            0, 0.0, False, False)
+
+
+def warm_batch_shapes(n_padded: int, buckets=(1, 2, 4, 8), stop=None,
+                      device=None) -> int:
+    """Warm the water-fill for each eval-axis width at one node bucket,
+    through the coalescer's own stacking (_stack_and_solve), so warm
+    shapes can't drift from real dispatch shapes. Dispatch chunking caps
+    real batches at MAX_BATCH_BUCKET, so the default widths are all of
+    them. Values are no-op solves (count 0). ``device`` defaults to the
+    CUDA card. Returns the number of dispatches issued."""
+    from nomad_tpu_torch.device import resolve_device
+
+    row = _noop_row(n_padded, resolve_device(device))
+    done = 0
+    with device_activity():
+        for b in buckets:
+            if stop is not None and stop():
+                return done
+            counts, _rem = _stack_and_solve([row] * b, False, False)
+            counts.cpu()  # wait for the launch
+            done += 1
+    return done
+
+
+def warm_exact_batch_shapes(n_padded: int, counts=(8, 16, 32, 64, 128),
+                            buckets=(2, 4, 8), stop=None,
+                            device=None) -> int:
+    """Warm the STACKED exact greedy scan for each (count bucket ×
+    eval-axis width) at one node bucket. Width 1 is warmed by
+    warm_shapes' real solve_group dispatches; the widths here are the
+    coalesced ones a burst's first drain would otherwise meet cold. Runs
+    through _stack_and_solve_exact — the SAME stacking real dispatches
+    use. Returns the number of dispatches issued."""
+    from nomad_tpu_torch.device import resolve_device
+
+    row = _noop_row(n_padded, resolve_device(device))
+    done = 0
+    with device_activity():
+        for k in sorted({bucket(c) for c in counts}):
+            for b in buckets:
+                if stop is not None and stop():
+                    return done
+                idxs, _oks = _stack_and_solve_exact([row] * b, k, False,
+                                                    False)
+                idxs.cpu()  # wait for the launch
+                done += 1
+    return done
+
+
 # Process-wide engine shared by all workers (like GLOBAL_MIRROR_CACHE).
 GLOBAL_SOLVER = CoalescingSolver()
 
@@ -419,6 +482,17 @@ class device_activity:
         with _activity_lock:
             _active_direct -= 1
         return False
+
+
+def device_work() -> Dict[str, int]:
+    """Device work in flight right now: solves queued in the coalescer,
+    dispatches running, and threads inside device_activity."""
+    with GLOBAL_SOLVER._lock:
+        queued = len(GLOBAL_SOLVER._pending)
+        dispatching = GLOBAL_SOLVER._active
+    with _activity_lock:
+        direct = _active_direct
+    return {"queued": queued, "dispatching": dispatching, "direct": direct}
 
 
 def quiesce_all(timeout: float = 10.0) -> bool:

@@ -15,6 +15,7 @@ with those observatories.
 
 from __future__ import annotations
 
+import io
 import logging
 import pickle
 import threading
@@ -28,6 +29,7 @@ if TYPE_CHECKING:  # injected collaborator; import would be circular
     from nomad_tpu_torch.server.eval_broker import EvalBroker
 from nomad_tpu_torch.events import EventBroker
 from nomad_tpu_torch.state import StateStore
+from nomad_tpu_torch.structs import expand_stop_runs
 
 
 class FSM:
@@ -182,6 +184,12 @@ class FSM:
 
     def _apply_alloc_update(self, index: int, payload: dict) -> None:
         allocs = payload.get("allocs") or []
+        stopped = payload.get("allocs_stopped")
+        if stopped:
+            # Stops that crossed the wire as ids (structs.stop_runs): the
+            # copies are rebuilt from this replica's store, ahead of the
+            # rest as in the plan's own order.
+            allocs = expand_stop_runs(stopped, self.state.alloc_by_id) + allocs
         if allocs:
             self.state.upsert_allocs(index, allocs)
             # Per-alloc events only for object rows: bounded by plan size.
@@ -264,8 +272,9 @@ class FSM:
         return pickle.dumps(payload)
 
     def restore_bytes(self, data: bytes) -> None:
-        """Rebuild a fresh state store from a snapshot (fsm.go:313-410)."""
-        payload = pickle.loads(data)
+        """Rebuild a fresh state store from a snapshot (fsm.go:313-410).
+        Reads nomad_tpu's snapshots too (see _SnapshotUnpickler)."""
+        payload = _SnapshotUnpickler(io.BytesIO(data)).load()
         old_store = self.state
         self.state = StateStore()
         # The watcher-registration cap is configuration, not state: a
@@ -288,6 +297,20 @@ class FSM:
         # Blocking queries parked on the replaced store would never be
         # notified again; wake them so they re-check against the live one.
         old_store.watch.notify_all()
+
+
+class _SnapshotUnpickler(pickle.Unpickler):
+    """A snapshot written by nomad_tpu's FSM names its classes by
+    nomad_tpu's module paths (``nomad_tpu.structs``,
+    ``nomad_tpu.state.blocks``); the port holds copies of those classes
+    under ``nomad_tpu_torch``. Mapping the path lets a port server restart
+    from a nomad_tpu server's raft data directory without importing
+    anything of nomad_tpu."""
+
+    def find_class(self, module: str, name: str):
+        if module == "nomad_tpu" or module.startswith("nomad_tpu."):
+            module = "nomad_tpu_torch" + module[len("nomad_tpu"):]
+        return super().find_class(module, name)
 
 
 class InProcRaft:

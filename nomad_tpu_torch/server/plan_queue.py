@@ -77,6 +77,9 @@ class PlanQueue:
     def set_enabled(self, enabled: bool) -> None:
         with self._lock:
             self._enabled = enabled
+            # Wake a dequeue parked on the disabled queue (a follower's
+            # pipeline loop) the moment leadership enables it.
+            self._work.notify_all()
         if not enabled:
             self.flush()
 
@@ -101,17 +104,25 @@ class PlanQueue:
 
     def dequeue(self, timeout: Optional[float] = None) -> Optional[PendingPlan]:
         """Blocking dequeue; returns None on timeout or when disabled while
-        waiting (plan_queue.go:118-147)."""
+        waiting (plan_queue.go:118-147). A dequeue that finds the queue
+        already disabled parks until it is enabled or the timeout passes:
+        nomad_tpu returns at once, and a follower's plan pipeline loop
+        then spins on its disabled queue, holding the GIL that the other
+        members' raft and solver threads share (upstream runs the plan
+        applier on the leader only)."""
         import time as _time
 
         deadline = None
         with self._lock:
+            was_enabled = False
             while True:
-                if not self._enabled:
+                if self._enabled:
+                    was_enabled = True
+                    if self._heap:
+                        _, _, pending = heapq.heappop(self._heap)
+                        return pending
+                elif was_enabled:
                     return None
-                if self._heap:
-                    _, _, pending = heapq.heappop(self._heap)
-                    return pending
                 if timeout is not None:
                     if deadline is None:
                         deadline = _time.monotonic() + timeout

@@ -17,13 +17,19 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from nomad_tpu_torch import structs, telemetry
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.events import EventBroker
-from nomad_tpu_torch.ops.coalesce import GLOBAL_SOLVER, quiesce_all
+from nomad_tpu_torch.ops.binpack import bucket
+from nomad_tpu_torch.ops.coalesce import (
+    GLOBAL_SOLVER,
+    device_work,
+    quiesce_all,
+)
 from nomad_tpu_torch.server.eval_broker import (
     FAILED_QUEUE,
     BrokerError,
@@ -53,9 +59,7 @@ from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 # nomad_tpu ServerConfig keys whose modules the port does not have yet,
 # with the module each needs. Setting one raises: it is never ignored.
 NOT_PORTED = {
-    "prewarm_shapes": "shape pre-warming (tpu/solver.py warm_shapes)",
-    "tls": "the RPC tier (rpc.py, tlsutil.py)",
-    "failover_heartbeat_ttl": "the multi-server cluster (server/cluster.py)",
+    "tls": "TLS on the RPC tier (tlsutil.py)",
     "slo_objectives": "the SLO monitor (slo.py)",
     "slo_window_s": "the SLO monitor (slo.py)",
     "admission": "admission control (server/admission.py)",
@@ -78,10 +82,9 @@ class ServerConfig:
     admission control (default-permissive there, so leaving it out changes
     no decision), the express lane (off by default there), the SLO
     monitor, the capacity, raft, read and runtime observatories, the read
-    path, the solver mesh, TLS, the cluster's failover TTL, and shape
-    pre-warming (the port has no compile per shape to warm).
-    ``Server.stats()`` reports the server's device in place of nomad_tpu's
-    device-probe and breaker state.
+    path, the solver mesh and TLS. ``Server.stats()`` reports the
+    server's device in place of nomad_tpu's device-probe and breaker
+    state.
     """
 
     region: str = "global"
@@ -123,6 +126,9 @@ class ServerConfig:
     node_gc_threshold: float = 24 * 3600.0
     min_heartbeat_ttl: float = 10.0
     max_heartbeats_per_second: float = 50.0
+    # Declared by nomad_tpu and read by neither package: heartbeat TTLs
+    # renewed at leader establish use the normal TTL. Stored, inert.
+    failover_heartbeat_ttl: float = 300.0
     periodic_dispatch: bool = False  # GC dispatch loop (leader.go:170-200)
     # Ring size of the cluster event stream (nomad_tpu_torch.events).
     event_buffer_size: int = 2048
@@ -136,9 +142,12 @@ class ServerConfig:
     # Bound on blocking-query watcher registrations (state store + event
     # stream). 0 = unbounded.
     max_blocking_watchers: int = 0
-    prewarm_shapes: Optional[bool] = None
+    # Warm the solve path for the cluster's node buckets in the background
+    # at start (tpu/solver.py warm_shapes): node mirror, masks, stacked
+    # dispatch buffers and the kernels' first load, so the first eval and
+    # the first burst do not pay them inside the coalescer's hold.
+    prewarm_shapes: bool = True
     tls: object = None
-    failover_heartbeat_ttl: Optional[float] = None
     slo_objectives: Optional[Dict[str, float]] = None
     slo_window_s: Optional[float] = None
     admission: Optional[Dict] = None
@@ -232,6 +241,9 @@ class Server:
         self.workers: List[Worker] = []
         self._periodic_stop = threading.Event()
         self._started = False
+        # Solve dispatches the start-time warmer has issued (0 until its
+        # first pass over registered nodes completes).
+        self.warm_dispatches = 0
 
     @property
     def plan_pipeline(self) -> PlanPipeline:
@@ -273,11 +285,64 @@ class Server:
             target=self._emit_stats, daemon=True, name="stats-emitter",
         )
         emitter.start()
+        if self.config.prewarm_shapes and self.config.scheduler_backend == "tpu":
+            warmer = threading.Thread(
+                target=self._prewarm_solver, daemon=True, name="shape-warmer",
+            )
+            warmer.start()
 
-    def shutdown(self, drain_timeout: float = 10.0) -> bool:
-        """Stop the loop, then drain device work: returns once no worker
-        is inside a scheduler pass and no coalesced solve is queued or in
-        flight (False if that took longer than ``drain_timeout``)."""
+    def _prewarm_solver(self) -> None:
+        """Background warm of the solve path (see ServerConfig
+        .prewarm_shapes), re-run whenever the cluster's node-bucket
+        signature changes: a fresh cluster warms as soon as nodes
+        register, and growth into a larger bucket warms before an eval
+        needs it. The server's device was resolved at construction, so
+        there is no device to wait for. Wakes on node-table writes (and
+        every 5 s at most idle), so a registration is warmed at once."""
+        from nomad_tpu_torch.state.store import item_table
+        from nomad_tpu_torch.tpu.solver import warm_shapes
+
+        warmed_sig = None
+        while not self._periodic_stop.is_set():
+            store = self.state_store
+            try:
+                ticket = store.watch.register([item_table("nodes")])
+            except structs.RejectError:
+                # Watcher cap reached: fall back to the 5 s poll.
+                ticket = None
+            try:
+                snap = store.snapshot()
+                nodes = [
+                    n for n in snap.nodes()
+                    if n.status == structs.NODE_STATUS_READY and not n.drain
+                ]
+                per_dc: Dict[str, int] = {}
+                for n in nodes:
+                    per_dc[n.datacenter] = per_dc.get(n.datacenter, 0) + 1
+                sig = (
+                    bucket(len(nodes)) if nodes else 0,
+                    tuple(sorted(bucket(c) for c in per_dc.values())),
+                )
+                if nodes and sig != warmed_sig:
+                    try:
+                        self.warm_dispatches += warm_shapes(
+                            snap, logger=self.logger, device=self.device,
+                            stop=self._periodic_stop.is_set,
+                        )
+                        warmed_sig = sig
+                    except Exception:
+                        self.logger.exception("shape prewarm failed")
+                if ticket is None:
+                    self._periodic_stop.wait(5.0)
+                else:
+                    store.watch.wait(ticket, timeout=5.0)
+            finally:
+                if ticket is not None:
+                    store.watch.unregister(ticket)
+
+    def _stop_loop(self) -> None:
+        """Stop workers, pipeline, broker and heartbeats (no device
+        drain)."""
         self._periodic_stop.set()
         for worker in self.workers:
             worker.stop()
@@ -285,7 +350,30 @@ class Server:
         self.plan_queue.set_enabled(False)
         self.eval_broker.set_enabled(False)
         self.heartbeat.clear_all()
-        return quiesce_all(drain_timeout)
+
+    def _drain_device(self, drain_timeout: float) -> bool:
+        """Wait for the process-wide device work to drain, at most
+        ``drain_timeout`` seconds. The coalescer is shared by every server
+        of the process (cluster members included), so this may wait on
+        other servers' solves: the wait is bounded and logged."""
+        before = device_work()
+        t0 = time.monotonic()
+        drained = quiesce_all(drain_timeout)
+        self.logger.info(
+            "shutdown: %s device work in %.3fs (at stop: %d queued, %d "
+            "dispatching, %d in direct device work; now: %s)",
+            "drained" if drained else "gave up waiting for",
+            time.monotonic() - t0, before["queued"], before["dispatching"],
+            before["direct"], device_work(),
+        )
+        return drained
+
+    def shutdown(self, drain_timeout: float = 10.0) -> bool:
+        """Stop the loop, then drain device work: returns once no worker
+        is inside a scheduler pass and no coalesced solve is queued or in
+        flight (False if that took longer than ``drain_timeout``)."""
+        self._stop_loop()
+        return self._drain_device(drain_timeout)
 
     def _emit_stats(self) -> None:
         """Periodic telemetry gauges at 1 Hz (server.go:213-228 EmitStats ->

@@ -1290,6 +1290,60 @@ class PlanResult:
 
 
 # ---------------------------------------------------------------------------
+# Stopped allocations on the wire
+# ---------------------------------------------------------------------------
+
+# A stop (Plan.append_update) is a copy of an existing allocation with only
+# its desired status and description changed. Across the wire (a raft
+# entry, a forwarded plan) it travels as its id, in runs that share the
+# status and description, and the receiver rebuilds the copy from its own
+# store. As Allocation objects, each with its job, 100,000 stops exceed
+# the RPC tier's 64 MB frame cap. nomad_tpu sends the objects; upstream
+# Nomad normalizes stops the same way (Plan.NormalizeAllocations, since
+# 0.9.2).
+STOP_STATUSES = (ALLOC_DESIRED_STATUS_STOP, ALLOC_DESIRED_STATUS_EVICT)
+
+
+def stop_runs(allocs: List[Allocation]):
+    """Split ``allocs`` into (runs, rest): the stop/evict copies as
+    ``{"desired_status", "desired_description", "ids"}`` runs in list
+    order, and every other allocation as it is."""
+    runs: List[Dict[str, Any]] = []
+    rest: List[Allocation] = []
+    for a in allocs:
+        if a.desired_status not in STOP_STATUSES:
+            rest.append(a)
+            continue
+        if (runs and runs[-1]["desired_status"] == a.desired_status
+                and runs[-1]["desired_description"] == a.desired_description):
+            runs[-1]["ids"].append(a.id)
+        else:
+            runs.append({"desired_status": a.desired_status,
+                         "desired_description": a.desired_description,
+                         "ids": [a.id]})
+    return runs, rest
+
+
+def expand_stop_runs(runs, lookup) -> List[Allocation]:
+    """Rebuild stop copies from ``runs`` with ``lookup(alloc_id)`` (a
+    store's ``alloc_by_id``), in run order; an id the store no longer
+    holds has nothing left to stop and is skipped."""
+    out: List[Allocation] = []
+    for run in runs:
+        status = run["desired_status"]
+        desc = run["desired_description"]
+        for alloc_id in run["ids"]:
+            alloc = lookup(alloc_id)
+            if alloc is None:
+                continue
+            copy = alloc.copy()
+            copy.desired_status = status
+            copy.desired_description = desc
+            out.append(copy)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Fit & score functions (reference: nomad/structs/funcs.go)
 # ---------------------------------------------------------------------------
 

@@ -50,6 +50,12 @@ def measure_since(key: Key, start: float) -> None:
     add_sample(key, (time.perf_counter() - start) * 1000.0)
 
 
+def samples(key: Key) -> List[float]:
+    """A copy of one sample key's retained ring, oldest first."""
+    with _lock:
+        return list(_samples.get(_flat(key), ()))
+
+
 def _quantile(sorted_vals: List[float], q: float) -> float:
     return sorted_vals[min(len(sorted_vals) - 1, int(q * len(sorted_vals)))]
 

@@ -21,9 +21,9 @@ wholesale and replaces the per-placement Select loop with one batched
 evaluation regardless of count. Class names stay those of nomad_tpu so the
 two packages diff line for line.
 
-Not ported yet: ``TPUSystemScheduler`` and ``warm_shapes``. Dropped on
-purpose: the ``solver.execute`` fault site and the DEVICE_BREAKER
-accounting around each dispatch — a device fault fails the eval.
+Not ported yet: ``TPUSystemScheduler``. Dropped on purpose: the
+``solver.execute`` fault site and the DEVICE_BREAKER accounting around
+each dispatch — a device fault fails the eval.
 """
 
 from __future__ import annotations
@@ -66,10 +66,14 @@ from nomad_tpu_torch.structs import (
     ALLOC_DESIRED_STATUS_FAILED,
     ALLOC_DESIRED_STATUS_RUN,
     ALLOC_DESIRED_STATUS_STOP,
+    JOB_TYPE_BATCH,
+    NODE_STATUS_READY,
     Allocation,
     Job,
     Node,
+    Plan,
     Resources,
+    Task,
     TaskGroup,
     filter_terminal_allocs,
     generate_uuid,
@@ -1690,3 +1694,92 @@ def new_tpu_scheduler(variant: str, state, planner, logger: logging.Logger,
         return TPUGenericScheduler(state, planner, logger, batch=True,
                                    device=device)
     raise ValueError(f"unknown device scheduler variant {variant!r}")
+
+
+def warm_shapes(snapshot, counts=(8, 16, 32, 64, 128, 129), logger=None,
+                stop=None, device=None) -> int:
+    """Warm the solve path for the current cluster's node buckets (the
+    server's start-time hook; see ServerConfig.prewarm_shapes). Port of
+    nomad_tpu's ``warm_shapes``.
+
+    There is no compile per shape here, but a fresh process's first eval
+    still builds the node mirror and the eligibility masks, allocates the
+    stacked dispatch buffers, and loads (or builds, at first use) both
+    hand kernels — work that lands inside the coalescer's burst hold and
+    splits a burst. This drives the REAL path (MirrorCache.get ->
+    TPUStack.set_mirror/set_job -> solve_group for counts <= 128,
+    solve_group_counts above) against the live snapshot with an
+    unsatisfiable batch job, so both kernels launch and the mirror the
+    first eval uses is resident. Returns the number of solve dispatches
+    issued.
+    """
+    from nomad_tpu_torch.ops.coalesce import device_activity
+
+    log = logger or logging.getLogger("nomad_tpu_torch.tpu.warm")
+    nodes = [
+        n for n in snapshot.nodes()
+        if n.status == NODE_STATUS_READY and not n.drain
+    ]
+    if not nodes:
+        return 0
+    device = resolve_device(device)
+    with device_activity(), SOLVER_PANEL.precompile():
+        return _warm_shapes_inner(snapshot, counts, log, stop, nodes, device)
+
+
+def _warm_shapes_inner(snapshot, counts, log, stop, nodes, device) -> int:
+    from nomad_tpu_torch.ops.coalesce import (
+        warm_batch_shapes,
+        warm_exact_batch_shapes,
+    )
+
+    all_dcs = sorted({n.datacenter for n in nodes})
+    # One warm per distinct node bucket: the union of datacenters plus
+    # each single datacenter (the common job targeting shapes).
+    dc_sets = [all_dcs] + [[dc] for dc in all_dcs]
+    seen = set()
+    dispatches = 0
+    t0 = time.perf_counter()
+    for dcs in dc_sets:
+        _nodes, mirror = GLOBAL_MIRROR_CACHE.get(snapshot, list(dcs), device)
+        if mirror.n == 0 or mirror.padded in seen:
+            continue
+        seen.add(mirror.padded)
+        tg = TaskGroup(
+            name="_warm", count=1,
+            tasks=[Task(name="_warm", driver="_warm",
+                        resources=Resources(cpu=1, memory_mb=1))],
+        )
+        job = Job(
+            region="global", id=f"_warm-{mirror.padded}", name="_warm",
+            type=JOB_TYPE_BATCH, priority=1,
+            datacenters=list(dcs), task_groups=[tg],
+        )
+        ctx = EvalContext(snapshot, Plan(eval_id="_warm"), log)
+        stack = TPUStack(ctx, batch=True, device=device)
+        stack.set_mirror(mirror)
+        stack.set_job(job)
+        for count in counts:
+            if stop is not None and stop():
+                # Server shutting down: start no more device work.
+                return dispatches
+            if count <= EXACT_THRESHOLD:
+                stack.solve_group(tg, count)
+            else:
+                stack.solve_group_counts(tg, count)
+            dispatches += 1
+        # Coalesced multi-eval dispatches stack the eval axis to the
+        # widths {2, 4, 8}: warm those too, through the coalescer's own
+        # stacking code, so a burst's first drain allocates nothing new.
+        dispatches += warm_batch_shapes(mirror.padded, stop=stop,
+                                        device=device)
+        dispatches += warm_exact_batch_shapes(
+            mirror.padded,
+            counts=[c for c in counts if c <= EXACT_THRESHOLD],
+            stop=stop, device=device,
+        )
+    log.info(
+        "warmed %d solve dispatch(es) across %d node bucket(s) in %.1fs",
+        dispatches, len(seen), time.perf_counter() - t0,
+    )
+    return dispatches

@@ -257,6 +257,16 @@ class Tracer:
                     tr.spans.append(s)
             tr.updated = now()
 
+    def adopt_root(self, trace_id: str, ctx: Dict[str, str]) -> None:
+        """Register a REMOTE root context (received over RPC) so local
+        spans of this trace can parent on it via root_ctx()."""
+        if not self.enabled or not trace_id or not ctx:
+            return
+        with self._lock:
+            tr = self._trace_locked(trace_id)
+            if not tr.root_ctx:
+                tr.root_ctx = dict(ctx)
+
     def root_ctx(self, trace_id: str) -> Dict[str, str]:
         with self._lock:
             tr = self._traces.get(trace_id)

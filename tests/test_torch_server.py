@@ -22,6 +22,7 @@ band's count is 0 by construction and asserted as such.
 
 import copy
 import itertools
+import threading
 import time
 
 import numpy as np
@@ -180,6 +181,30 @@ def test_plan_queue_order_matches_jax():
     got = _plan_queue_order(PortPlanQueue, pst.Plan)
     assert got == want
     assert want[0] == ["p3", "p1", "p5"]
+
+
+def test_disabled_plan_queue_parks_its_dequeue():
+    """A follower's plan pipeline dequeues from a disabled queue: the
+    dequeue parks until the queue is enabled or its timeout passes
+    (nomad_tpu's returns at once, and its pipeline loop spins), and a
+    queue disabled while a dequeue waits still returns None at once."""
+    q = PortPlanQueue()
+    t0 = time.monotonic()
+    assert q.dequeue(timeout=0.2) is None
+    assert time.monotonic() - t0 >= 0.15
+
+    def enable_and_submit():
+        q.set_enabled(True)
+        q.enqueue(pst.Plan(eval_id="p-late"))
+
+    threading.Timer(0.1, enable_and_submit).start()
+    got = q.dequeue(timeout=5.0)
+    assert got is not None and got.plan.eval_id == "p-late"
+
+    threading.Timer(0.1, q.set_enabled, args=(False,)).start()
+    t0 = time.monotonic()
+    assert q.dequeue(timeout=5.0) is None
+    assert time.monotonic() - t0 < 2.0
 
 
 # -- evaluate_plan ---------------------------------------------------------------
@@ -778,6 +803,83 @@ def test_server_needs_its_device():
 def test_unported_config_key_raises(key):
     with pytest.raises(ValueError, match=key):
         PortServerConfig(device="cpu", **{key: {}})
+
+
+def test_prewarm_and_failover_ttl_keys_are_ported():
+    """Both keys left NOT_PORTED with this slice and read as nomad_tpu's
+    do: prewarm_shapes defaults on and its warmer warms once nodes
+    register (off: it never runs); failover_heartbeat_ttl is stored and
+    inert — TTLs come from min_heartbeat_ttl."""
+    assert not {"prewarm_shapes", "failover_heartbeat_ttl"} & set(NOT_PORTED)
+    cfg, jcfg = PortServerConfig(device="cpu"), JaxServerConfig()
+    assert cfg.prewarm_shapes is jcfg.prewarm_shapes is True
+    assert cfg.failover_heartbeat_ttl == jcfg.failover_heartbeat_ttl == 300.0
+    on = port_server(failover_heartbeat_ttl=0.05)
+    off = port_server(prewarm_shapes=False)
+    try:
+        assert on.config.failover_heartbeat_ttl == 0.05
+        for srv in (on, off):
+            ttls = srv.node_batch_register(port_nodes(8))["heartbeat_ttls"]
+            assert min(ttls.values()) >= 3600.0
+        deadline = time.monotonic() + WAIT_S
+        while on.warm_dispatches == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert on.warm_dispatches > 0
+        time.sleep(0.2)
+        assert off.warm_dispatches == 0
+        assert all(n.status == "ready" for n in on.state_store.nodes())
+    finally:
+        on.shutdown()
+        off.shutdown()
+
+
+def test_first_burst_after_warm_is_one_dispatch(monkeypatch):
+    """A fresh server warms at start: once its warmer has run (both solve
+    paths launched), a paused worker's first burst of 4 batch evals goes
+    out as ONE width-4 dispatch."""
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.tpu.solver import warm_shapes
+
+    calls = {"waterfill": 0, "exact": 0}
+    wf, exact = coalesce._stack_and_solve, coalesce._stack_and_solve_exact
+
+    def spy_wf(*a, **kw):
+        calls["waterfill"] += 1
+        return wf(*a, **kw)
+
+    def spy_exact(*a, **kw):
+        calls["exact"] += 1
+        return exact(*a, **kw)
+
+    monkeypatch.setattr(coalesce, "_stack_and_solve", spy_wf)
+    monkeypatch.setattr(coalesce, "_stack_and_solve_exact", spy_exact)
+    srv = port_server(eval_batch_size=4)
+    try:
+        assert srv.config.prewarm_shapes
+        srv.node_batch_register(port_nodes(48))
+        deadline = time.monotonic() + WAIT_S
+        while srv.warm_dispatches == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert srv.warm_dispatches > 0
+        assert calls["waterfill"] > 0 and calls["exact"] > 0
+        assert warm_shapes(srv.state_store.snapshot(), device="cpu") > 0
+
+        srv.workers[0].set_pause(True)
+        time.sleep(worker_mod.DEQUEUE_TIMEOUT + 0.2)
+        jobs = [port(loop_job(f"warm-burst-{i}", jst.JOB_TYPE_BATCH, 150,
+                              dcs=("dc1",), cpu=50, mem=64), "Job")
+                for i in range(4)]
+        ids = [srv.job_register(j)[0] for j in jobs]
+        dispatches = coalesce.GLOBAL_SOLVER.dispatches
+        coalesced = coalesce.GLOBAL_SOLVER.coalesced
+        srv.workers[0].set_pause(False)
+        for eid in ids:
+            assert srv.wait_for_eval(eid, WAIT_S).status == "complete"
+        assert srv.workers[0].last_batch_size == 4
+        assert coalesce.GLOBAL_SOLVER.dispatches - dispatches == 1
+        assert coalesce.GLOBAL_SOLVER.coalesced - coalesced == 4
+    finally:
+        srv.shutdown()
 
 
 def test_shutdown_drains_device_work():
