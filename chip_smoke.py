@@ -46,6 +46,18 @@ Phases, each printing its own lines:
    leader shut down at a seeded point of their flight, and every eval
    complete on the survivors with exactly 12,500 live tasks per job on
    dc1 and no node over capacity, on both survivors' stores.
+8. simcluster: the port's scenario runner (nomad_tpu_torch.simcluster)
+   runs steady-10k (24 service jobs x 420 tasks paced over ~18 s against
+   10,000 beating nodes, with node-refresh writes) and burst-100k (8
+   batch jobs x 12,500 tasks at once on the same fleet), each through a
+   ClusterServer and loopback RPC on the card, seed 42. Each run must
+   place every task (10,080 and 100,000), complete every eval, keep
+   every node within its capacity in the leader's store, launch the
+   water-fill, and give the canonical event digest that nomad_tpu's
+   runner gave on the same scenario and seed
+   (nomad_tpu_torch/simcluster/reference_digests.json). Logs
+   registration nodes/s, placements/s, plan and eval latency, device
+   dispatches, window and wall seconds and the span stage p50s.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -1372,6 +1384,123 @@ def phase_cluster(dev, rng):
     return wf, gr
 
 
+# -- simcluster --------------------------------------------------------------
+
+SIM_SCENARIOS = ("steady-10k", "burst-100k")
+SIM_DIGESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "nomad_tpu_torch", "simcluster",
+                           "reference_digests.json")
+SIM_REF_KEYS = ("by_type", "digest", "evals_injected", "heartbeat_timers",
+                "placed", "plans_applied", "reproduced", "seed")
+
+
+def load_reference_digests(path: str = SIM_DIGESTS):
+    """nomad_tpu's canonical digests per scenario, from the committed file;
+    every entry must carry SIM_REF_KEYS."""
+    with open(path) as f:
+        data = json.load(f)
+    scenarios = data.get("scenarios")
+    if not data.get("nomad_tpu_commit") or not scenarios:
+        raise AssertionError(f"{path} names no nomad_tpu commit or no "
+                             "scenario")
+    for name, ref in scenarios.items():
+        missing = [k for k in SIM_REF_KEYS if k not in ref]
+        if missing:
+            raise AssertionError(f"{path}: {name} lacks {missing}")
+    return scenarios
+
+
+def check_scenario(art, ref) -> bool:
+    """Hold one run's artifact to nomad_tpu's reference entry: every task
+    placed, every injected eval planned, the fleet's timers armed, no
+    event lost to the ring, and, where nomad_tpu reproduced its own
+    digest, the same digest and per-type counts. Returns whether the
+    digest was compared."""
+    name = art["scenario"]
+    got = art["placements"]
+    for key in ("placed", "evals_injected", "plans_applied"):
+        if got[key] != ref[key]:
+            raise AssertionError(f"{name}: {key}={got[key]}, nomad_tpu "
+                                 f"{ref[key]}")
+    if art["heartbeat"]["timers"] != ref["heartbeat_timers"]:
+        raise AssertionError(f"{name}: {art['heartbeat']['timers']} "
+                             f"heartbeat timers, want "
+                             f"{ref['heartbeat_timers']}")
+    if art["events"]["truncated"]:
+        raise AssertionError(f"{name}: the event ring truncated")
+    if not ref["reproduced"]:
+        return False
+    if (art["events"]["digest"] != ref["digest"]
+            or art["events"]["by_type"] != ref["by_type"]):
+        raise AssertionError(
+            f"{name}: canonical digest {art['events']['digest']} "
+            f"{art['events']['by_type']}, nomad_tpu {ref['digest']} "
+            f"{ref['by_type']}")
+    return True
+
+
+def phase_simcluster(dev, card: str, names=SIM_SCENARIOS):
+    """Each scenario of ``names`` through the port's scenario runner on
+    the card, held to nomad_tpu's digest and to the committed allocs of
+    the leader's store. Returns the water-fill launches of the phase."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import waterfill
+    from nomad_tpu_torch.simcluster.scenario import SCENARIOS, ScenarioRunner
+
+    refs = load_reference_digests()
+    total = 0
+    for name in names:
+        runner = ScenarioRunner(SCENARIOS[name], seed=SEED, device=str(dev))
+        waterfill.LAUNCHES = 0
+        art = runner.run()
+        launches = waterfill.LAUNCHES
+        total += launches
+        if launches == 0:
+            raise AssertionError(f"simcluster {name} never launched the "
+                                 "water-fill kernel")
+        compared = check_scenario(art, refs[name])
+        snap = runner._srv.state_store.snapshot()
+        stages = []
+        for job in runner._jobs.values():
+            check_committed(snap, job, job.task_groups[0].count)
+            for ev in snap.evals_by_job(job.id):
+                if ev.status != structs.EVAL_STATUS_COMPLETE:
+                    raise AssertionError(f"simcluster {name}: eval {ev.id} "
+                                         f"of {job.id} ended {ev.status}")
+                stages.append(eval_stages(ev.id))
+        pl, reg = art["placements"], art["registration"]
+        rows = [
+            f"registration nodes_per_s={reg['nodes_per_sec']} "
+            f"seconds={reg['seconds']} batches={reg['batches']}",
+            f"placed={pl['placed']} placements_per_s="
+            f"{pl['placements_per_sec']}",
+            "plan_latency_ms p50={p50_ms} p95={p95_ms} max={max_ms} "
+            "n={n}".format(**art["plan_latency_ms"]),
+            f"eval_latency_ms p50={art['eval_latency_ms']['p50_ms']} "
+            f"n={art['eval_latency_ms']['n']}",
+            f"device_dispatches={pl['device_dispatches']} "
+            f"waterfill_launches={launches}",
+            f"window_seconds={pl['window_seconds']} "
+            f"wall_seconds={art['wall_seconds']}",
+            "stage p50 ms " + json.dumps(
+                {k: round(p50([s.get(k, 0.0) for s in stages]), 3)
+                 for k in SERVER_STAGES}),
+            f"digest={art['events']['digest']} "
+            f"{'equals' if compared else 'not compared with'} nomad_tpu's",
+            "peaks " + json.dumps(art["peaks"]) + " heartbeat "
+            + json.dumps(art["heartbeat"]),
+            "plan_pipeline " + json.dumps(
+                {k: v for k, v in art["plan_pipeline"].items()
+                 if k != "conflict_rate_vs_load"})
+            + " mirror " + json.dumps(art["mirror"]),
+            "solver_panel window " + json.dumps(
+                art["solver_panel"]["window"]),
+        ]
+        for row in rows:
+            log(f"simcluster {name}: {row} [{card}]")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1430,6 +1559,9 @@ def main() -> int:
     wf, gr = phase_cluster(dev, rng)
     wf_launches += wf
     gr_launches += gr
+
+    # 8. simcluster
+    wf_launches += phase_simcluster(dev, card)
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]

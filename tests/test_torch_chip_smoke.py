@@ -1,5 +1,10 @@
-"""chip_smoke.py's count of the bytes and operations that bound the
-water-fill, on its own instances, made on the CPU."""
+"""chip_smoke.py's pure helpers, on the CPU: its count of the bytes and
+operations that bound the water-fill, on its own instances; the server
+phase's check of committed allocs; and the simcluster phase's reading of
+the committed reference digests and its check of a run's artifact
+against them (the slow test recomputes those digests with nomad_tpu)."""
+
+import json
 
 import numpy as np
 import pytest
@@ -116,3 +121,84 @@ def test_check_committed(runs, other, want, error):
     else:
         with pytest.raises(AssertionError, match=error):
             cs.check_committed(snap, job, want)
+
+
+# -- the simcluster phase's checks --------------------------------------------
+
+
+def test_reference_digests_file_is_valid():
+    """The committed file names its nomad_tpu commit and carries every key
+    the phase reads for each scenario the phase runs; nomad_tpu
+    reproduced each digest across its two runs."""
+    refs = cs.load_reference_digests()
+    for name in cs.SIM_SCENARIOS + ("steady-1k",):
+        assert refs[name]["reproduced"] is True
+        assert refs[name]["seed"] == cs.SEED
+    assert refs["steady-10k"]["placed"] == 24 * 420
+    assert refs["burst-100k"]["placed"] == 8 * 12_500
+
+
+@pytest.mark.parametrize("data, error", [
+    ({"scenarios": {"a": {}}}, "no nomad_tpu commit"),
+    ({"nomad_tpu_commit": "abc", "scenarios": {}}, "no scenario"),
+    ({"nomad_tpu_commit": "abc", "scenarios": {"a": {"digest": "d"}}},
+     "a lacks"),
+])
+def test_reference_digests_file_is_checked(tmp_path, data, error):
+    path = tmp_path / "refs.json"
+    path.write_text(json.dumps(data))
+    with pytest.raises(AssertionError, match=error):
+        cs.load_reference_digests(str(path))
+
+
+def reference(**kw):
+    ref = {"seed": 42, "digest": "d1", "by_type": {"PlanApplied": 2},
+           "placed": 20, "evals_injected": 2, "plans_applied": 2,
+           "heartbeat_timers": 10, "reproduced": True}
+    ref.update(kw)
+    return ref
+
+
+def artifact(placed=20, evals=2, plans=2, timers=10, truncated=False,
+             digest="d1", by_type=None):
+    return {"scenario": "synthetic",
+            "placements": {"placed": placed, "evals_injected": evals,
+                           "plans_applied": plans},
+            "heartbeat": {"timers": timers},
+            "events": {"truncated": truncated, "digest": digest,
+                       "by_type": by_type or {"PlanApplied": 2}}}
+
+
+@pytest.mark.parametrize("art, ref, result", [
+    (artifact(), reference(), True),
+    # nomad_tpu did not reproduce its own digest: no digest check
+    (artifact(digest="d2"), reference(reproduced=False), False),
+    (artifact(placed=19), reference(), "placed=19"),
+    (artifact(evals=3), reference(), "evals_injected=3"),
+    (artifact(plans=1), reference(), "plans_applied=1"),
+    (artifact(timers=9), reference(), "heartbeat timers"),
+    (artifact(truncated=True), reference(), "truncated"),
+    (artifact(digest="d2"), reference(), "canonical digest"),
+    (artifact(by_type={"PlanApplied": 1}), reference(), "canonical digest"),
+])
+def test_check_scenario(art, ref, result):
+    if isinstance(result, bool):
+        assert cs.check_scenario(art, ref) is result
+    else:
+        with pytest.raises(AssertionError, match=result):
+            cs.check_scenario(art, ref)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", cs.SIM_SCENARIOS)
+def test_reference_digests_match_nomad_tpu(name):
+    """Recompute the committed reference digest with nomad_tpu, as the
+    file's command says, so that the file cannot drift unseen."""
+    from nomad_tpu.simcluster import run_scenario
+
+    art = run_scenario(name, seed=cs.SEED, attribution_layer=False,
+                       contrast=False)
+    ref = cs.load_reference_digests()[name]
+    assert art["events"]["digest"] == ref["digest"]
+    assert art["events"]["by_type"] == ref["by_type"]
+    assert art["placements"]["placed"] == ref["placed"]

@@ -260,12 +260,17 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
-# The server loop's modules, named so a walk that missed one still fails.
+# The server loop's and simcluster's modules, named so a walk that missed
+# one still fails.
 SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
     "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
     "nomad_tpu_torch.server.eval_broker", "nomad_tpu_torch.events",
     "nomad_tpu_torch.faults", "nomad_tpu_torch.backoff",
+    "nomad_tpu_torch.simcluster.scenario",
+    "nomad_tpu_torch.simcluster.simnode",
+    "nomad_tpu_torch.simcluster.workload",
+    "nomad_tpu_torch.simcluster.simload",
 ]
 
 
