@@ -58,6 +58,26 @@ Phases, each printing its own lines:
    (nomad_tpu_torch/simcluster/reference_digests.json). Logs
    registration nodes/s, placements/s, plan and eval latency, device
    dispatches, window and wall seconds and the span stage p50s.
+9. system: BASELINE config 4 (bench.py run_config4) through the port's
+   tpu-system scheduler: the same 10,000 nodes and a system job on dc1
+   (kernel.name = linux, 50 MHz / 64 MB), 1 warm-up and 5 timed evals,
+   each on a fresh alloc-free store, verified (evaluate_plan) and
+   committed columnar; every eval must commit one task on each of the
+   5,000 dc1 nodes and none elsewhere (check_committed). Logs e2e p50,
+   placements/s and the one fit dispatch's ms apart from verify and
+   commit.
+10. agent: the head of the main path. The port's Agent in server mode
+   (one ClusterServer member, RPC and HTTP on port 0) on the card, the
+   10,000 nodes over RPC from a beating SimFleet, and the headline,
+   service and system jobs as HCL files, each 1 warm-up and 3 timed
+   rounds of ``cli.main(["run", "-detach", file])`` -> complete (HTTP
+   blocking queries) -> ``stop -detach`` -> complete, checked through
+   /v1/job/:id/allocations and check_committed; one monitored ``run``;
+   then ``python -m nomad_tpu_torch agent -config`` as a subprocess with
+   ``run`` and ``status`` subprocesses against it, /v1/agent/self naming
+   the card, stopped by SIGINT with exit code 0. Logs register->complete
+   and stop->complete p50 per job and the ms to read the headline's
+   100,000 alloc stubs over HTTP.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -72,8 +92,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -598,14 +620,15 @@ def build_cluster():
     return h
 
 
-def make_job(name: str, typ: str, count: int, dcs):
+def make_job(name: str, typ: str, count: int, dcs, cpu: int = 100,
+             mem: int = 128, job_id: str = ""):
     from nomad_tpu_torch.structs import (
         Constraint, Job, Resources, RestartPolicy, Task, TaskGroup,
         generate_uuid,
     )
 
     return Job(
-        region="global", id=generate_uuid(), name=name, type=typ,
+        region="global", id=job_id or generate_uuid(), name=name, type=typ,
         priority=50, datacenters=list(dcs),
         constraints=[Constraint(l_target="$attr.kernel.name",
                                 r_target="linux", operand="=")],
@@ -614,9 +637,46 @@ def make_job(name: str, typ: str, count: int, dcs):
             restart_policy=RestartPolicy(attempts=1, interval=600.0,
                                          delay=5.0),
             tasks=[Task(name="work", driver="exec",
-                        resources=Resources(cpu=100, memory_mb=128))],
+                        resources=Resources(cpu=cpu, memory_mb=mem))],
         )],
     )
+
+
+def job_hcl(name: str, typ: str, count: int, dcs, cpu: int = 100,
+            mem: int = 128) -> str:
+    """make_job's job as a jobspec file; its id is its name."""
+    datacenters = ", ".join(f'"{dc}"' for dc in dcs)
+    return f"""job "{name}" {{
+    region = "global"
+    type = "{typ}"
+    priority = 50
+    datacenters = [{datacenters}]
+
+    constraint {{
+        attribute = "$attr.kernel.name"
+        value = "linux"
+    }}
+
+    group "work" {{
+        count = {count}
+
+        restart {{
+            attempts = 1
+            interval = "10m"
+            delay = "5s"
+        }}
+
+        task "work" {{
+            driver = "exec"
+
+            resources {{
+                cpu = {cpu}
+                memory = {mem}
+            }}
+        }}
+    }}
+}}
+"""
 
 
 def register_eval(h, job):
@@ -822,12 +882,14 @@ SERVER_STAGES = ("broker.wait", "worker.wait_for_index",
                  "submit_plan.outside_plan_spans")
 
 
-def check_committed(snap, job, want: int) -> int:
+def check_committed(snap, job, want: int, per_node: int = 0) -> int:
     """From a state snapshot: ``job`` holds ``want`` live tasks, all on
     nodes of its datacenters with kernel.name=linux (make_job's
     constraint), and every node's summed live asks of all jobs plus its
     reserved resources fit its capacity (numpy over the stored blocks'
-    runs and the object rows). Returns the live count."""
+    runs and the object rows). With ``per_node`` (a system job: 1), every
+    node that holds the job holds exactly that many. Returns the live
+    count."""
     usage, job_nodes = {}, {}
 
     def add(nid, vec, cnt, own):
@@ -847,6 +909,9 @@ def check_committed(snap, job, want: int) -> int:
     if live != want:
         raise AssertionError(f"{live} live tasks of job {job.name} "
                              f"committed, want {want}")
+    if per_node and any(c != per_node for c in job_nodes.values()):
+        raise AssertionError(f"a node holds other than {per_node} task(s) "
+                             f"of job {job.name}")
     for nid in sorted(job_nodes):
         node = snap.node_by_id(nid)
         if (node is None or node.datacenter not in job.datacenters
@@ -1501,6 +1566,501 @@ def phase_simcluster(dev, card: str, names=SIM_SCENARIOS):
     return total
 
 
+# -- the system scheduler (BASELINE config 4) --------------------------------------
+
+SYSTEM_CPU, SYSTEM_MEM = 50, 64
+
+
+def system_placed() -> int:
+    """bench.py's config 4: the system job on dc1 places one task on each
+    dc1 node, every other node of cluster_nodes()."""
+    return (N_NODES + 1) // 2
+
+
+def system_job(job_id: str = ""):
+    from nomad_tpu_torch import structs
+
+    return make_job("bench-sys", structs.JOB_TYPE_SYSTEM, 1, ["dc1"],
+                    cpu=SYSTEM_CPU, mem=SYSTEM_MEM, job_id=job_id)
+
+
+class VerifyingPlanner:
+    """bench.py's config-4 planner: verify each plan against the store
+    (evaluate_plan, as the plan pipeline does) and commit the result
+    columnar, as the FSM does. Keeps the verify and commit ms."""
+
+    def __init__(self, state, index: int):
+        self.state = state
+        self.index = index
+        self.verify_ms = 0.0
+        self.commit_ms = 0.0
+
+    def submit_plan(self, plan):
+        from nomad_tpu_torch.server.plan_apply import evaluate_plan
+
+        t0 = time.perf_counter()
+        result = evaluate_plan(self.state.snapshot(), plan)
+        t1 = time.perf_counter()
+        result.alloc_index = self.index
+        allocs = [a for lst in result.node_update.values() for a in lst]
+        allocs += [a for lst in result.node_allocation.values() for a in lst]
+        if allocs:
+            self.state.upsert_allocs(self.index, allocs)
+        if result.alloc_batches:
+            self.state.upsert_alloc_blocks(self.index, result.alloc_batches)
+        if result.update_batches:
+            self.state.apply_update_batches(self.index, result.update_batches)
+        self.verify_ms += (t1 - t0) * 1000.0
+        self.commit_ms += (time.perf_counter() - t1) * 1000.0
+        return result, None
+
+    def update_eval(self, ev):
+        self.status = ev.status
+
+    def create_eval(self, ev):
+        pass
+
+
+def system_store(job):
+    """A fresh alloc-free store: the 10,000 nodes and the system job."""
+    from nomad_tpu_torch.state import StateStore
+
+    state = StateStore()
+    state.upsert_nodes(1, cluster_nodes())
+    state.upsert_job(2, job)
+    return state
+
+
+def phase_system(dev):
+    """BASELINE config 4 through the port's tpu-system scheduler (as
+    bench.py's run_config4 does): 1 warm-up and TIMED_EVALS timed evals,
+    each on a fresh alloc-free store whose mirror and node table are made
+    resident first; every eval commits 5,000 one-per-node tasks, checked
+    with check_committed. Logs e2e p50, placements/s and the system fit's
+    dispatch ms (the solver panel's wall of its one fit per eval) apart
+    from verify and commit."""
+    import logging
+
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.server.plan_apply import _node_table
+    from nomad_tpu_torch.structs import Evaluation, generate_uuid
+    from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
+    from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
+
+    job = system_job()
+    rows = []
+    for i in range(1 + TIMED_EVALS):
+        state = system_store(job)
+        snap = state.snapshot()
+        GLOBAL_MIRROR_CACHE.get(snap, job.datacenters, dev)
+        _node_table(snap)
+        planner = VerifyingPlanner(state, 3)
+        ev = Evaluation(id=generate_uuid(), priority=job.priority,
+                        type=job.type,
+                        triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+                        job_id=job.id)
+        fit0, solves0 = SOLVER_PANEL.device_ms, SOLVER_PANEL.solves
+        t0 = time.perf_counter()
+        new_scheduler("tpu-system", snap, planner,
+                      logging.getLogger("chip_smoke.system"),
+                      device=dev).process(ev)
+        e2e = (time.perf_counter() - t0) * 1000.0
+        fit_ms = SOLVER_PANEL.device_ms - fit0
+        if SOLVER_PANEL.solves - solves0 != 1:
+            raise AssertionError("the system eval was not one fit dispatch")
+        if planner.status != structs.EVAL_STATUS_COMPLETE:
+            raise AssertionError(f"system eval ended {planner.status}")
+        placed = check_committed(state.snapshot(), job, system_placed(),
+                                 per_node=1)
+        row = {"e2e_ms": e2e, "fit_ms": fit_ms,
+               "verify_ms": planner.verify_ms, "commit_ms": planner.commit_ms}
+        if i:
+            rows.append(row)
+        log(f"system eval {i}{' (warm-up)' if i == 0 else ''}: "
+            f"placed={placed} " + " ".join(
+                f"{k}={v:.3f}" for k, v in row.items()))
+    e2e = p50([r["e2e_ms"] for r in rows])
+    log(f"system: {N_NODES} nodes, {system_placed()} one-per-node placements, "
+        f"e2e_p50_ms={e2e:.3f} placements_per_s="
+        f"{system_placed() / (e2e / 1000.0):.0f} " + " ".join(
+            f"{k[:-3]}_p50_ms={p50([r[k] for r in rows]):.3f}"
+            for k in ("fit_ms", "verify_ms", "commit_ms")))
+
+
+# -- the head of the main path: the agent, HTTP and the CLI --------------------------
+
+AGENT_ROUNDS = 3
+AGENT_WAIT_S = 120.0
+# The agent's min heartbeat TTL, longer than the phase. At the server's
+# default (10 s) the first ~500 nodes registered get 10-20 s TTLs and
+# SimFleet beats them at 0.8 of that, 2-4 s before they expire; a
+# Node.BatchHeartbeat reads a store snapshot, which waits on the store
+# lock that the headline stop's apply holds for seconds (ROADMAP Queue 3
+# item 4), so a beat could land late, the node went down and the system
+# job placed on 4,999 nodes. HeartbeatProbe measures that wait.
+AGENT_MIN_HEARTBEAT_TTL_S = 3600.0
+PROBE_EVERY_S = 0.1
+
+
+class HeartbeatProbe:
+    """One Node.BatchHeartbeat for one node every PROBE_EVERY_S on a
+    connection of its own, each round trip timed: how long a node's beat
+    waits on the server while the agent's jobs run."""
+
+    def __init__(self, addr: str, node_id: str):
+        from nomad_tpu_torch.rpc import ConnPool
+
+        self.addr = addr
+        self.node_id = node_id
+        self.pool = ConnPool(timeout=AGENT_WAIT_S)
+        self.ms = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="heartbeat-probe")
+
+    def _run(self) -> None:
+        while not self._stop.wait(PROBE_EVERY_S):
+            t0 = time.perf_counter()
+            self.pool.call(self.addr, "Node.BatchHeartbeat",
+                           {"node_ids": [self.node_id]},
+                           timeout=AGENT_WAIT_S)
+            self.ms.append((time.perf_counter() - t0) * 1000.0)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=AGENT_WAIT_S)
+        self.pool.shutdown()
+        ms = self.ms or [0.0]
+        return {"beats": len(self.ms), "p50_ms": round(p50(ms), 3),
+                "max_ms": round(max(ms), 3)}
+
+
+def agent_jobs():
+    """(job, HCL text) of the three jobs the agent phase runs: the
+    headline, the service job and the system job."""
+    from nomad_tpu_torch import structs
+
+    specs = [
+        ("agent-headline", structs.JOB_TYPE_BATCH, N_TASKS, ["dc1"], 100,
+         128),
+        ("agent-service", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+         ["dc1", "dc2"], 100, 128),
+        ("agent-system", structs.JOB_TYPE_SYSTEM, 1, ["dc1"], SYSTEM_CPU,
+         SYSTEM_MEM),
+    ]
+    return [(make_job(name, typ, count, dcs, cpu, mem, job_id=name),
+             job_hcl(name, typ, count, dcs, cpu, mem))
+            for name, typ, count, dcs, cpu, mem in specs]
+
+
+def cli_out(argv) -> str:
+    """Run the port's CLI in this process; its stdout, or a failure."""
+    import contextlib
+    import io
+
+    from nomad_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"cli {argv} exited {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def http_wait_complete(client, eval_id: str) -> float:
+    """Blocking queries on the eval over HTTP until it is terminal;
+    returns the perf_counter stamp it was read complete."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.api import QueryOptions
+
+    deadline = time.perf_counter() + AGENT_WAIT_S
+    index = 0
+    while time.perf_counter() < deadline:
+        ev, meta = client.evaluations().info(
+            eval_id, q=QueryOptions(wait_index=index, wait_time="5s"))
+        if ev.terminal_status():
+            if ev.status != structs.EVAL_STATUS_COMPLETE:
+                raise AssertionError(f"agent eval {eval_id} ended "
+                                     f"{ev.status}: {ev.status_description}")
+            return time.perf_counter()
+        index = meta.last_index
+    raise AssertionError(f"agent eval {eval_id} did not end in "
+                         f"{AGENT_WAIT_S}s")
+
+
+def agent_round(client, addr: str, srv, path: str, job, want: int,
+                per_node: int):
+    """``run -detach`` -> complete (HTTP) -> checks -> ``stop -detach`` ->
+    complete -> check -> reap. Returns (register ms, stop ms, ms to read
+    the job's alloc stubs over HTTP, the register eval's span stages)."""
+    t0 = time.perf_counter()
+    eid = cli_out(["--address", addr, "run", "-detach", path]).strip()
+    reg = (http_wait_complete(client, eid) - t0) * 1000.0
+    t0 = time.perf_counter()
+    stubs, _ = client.jobs().allocations(job.id)
+    read_ms = (time.perf_counter() - t0) * 1000.0
+    live = sum(1 for a in stubs if a["desired_status"] == "run")
+    if live != want:
+        down = sum(1 for n in srv.state_store.snapshot().nodes()
+                   if n.status != "ready")
+        raise AssertionError(f"/v1/job/{job.id}/allocations lists {live} "
+                             f"live allocs, want {want}; {down} nodes not "
+                             f"ready, heartbeat {srv.heartbeat.stats()}")
+    check_committed(srv.state_store.snapshot(), job, want, per_node)
+    t0 = time.perf_counter()
+    did = cli_out(["--address", addr, "stop", "-detach", job.id]).strip()
+    stop = (http_wait_complete(client, did) - t0) * 1000.0
+    snap = srv.state_store.snapshot()
+    check_committed(snap, job, 0)
+    stages = eval_stages(eid)
+    srv.eval_reap([eid, did], [a.id for a in snap.allocs_by_job(job.id)])
+    return reg, stop, read_ms, stages
+
+
+def agent_config_hcl(data_dir: str, device: str) -> str:
+    return f"""data_dir = "{data_dir}"
+bind_addr = "127.0.0.1"
+device = "{device}"
+
+ports {{
+    http = 0
+    rpc = 0
+}}
+
+server {{
+    enabled = true
+    bootstrap_expect = 1
+}}
+"""
+
+
+def phase_agent_agent(dev, data_dir: str):
+    """The agent phase's Agent, not started: server mode, one
+    ClusterServer member, RPC and HTTP on port 0, node TTLs of at least
+    AGENT_MIN_HEARTBEAT_TTL_S."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
+    agent = Agent(AgentConfig(
+        server_enabled=True, node_name="agent-1", device=str(dev),
+        data_dir=data_dir, http_port=0, rpc_port=0, bootstrap_expect=1))
+    agent.server.config.min_heartbeat_ttl = AGENT_MIN_HEARTBEAT_TTL_S
+    return agent
+
+
+def phase_agent(dev, card: str, tmp: str):
+    """The head of the main path on the card: the port's Agent in server
+    mode (one ClusterServer member, RPC and HTTP on port 0), the 10,000
+    nodes registered over RPC by a beating SimFleet, and the headline,
+    service and system jobs written as HCL files and run through the CLI
+    (``run -detach``, then ``stop -detach``) with completion read by
+    HTTP blocking queries: 1 warm-up and AGENT_ROUNDS timed rounds each,
+    checked through /v1/job/:id/allocations and check_committed. Then an
+    agent subprocess (``python -m nomad_tpu_torch agent -config``) with
+    ``run`` and ``status`` subprocesses against it, stopped by SIGINT.
+    Returns (water-fill launches, greedy launches)."""
+    from nomad_tpu_torch import jobspec
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.simcluster.simnode import SimFleet
+
+    jobs = agent_jobs()
+    paths = []
+    for job, text in jobs:
+        path = os.path.join(tmp, f"{job.id}.hcl")
+        with open(path, "w") as f:
+            f.write(text)
+        parsed = jobspec.parse_file(path)
+        if (parsed.id, parsed.type, parsed.task_groups[0].count) != (
+                job.id, job.type, job.task_groups[0].count):
+            raise AssertionError(f"{path} does not parse to its job")
+        paths.append(path)
+
+    agent = phase_agent_agent(dev, os.path.join(tmp, "agent"))
+    fleet = probe = None
+    waterfill.LAUNCHES = 0
+    greedy.LAUNCHES = 0
+    try:
+        agent.start()
+        srv = agent.server
+        deadline = time.perf_counter() + AGENT_WAIT_S
+        while not srv.raft.is_leader:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the agent's server never led")
+            time.sleep(0.01)
+        addr = f"http://127.0.0.1:{agent.http.port}"
+        client = ApiClient(address=addr)
+        fleet = SimFleet(srv.rpc_addr)
+        reg = fleet.register(cluster_nodes())
+        fleet.start_heartbeats()
+        probe = HeartbeatProbe(srv.rpc_addr, cluster_nodes()[0].id)
+        probe.start()
+        log(f"agent: {N_NODES} nodes over RPC in {reg['seconds']} s "
+            f"({reg['nodes_per_sec']} nodes/s, {reg['batches']} frames) "
+            f"[{card}]")
+        for (job, _text), path in zip(jobs, paths):
+            is_system = job.type == "system"
+            want = system_placed() if is_system else job.task_groups[0].count
+            rows = []
+            for i in range(1 + AGENT_ROUNDS):
+                row = agent_round(client, addr, srv, path, job, want,
+                                  per_node=1 if is_system else 0)
+                if i:
+                    rows.append(row)
+                log(f"agent {job.id} round {i}"
+                    f"{' (warm-up)' if i == 0 else ''}: committed={want} "
+                    f"register_complete_ms={row[0]:.2f} "
+                    f"stop_complete_ms={row[1]:.2f} "
+                    f"alloc_stubs_read_ms={row[2]:.2f}")
+            log(f"agent {job.id}: register_complete_p50_ms="
+                f"{p50([r[0] for r in rows]):.3f} placements_per_s="
+                f"{want / (p50([r[0] for r in rows]) / 1000.0):.0f} "
+                f"stop_complete_p50_ms={p50([r[1] for r in rows]):.3f} "
+                f"alloc_stubs_read_p50_ms={p50([r[2] for r in rows]):.3f} "
+                f"({want} stubs) [{card}]")
+            log(f"agent {job.id} stage p50 ms: " + json.dumps(
+                {k: round(p50([r[3].get(k, 0.0) for r in rows]), 3)
+                 for k in SERVER_STAGES}))
+
+        # One monitored run (the CLI's 0.2 s polling monitor) of the
+        # service job.
+        job, path = jobs[1][0], paths[1]
+        t0 = time.perf_counter()
+        out = cli_out(["--address", addr, "run", path])
+        wall = (time.perf_counter() - t0) * 1000.0
+        created = out.count("Allocation \"")
+        if created != job.task_groups[0].count or "complete" not in out:
+            raise AssertionError(f"monitored run reported {created} allocs")
+        log(f"agent: monitored run of {job.id} wall_ms={wall:.1f} "
+            f"({created} allocs reported) [{card}]")
+        did = cli_out(["--address", addr, "stop", "-detach", job.id]).strip()
+        http_wait_complete(client, did)
+        wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+        if wf == 0 or gr == 0:
+            raise AssertionError(f"the agent's jobs launched water-fill {wf} "
+                                 f"and greedy {gr} times; both must rise")
+        log(f"agent: waterfill_launches={wf} greedy_launches={gr} "
+            f"stats={json.dumps(srv.solver_stats())}")
+        beats = probe.stop()
+        probe = None
+        hb = srv.heartbeat.stats()
+        log(f"agent: heartbeat round trip over the phase "
+            f"{json.dumps(beats)}, server timers {json.dumps(hb)} [{card}]")
+        if hb["expirations"]:
+            raise AssertionError(f"{hb['expirations']} node TTLs expired in "
+                                 "the agent phase")
+    finally:
+        if probe is not None:
+            probe.stop()
+        if fleet is not None:
+            fleet.stop()
+        agent.shutdown()
+    agent_subprocess(dev, jobs[1][0], paths[1], card, tmp)
+    return wf, gr
+
+
+def agent_subprocess(dev, job, path: str, card: str, tmp: str) -> None:
+    """``python -m nomad_tpu_torch agent -config <file>`` on the card, the
+    10,000 nodes over RPC, ``run`` and ``status`` as subprocesses against
+    it, /v1/agent/self naming the card, then SIGINT: exit code 0."""
+    import queue
+    import signal
+
+    import torch
+
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.simcluster.simnode import SimFleet
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cfg = os.path.join(tmp, "agent-sub.hcl")
+    with open(cfg, "w") as f:
+        f.write(agent_config_hcl(os.path.join(tmp, "agent-sub"), dev.type))
+    err_path = os.path.join(tmp, "agent-sub.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nomad_tpu_torch", "agent", "-config",
+             cfg], stdout=subprocess.PIPE, stderr=err, text=True, cwd=here,
+            env=env)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout],
+        daemon=True)
+    reader.start()
+    fleet = None
+    try:
+        addr = None
+        deadline = time.perf_counter() + AGENT_WAIT_S
+        while addr is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.perf_counter(),
+                                             0.01))
+            except queue.Empty:
+                raise AssertionError("the agent subprocess printed no HTTP "
+                                     "address")
+            m = re.search(r"HTTP at (http://\S+)", line)
+            if m:
+                addr = m.group(1)
+        started = (time.perf_counter() - t0) * 1000.0
+        client = ApiClient(address=addr)
+        info = client.agent().self_info()
+        name = info["stats"]["device"].get("name", dev.type)
+        if name != (torch.cuda.get_device_name(0) if dev.type == "cuda"
+                    else "cpu"):
+            raise AssertionError(f"/v1/agent/self names device {name!r}")
+        rpc = client.agent().servers()[0]
+        # The leader's RPC address once its raft has elected itself.
+        while client.status().leader() != rpc:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the agent subprocess never led")
+            time.sleep(0.05)
+        fleet = SimFleet(rpc)
+        fleet.register(cluster_nodes())
+        fleet.start_heartbeats()
+
+        def cli_proc(*argv):
+            out = subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch", "--address", addr,
+                 *argv], capture_output=True, text=True, cwd=here, env=env,
+                timeout=AGENT_WAIT_S)
+            if out.returncode != 0:
+                raise AssertionError(f"nomad_tpu_torch {argv} exited "
+                                     f"{out.returncode}: {out.stdout[-1000:]}"
+                                     f" {out.stderr[-2000:]}")
+            return out.stdout
+
+        eid = cli_proc("run", "-detach", path).strip()
+        http_wait_complete(client, eid)
+        status = cli_proc("status", job.id)
+        stubs, _ = client.jobs().allocations(job.id)
+        if (len(stubs) != job.task_groups[0].count
+                or status.count(" run ") != job.task_groups[0].count):
+            raise AssertionError(f"the subprocess agent holds {len(stubs)} "
+                                 f"allocs of {job.id}; status:\n{status}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=AGENT_WAIT_S)
+        if rc != 0:
+            raise AssertionError(f"the agent subprocess exited {rc} on "
+                                 "SIGINT")
+        log(f"agent subprocess: started in {started:.0f} ms, device "
+            f"{name}, {len(stubs)} allocs of {job.id} through run and "
+            f"status subprocesses, SIGINT -> exit 0 [{card}]")
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+            with open(err_path) as f:
+                log("agent subprocess stderr tail: " + f.read()[-3000:])
+
+
 def main() -> int:
     import torch
 
@@ -1562,6 +2122,18 @@ def main() -> int:
 
     # 8. simcluster
     wf_launches += phase_simcluster(dev, card)
+
+    # 9. the system scheduler (BASELINE config 4)
+    phase_system(dev)
+
+    # 10. the agent, HTTP and the CLI
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        wf, gr = phase_agent(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wf_launches += wf
+    gr_launches += gr
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]

@@ -6,3 +6,10 @@ device programs written against torch tensors and the Pallas water-fill
 plus the exact greedy scan as hand-written CUDA kernels (``csrc/``).
 Imports torch, never jax, and nothing of ``nomad_tpu``.
 """
+
+__version__ = "0.1.0"
+
+
+class NotPortedError(RuntimeError):
+    """A caller asked for a module of nomad_tpu that nomad_tpu_torch does
+    not have yet; the message names the module."""

@@ -1,0 +1,357 @@
+"""Agent: runs a server in one process, fronted by HTTP.
+
+Port of nomad_tpu/agent.py (reference: upstream command/agent/agent.go,
+which builds server/client configs from the agent config and embeds
+both, agent.go:37-151, 273-279). The port runs a server only:
+``dev_mode`` gives an in-process ``Server``, otherwise a ``ClusterServer``
+with an RPC bind and raft; then the ``HTTPServer``. The server solves on
+``device`` (default: the CUDA card; raises without one unless the caller
+asks for the CPU).
+
+What needs a module the port does not have yet raises
+:class:`nomad_tpu_torch.NotPortedError` naming it (``NOT_PORTED``): the
+client (so ``AgentConfig.dev()``, whose dev mode is server + client),
+the lock watchdog's analysis, the Atlas/SCADA uplink, and the debug
+bundle.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import tempfile
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import torch
+
+from nomad_tpu_torch import NotPortedError
+from nomad_tpu_torch.server.server import Server, ServerConfig
+
+# AgentConfig fields of nomad_tpu whose modules the port does not have
+# yet, with the module each needs. Setting one raises at Agent
+# construction: it is never ignored.
+NOT_PORTED = {
+    "client_enabled": "the client (client/)",
+    "lock_watchdog": "the lock watchdog's lock-order analysis "
+                     "(tools/nomadlint)",
+    "atlas_endpoint": "the Atlas/SCADA uplink (scada.py)",
+}
+
+
+@dataclass
+class AgentConfig:
+    """Agent-level configuration (reference: command/agent/config.go).
+
+    nomad_tpu's keys for the observatories, admission, the express lane,
+    the read path, the solver mesh, SLOs, TLS and the metrics sinks have
+    no field here: their modules are not ported (``agent_config`` raises
+    on them in a config file)."""
+
+    region: str = "global"
+    datacenter: str = "dc1"
+    node_name: str = ""
+    data_dir: str = ""
+    log_level: str = "INFO"
+    http_host: str = "127.0.0.1"
+    http_port: int = 4646
+    server_enabled: bool = False
+    client_enabled: bool = False
+    dev_mode: bool = False
+    scheduler_backend: str = "tpu"
+    # Where the server's tpu-* schedulers solve: "cuda" (the card) or
+    # "cpu" (the plain PyTorch versions, asked for explicitly).
+    device: str = "cuda"
+    num_schedulers: int = 0
+    enabled_schedulers: List[str] = field(default_factory=list)
+    bootstrap_expect: int = 0
+    eval_pending_cap: int = 0
+    plan_queue_cap: int = 0
+    max_blocking_watchers: int = 0
+    enable_debug: bool = False
+    # Eval-lifecycle tracing (nomad_tpu_torch.trace): ring size of
+    # retained traces (0 = default 256) and the master enable.
+    trace_buffer_size: int = 0
+    disable_tracing: bool = False
+    lock_watchdog: bool = False
+    # Cluster event stream ring (0 = default 2048): the
+    # /v1/event/stream resume window.
+    event_buffer_size: int = 0
+    enable_syslog: bool = False
+    syslog_facility: str = "LOCAL0"
+    leave_on_interrupt: bool = False
+    leave_on_terminate: bool = False
+    rpc_host: str = ""
+    rpc_port: int = 4647
+    start_join: List[str] = field(default_factory=list)
+    atlas_endpoint: str = ""
+    # Deterministic fault-injection plan (nomad_tpu_torch.faults): the
+    # ``faults{}`` config block as a {"seed": int, "sites": {...}} spec,
+    # armed at agent start; live reconfiguration rides the debug-gated
+    # /v1/agent/faults endpoint.
+    faults: Optional[Dict] = None
+
+    @classmethod
+    def dev(cls) -> "AgentConfig":
+        """Dev mode: server + client in one process (command.go
+        DevConfig). An Agent built from it raises until ``client/`` is
+        ported."""
+        return cls(
+            server_enabled=True,
+            client_enabled=True,
+            dev_mode=True,
+            node_name="dev-node",
+        )
+
+    @classmethod
+    def from_file_config(cls, fc) -> "AgentConfig":
+        """Convert a merged agent_config.FileConfig (agent.go:47-150 builds
+        nomad.Config from the file config the same way)."""
+        return cls(
+            region=fc.region or "global",
+            datacenter=fc.datacenter or "dc1",
+            node_name=fc.name,
+            data_dir=fc.data_dir,
+            log_level=fc.log_level or "INFO",
+            http_host=fc.addresses.http or fc.bind_addr or "127.0.0.1",
+            http_port=fc.ports.http,
+            server_enabled=fc.server.enabled,
+            client_enabled=fc.client.enabled,
+            scheduler_backend=fc.scheduler_backend or "tpu",
+            device=fc.device or "cuda",
+            # The first-class knob wins over the legacy alias when both
+            # are set in the config files.
+            num_schedulers=(fc.server.scheduler_workers
+                            or fc.server.num_schedulers),
+            enabled_schedulers=list(fc.server.enabled_schedulers),
+            bootstrap_expect=fc.server.bootstrap_expect,
+            eval_pending_cap=fc.server.eval_pending_cap,
+            plan_queue_cap=fc.server.plan_queue_cap,
+            max_blocking_watchers=fc.server.max_blocking_watchers,
+            enable_debug=fc.enable_debug,
+            trace_buffer_size=fc.telemetry.trace_buffer_size,
+            disable_tracing=fc.telemetry.disable_tracing,
+            lock_watchdog=fc.telemetry.lock_watchdog,
+            event_buffer_size=fc.telemetry.event_buffer_size,
+            enable_syslog=fc.enable_syslog,
+            syslog_facility=fc.syslog_facility,
+            leave_on_interrupt=fc.leave_on_interrupt,
+            leave_on_terminate=fc.leave_on_terminate,
+            rpc_host=fc.addresses.rpc or fc.bind_addr or "127.0.0.1",
+            rpc_port=fc.ports.rpc,
+            start_join=list(fc.server.start_join),
+            faults=(
+                {"seed": fc.faults.seed, "sites": dict(fc.faults.sites)}
+                if fc.faults.sites else None
+            ),
+        )
+
+
+class Agent:
+    def __init__(self, config: AgentConfig,
+                 logger: Optional[logging.Logger] = None):
+        for key, needs in NOT_PORTED.items():
+            if getattr(config, key):
+                raise NotPortedError(
+                    f"AgentConfig.{key} needs {needs}, which "
+                    "nomad_tpu_torch does not have yet"
+                )
+        self.config = config
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.agent")
+        self.server: Optional[Server] = None
+        self.http: Optional[object] = None
+        if config.server_enabled:
+            self._setup_server()
+        if self.server is None:
+            raise ValueError("must have at least client or server mode enabled")
+
+    def _setup_server(self) -> None:
+        """agent.go:153-173. Dev mode runs the in-process server (the
+        reference's raft.NewInmemStore posture, server.go:420-427);
+        otherwise a ClusterServer with network RPC + Raft + membership."""
+        server_config = ServerConfig(
+            region=self.config.region,
+            datacenter=self.config.datacenter,
+            node_name=self.config.node_name or "server",
+            scheduler_backend=self.config.scheduler_backend,
+            device=self.config.device,
+            eval_pending_cap=self.config.eval_pending_cap,
+            plan_queue_cap=self.config.plan_queue_cap,
+            max_blocking_watchers=self.config.max_blocking_watchers,
+        )
+        if self.config.event_buffer_size:
+            server_config.event_buffer_size = self.config.event_buffer_size
+        if self.config.num_schedulers:
+            # ServerConfig resolves + validates the worker count in
+            # __post_init__; a post-construction override must set the
+            # resolved field too (or start() would ignore it) and re-run
+            # the validator.
+            server_config.num_schedulers = self.config.num_schedulers
+            server_config.scheduler_workers = self.config.num_schedulers
+            server_config.__post_init__()
+        if self.config.enabled_schedulers:
+            server_config.enabled_schedulers = list(
+                self.config.enabled_schedulers
+            )
+        if self.config.dev_mode:
+            self.server = Server(
+                server_config, logger=self.logger.getChild("server")
+            )
+            return
+
+        from nomad_tpu_torch.server.cluster import ClusterConfig, ClusterServer
+
+        data_dir = self.config.data_dir or os.path.join(
+            tempfile.gettempdir(), "nomad-tpu-torch-agent")
+        cluster = ClusterConfig(
+            node_id=server_config.node_name,
+            bind_host=self.config.rpc_host or "127.0.0.1",
+            bind_port=self.config.rpc_port,
+            raft_data_dir=os.path.join(data_dir, "raft"),
+            bootstrap_expect=self.config.bootstrap_expect,
+            start_join=list(self.config.start_join),
+            # Production-profile raft timing (dev/test clusters tighten
+            # these like server_test.go:12-16 does).
+            heartbeat_interval=0.5,
+            election_timeout_min=1.0,
+            election_timeout_max=2.0,
+        )
+        self.server = ClusterServer(
+            server_config, cluster, logger=self.logger.getChild("server")
+        )
+
+    def setup_telemetry(self) -> None:
+        """The eval tracer (nomad_tpu_torch.trace, served at the trace
+        endpoints). nomad_tpu's metrics sinks and SIGUSR1 dump are not
+        ported: /v1/agent/metrics answers 501."""
+        from nomad_tpu_torch import trace
+
+        self.tracer = trace.configure(
+            max_traces=self.config.trace_buffer_size or 256,
+            enabled=not self.config.disable_tracing,
+        )
+
+    def setup_logging(self) -> None:
+        """Level gate + circular stream buffer + optional syslog."""
+        from nomad_tpu_torch.logbuf import setup_agent_logging
+
+        self.log_writer = setup_agent_logging(
+            log_level=self.config.log_level,
+            enable_syslog=self.config.enable_syslog,
+        )
+
+    def start(self) -> None:
+        from nomad_tpu_torch.api.http import HTTPServer
+
+        if getattr(self, "log_writer", None) is None:
+            self.setup_logging()
+        if getattr(self, "tracer", None) is None:
+            self.setup_telemetry()
+        if self.config.faults:
+            # Arm the configured fault plan BEFORE any subsystem starts so
+            # the very first heartbeat/RPC/solve is already under test.
+            # A validation error here must fail agent start loudly, not
+            # leave a half-armed plan.
+            from nomad_tpu_torch import faults
+
+            faults.get_registry().load(self.config.faults)
+            self.logger.warning(
+                "fault injection armed: %s",
+                ", ".join(sorted(self.config.faults.get("sites", {}))),
+            )
+        self.server.start()
+        self.http = HTTPServer(
+            self, self.config.http_host, self.config.http_port,
+            self.logger.getChild("http"),
+        )
+        self.http.start()
+
+    def shutdown(self) -> None:
+        if self.http is not None:
+            self.http.shutdown()
+        if self.server is not None:
+            self.server.shutdown()
+
+    # -- info for the agent HTTP endpoints -----------------------------------
+
+    def debug_enabled(self) -> bool:
+        return self.config.enable_debug
+
+    def debug_bundle(self, query: Optional[Dict] = None) -> Dict:
+        raise NotPortedError(
+            "the debug bundle needs bundle.py, which nomad_tpu_torch does "
+            "not have yet"
+        )
+
+    def self_info(self) -> Dict:
+        """/v1/agent/self: nomad_tpu's keys, with the server's device (name
+        and capability from torch) and the kernels' build info in place of
+        its device-probe status and Pallas mode."""
+        from nomad_tpu_torch.ops.kernels import BUILD_INFO
+
+        device = self.server.device
+        dev: Dict = {"device": str(device)}
+        if device.type == "cuda":
+            index = device.index if device.index is not None else 0
+            dev["name"] = torch.cuda.get_device_name(index)
+            dev["capability"] = list(torch.cuda.get_device_capability(index))
+        dev["kernels"] = {k: BUILD_INFO[k] for k in ("built", "seconds")
+                          if k in BUILD_INFO}
+        info: Dict = {
+            "config": {
+                "region": self.config.region,
+                "datacenter": self.config.datacenter,
+                "node_name": self.config.node_name,
+                "server_enabled": self.config.server_enabled,
+                "client_enabled": self.config.client_enabled,
+                "dev_mode": self.config.dev_mode,
+                "scheduler_backend": self.config.scheduler_backend,
+                "device": self.config.device,
+            },
+            "stats": {
+                "server": self.server.stats(),
+                "leader": True,
+                "device": dev,
+            },
+        }
+        return info
+
+    def members(self) -> List[Dict]:
+        if hasattr(self.server, "members"):
+            return self.server.members()
+        return [
+            {
+                "name": self.server.config.node_name,
+                "addr": self.http.addr if self.http else "",
+                "status": "alive",
+                "leader": True,
+            }
+        ]
+
+    def server_addrs(self) -> List[str]:
+        if hasattr(self.server, "rpc_addr"):
+            return [self.server.rpc_addr]
+        return [self.http.addr] if self.http else []
+
+    def leader_addr(self) -> str:
+        leader = getattr(self.server.raft, "leader_addr", "")
+        if leader:
+            return leader
+        return self.http.addr if self.http else ""
+
+    def peer_addrs(self) -> List[str]:
+        if hasattr(self.server, "cluster"):
+            return sorted(self.server.cluster.peers.values())
+        return self.server_addrs()
+
+    def join(self, addr: str) -> int:
+        if hasattr(self.server, "join"):
+            return self.server.join(addr)
+        self.logger.warning("agent join is a no-op in single-process mode")
+        return 0
+
+    def force_leave(self, node: str) -> None:
+        if hasattr(self.server, "force_leave"):
+            self.server.force_leave(node)
+            return
+        self.logger.warning("agent force-leave is a no-op in single-process mode")

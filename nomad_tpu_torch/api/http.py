@@ -1,0 +1,718 @@
+"""HTTP API server (port of nomad_tpu/api/http.py).
+
+Reference: upstream command/agent/http.go — route table at :93-120,
+the ``wrap`` JSON/error envelope at :147-226, blocking-query parameter
+parsing (``index``/``wait``) at :228-250, and the X-Nomad-Index /
+X-Nomad-KnownLeader / X-Nomad-LastContact response headers. Endpoint
+behaviors mirror command/agent/{job,node,eval,alloc,agent}_endpoint.go.
+
+The routes whose handler needs a module the port does not have yet
+answer 501 with a body naming the module (``NOT_PORTED_ROUTES``). The
+consistency lanes keep nomad_tpu's names; with no follower read plane
+(``server.read_path`` is None) every read is served locally, as
+nomad_tpu's lanes do with ``read_path { enabled = false }``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import re
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+from nomad_tpu_torch import events as events_mod
+from nomad_tpu_torch import trace
+from nomad_tpu_torch.api.codec import from_dict, to_dict
+from nomad_tpu_torch.jobspec import parse_duration
+from nomad_tpu_torch.server.blocking import blocking_query
+from nomad_tpu_torch.state.store import (
+    item_table,
+)
+from nomad_tpu_torch.structs import (
+    MAX_QUERY_TIME,
+    REJECT_QUEUE_FULL,
+    REJECT_WATCH_LIMIT,
+    Job,
+    RejectError,
+    ValidationError,
+)
+
+# Consistency lanes of a read (nomad_tpu/server/read_path.py): the
+# default leader-local read, the bounded-stale lane, and the read-index
+# confirmed lane.
+LANE_DEFAULT = "default"
+LANE_STALE = "stale"
+LANE_LINEARIZABLE = "linearizable"
+
+# Routes of nomad_tpu whose handlers need a module the port does not have
+# yet: route pattern -> the module. Each answers 501 naming it.
+NOT_PORTED_ROUTES = {
+    r"^/v1/evaluation/(?P<eval_id>[^/]+)/timeline$":
+        "the lifecycle timelines (lifecycle.py)",
+    r"^/v1/allocation/(?P<alloc_id>[^/]+)/timeline$":
+        "the lifecycle timelines (lifecycle.py)",
+    r"^/v1/agent/slo$": "the SLO monitor (slo.py)",
+    r"^/v1/agent/admission$": "admission control (server/admission.py)",
+    r"^/v1/agent/express$": "the express lane (server/express.py)",
+    r"^/v1/agent/capacity$": "the capacity observatory (capacity.py)",
+    r"^/v1/agent/raft$": "the raft observatory (raft_observe.py)",
+    r"^/v1/agent/reads$": "the read-path observatory (read_observe.py)",
+    r"^/v1/agent/profile$": "the runtime observatory (profile_observe.py)",
+    r"^/v1/agent/runtime$": "the runtime observatory (profile_observe.py)",
+    r"^/v1/agent/solver$":
+        "the solver panel on /v1/agent/* (the telemetry sinks)",
+    r"^/v1/agent/metrics$": "the telemetry sinks (telemetry.py's sinks)",
+    r"^/v1/agent/debug$": "the debug surface (bundle.py)",
+    r"^/v1/agent/debug/bundle$": "the debug bundle (bundle.py)",
+}
+
+
+def _prefix_filter(items, query):
+    """Apply the list endpoints' ``?prefix=`` filter over item ids (the
+    reference api's QueryOptions.Prefix: CLI short-id resolution lists
+    with a prefix and disambiguates client-side)."""
+    prefix = query.get("prefix", "")
+    if not prefix:
+        return items
+    return [it for it in items if it.id.startswith(prefix)]
+
+
+class HTTPCodedError(Exception):
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+class _Streamed:
+    """Sentinel handler result: the handler already wrote the response
+    itself (SSE tailing) — the dispatcher must not write anything."""
+
+
+STREAMED = _Streamed()
+
+
+class HTTPServer:
+    """The agent's HTTP interface (http.go:25-120)."""
+
+    def __init__(self, agent, host: str = "127.0.0.1", port: int = 4646,
+                 logger: Optional[logging.Logger] = None):
+        self.agent = agent
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.http")
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                api.logger.debug("http: " + fmt, *args)
+
+            def _handle(self):
+                api.dispatch(self)
+
+            do_GET = do_PUT = do_POST = do_DELETE = _handle
+
+        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.port = self.httpd.server_address[1]
+        self.addr = f"http://{host}:{self.port}"
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, daemon=True, name="http-server"
+        )
+
+        # Route table (http.go:93-120)
+        self.routes = [
+            (r"^/v1/jobs$", self.jobs_request),
+            (r"^/v1/job/(?P<job_id>[^/]+)$", self.job_request),
+            (r"^/v1/job/(?P<job_id>[^/]+)/allocations$", self.job_allocations),
+            (r"^/v1/job/(?P<job_id>[^/]+)/evaluations$", self.job_evaluations),
+            (r"^/v1/job/(?P<job_id>[^/]+)/evaluate$", self.job_evaluate),
+            (r"^/v1/nodes$", self.nodes_request),
+            (r"^/v1/node/(?P<node_id>[^/]+)$", self.node_request),
+            (r"^/v1/node/(?P<node_id>[^/]+)/allocations$", self.node_allocations),
+            (r"^/v1/node/(?P<node_id>[^/]+)/evaluate$", self.node_evaluate),
+            (r"^/v1/node/(?P<node_id>[^/]+)/drain$", self.node_drain),
+            (r"^/v1/allocations$", self.allocs_request),
+            (r"^/v1/allocation/(?P<alloc_id>[^/]+)$", self.alloc_request),
+            (r"^/v1/evaluations$", self.evals_request),
+            (r"^/v1/evaluation/(?P<eval_id>[^/]+)$", self.eval_request),
+            (r"^/v1/evaluation/(?P<eval_id>[^/]+)/allocations$",
+             self.eval_allocations),
+            (r"^/v1/evaluation/(?P<eval_id>[^/]+)/trace$", self.eval_trace),
+            (r"^/v1/event/stream$", self.event_stream),
+            (r"^/v1/agent/self$", self.agent_self),
+            (r"^/v1/agent/traces$", self.agent_traces),
+            (r"^/v1/agent/faults$", self.agent_faults),
+            (r"^/v1/agent/logs$", self.agent_logs),
+            (r"^/v1/agent/members$", self.agent_members),
+            (r"^/v1/agent/servers$", self.agent_servers),
+            (r"^/v1/agent/join$", self.agent_join),
+            (r"^/v1/agent/force-leave$", self.agent_force_leave),
+            (r"^/v1/status/leader$", self.status_leader),
+            (r"^/v1/status/peers$", self.status_peers),
+        ]
+        self.routes += [(p, self._not_ported(needs))
+                        for p, needs in NOT_PORTED_ROUTES.items()]
+        self.routes = [(re.compile(p), h) for p, h in self.routes]
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+    # -- dispatch + envelope (http.go:147-226 wrap) --------------------------
+
+    def dispatch(self, req: BaseHTTPRequestHandler) -> None:
+        parsed = urlparse(req.path)
+        query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+        for pattern, handler in self.routes:
+            m = pattern.match(parsed.path)
+            if m is None:
+                continue
+            try:
+                if req.command == "GET":
+                    self._enter_read_lane(req, query)
+                out, index = handler(req, query, **m.groupdict())
+            except HTTPCodedError as e:
+                self._respond_error(req, e.code, str(e))
+            except RejectError as e:
+                self._respond_reject(req, e)
+            except KeyError as e:
+                # Endpoints raise KeyError for missing resources
+                self._respond_error(req, 404, str(e).strip("'\""))
+            except (ValidationError, ValueError) as e:
+                self._respond_error(req, 400, str(e))
+            except Exception as e:
+                self.logger.exception("http: request failed")
+                self._respond_error(req, 500, str(e))
+            else:
+                if out is not STREAMED:  # SSE wrote its own body
+                    self._respond_json(req, out, index)
+            return
+        self._respond_error(req, 404, "not found")
+
+    @staticmethod
+    def _not_ported(needs: str) -> Callable:
+        def handler(req, query, **_ids):
+            raise HTTPCodedError(
+                501, f"not implemented: this endpoint needs {needs}, which "
+                     "nomad_tpu_torch does not have yet")
+        return handler
+
+    @staticmethod
+    def _enter_read_lane(req, query: Dict[str, str]) -> None:
+        """Validate one GET's consistency lane (the reference QueryOptions
+        AllowStale posture plus Consul's ``?consistent=``): ``?stale=`` /
+        ``X-Nomad-Consistency: stale``, ``?max_stale=`` in ms,
+        ``?consistent=`` / ``X-Nomad-Consistency: linearizable``
+        (``LANE_*``). Without the follower read plane every lane is served
+        from the local store; only a malformed bound is refused."""
+        if query.get("max_stale"):
+            try:
+                float(query["max_stale"])
+            except ValueError:
+                raise HTTPCodedError(
+                    400, f"invalid max_stale (ms): {query['max_stale']!r}")
+
+    def _freshness_headers(self, req) -> None:
+        """Stamp the response with read-freshness meta: the serving
+        server's last-applied raft index, whether it currently knows a
+        leader, and the response's staleness vs the leader commit index
+        (in raft entries). Stamped on EVERY response — plain GETs,
+        errors, and streams alike, not just blocking queries — so a
+        consumer can always judge how fresh the state it read was (the
+        follower-read groundwork). The port has no follower read plane,
+        so there is no measured leader-contact age (X-Nomad-LastContact)
+        and no read index to stamp, as in nomad_tpu with
+        ``read_path { enabled = false }``."""
+        raft = self.agent.server.raft
+        applied = int(getattr(raft, "applied_index", 0) or 0)
+        commit = int(getattr(raft, "commit_index", applied) or applied)
+        try:
+            known_leader = bool(self.agent.leader_addr())
+        except Exception:
+            known_leader = False
+        req.send_header("X-Nomad-Applied-Index", str(applied))
+        req.send_header("X-Nomad-LastIndex", str(applied))
+        req.send_header("X-Nomad-Staleness", str(max(commit - applied, 0)))
+        req.send_header("X-Nomad-KnownLeader",
+                        "true" if known_leader else "false")
+
+    def _respond_json(self, req, out: Any, index: Optional[int]) -> None:
+        body = json.dumps(to_dict(out)).encode()
+        req.send_response(200)
+        req.send_header("Content-Type", "application/json")
+        req.send_header("Content-Length", str(len(body)))
+        if index is not None:
+            # Query meta headers (http.go setMeta; known-leader and the
+            # MEASURED last-contact age ride the uniform freshness stamp
+            # below — the old hardcoded "0" here lied on followers)
+            req.send_header("X-Nomad-Index", str(index))
+        self._freshness_headers(req)
+        req.end_headers()
+        req.wfile.write(body)
+
+    def _respond_error(self, req, code: int, message: str) -> None:
+        body = message.encode()
+        req.send_response(code)
+        req.send_header("Content-Type", "text/plain")
+        req.send_header("Content-Length", str(len(body)))
+        self._freshness_headers(req)
+        req.end_headers()
+        req.wfile.write(body)
+
+    def _respond_reject(self, req, e: RejectError) -> None:
+        """Typed admission/backpressure rejection: 429 for client-paced
+        reasons (rate lane empty, SLO shed — 'you, slow down'), 503 for
+        server-capacity reasons (queue/watcher caps — 'everyone, later').
+        The Retry-After header carries the hint in whole seconds (RFC
+        7231 grammar); the JSON body keeps the float and the typed reason
+        so the SDK retries with full precision."""
+        code = 503 if e.reason in (REJECT_QUEUE_FULL,
+                                   REJECT_WATCH_LIMIT) else 429
+        body = json.dumps({
+            "error": str(e),
+            "reason": e.reason,
+            "retry_after": e.retry_after,
+        }).encode()
+        req.send_response(code)
+        req.send_header("Content-Type", "application/json")
+        req.send_header("Retry-After",
+                        str(max(1, math.ceil(e.retry_after))))
+        req.send_header("Content-Length", str(len(body)))
+        self._freshness_headers(req)
+        req.end_headers()
+        req.wfile.write(body)
+
+    def _read_body(self, req) -> Dict:
+        length = int(req.headers.get("Content-Length", 0))
+        if length == 0:
+            return {}
+        try:
+            return json.loads(req.rfile.read(length))
+        except ValueError as e:
+            raise HTTPCodedError(400, f"invalid JSON body: {e}")
+
+    # -- blocking queries (http.go:228-250 parseWait + blockingRPC) ----------
+
+    def _maybe_block(self, query: Dict[str, str], table: str) -> None:
+        """Implements ?index=N&wait=D against the state watch: return when
+        the table index passes N or the wait expires."""
+        min_index = int(query.get("index", 0))
+        if min_index == 0:
+            return
+        # MaxQueryTime cap (rpc.go:283-291): client-supplied waits clamp
+        # so a poll can never park unboundedly.
+        wait = min(parse_duration(query.get("wait", "5m")), MAX_QUERY_TIME)
+        end = time.monotonic() + wait
+        while True:
+            # Re-read per pass: a raft snapshot install rebinds
+            # fsm.state, orphaning any watch parked on the previous
+            # store.
+            store = self.agent.server.state_store
+            if store.get_index(table) > min_index:
+                return
+            remaining = end - time.monotonic()
+            if remaining <= 0:
+                return
+            # register may raise a typed RejectError(WATCH_LIMIT) —
+            # the dispatcher maps it to a 503 with Retry-After.
+            ticket = store.watch.register([item_table(table)])
+            try:
+                # Identity re-check closes the register-vs-rebind
+                # race; a rebind after registration fires notify_all
+                # on the old store, so a full-length wait is safe.
+                if (self.agent.server.state_store is store
+                        and store.get_index(table) <= min_index):
+                    fired = store.watch.wait(ticket, timeout=remaining)
+                    if fired and store.get_index(table) <= min_index:
+                        # Woken by a bucket-sharing neighbor, index
+                        # unmoved: the spurious re-probe the coalesced
+                        # registry trades for O(items) publishes.
+                        store.watch.spurious_wakes += 1
+            finally:
+                store.watch.unregister(ticket)
+
+    def _srv(self):
+        # The port's agent always runs a server (no client-only mode).
+        return self.agent.server
+
+    @staticmethod
+    def _require_write(req) -> None:
+        if req.command not in ("PUT", "POST"):
+            raise HTTPCodedError(405, "method not allowed")
+
+    @staticmethod
+    def _client_id(req, query: Dict[str, str]) -> str:
+        """Caller identity for per-client admission rate lanes: the
+        ``X-Nomad-Client`` header (the SDK sets it) or ``?client_id=``.
+        Empty = the shared anonymous lane."""
+        return (req.headers.get("X-Nomad-Client")
+                or query.get("client_id", "") or "")
+
+    # -- job endpoints (command/agent/job_endpoint.go) -----------------------
+
+    def jobs_request(self, req, query) -> Tuple[Any, int]:
+        srv = self._srv()
+        if req.command == "GET":
+            self._maybe_block(query, "jobs")
+            jobs = sorted(srv.state_store.jobs(), key=lambda j: j.id)
+            jobs = _prefix_filter(jobs, query)
+            return [j.stub() for j in jobs], srv.state_store.get_index("jobs")
+        if req.command in ("PUT", "POST"):
+            payload = self._read_body(req)
+            job = from_dict(Job, payload.get("job", payload))
+            eval_id, index = srv.job_register(
+                job, client_id=self._client_id(req, query))
+            return {"eval_id": eval_id, "eval_create_index": index,
+                    "job_modify_index": index, "index": index}, index
+        raise HTTPCodedError(405, "method not allowed")
+
+    def job_request(self, req, query, job_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        if req.command == "GET":
+            self._maybe_block(query, "jobs")
+            job = srv.state_store.job_by_id(job_id)
+            if job is None:
+                raise HTTPCodedError(404, "job not found")
+            return job, srv.state_store.get_index("jobs")
+        if req.command in ("PUT", "POST"):
+            payload = self._read_body(req)
+            job = from_dict(Job, payload.get("job", payload))
+            if job.id != job_id:
+                raise HTTPCodedError(400, "job ID does not match request path")
+            eval_id, index = srv.job_register(
+                job, client_id=self._client_id(req, query))
+            return {"eval_id": eval_id, "index": index}, index
+        if req.command == "DELETE":
+            eval_id, index = srv.job_deregister(job_id)
+            return {"eval_id": eval_id, "index": index}, index
+        raise HTTPCodedError(405, "method not allowed")
+
+    def job_allocations(self, req, query, job_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "allocs")
+        allocs = srv.state_store.allocs_by_job(job_id)
+        return [a.stub() for a in allocs], srv.state_store.get_index("allocs")
+
+    def job_evaluations(self, req, query, job_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "evals")
+        return (
+            srv.state_store.evals_by_job(job_id),
+            srv.state_store.get_index("evals"),
+        )
+
+    def job_evaluate(self, req, query, job_id: str) -> Tuple[Any, int]:
+        self._require_write(req)
+        srv = self._srv()
+        eval_id, index = srv.job_evaluate(
+            job_id, client_id=self._client_id(req, query))
+        return {"eval_id": eval_id, "index": index}, index
+
+    # -- node endpoints ------------------------------------------------------
+
+    def nodes_request(self, req, query) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "nodes")
+        nodes = sorted(srv.state_store.nodes(), key=lambda n: n.id)
+        nodes = _prefix_filter(nodes, query)
+        return [n.stub() for n in nodes], srv.state_store.get_index("nodes")
+
+    def node_request(self, req, query, node_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "nodes")
+        node = srv.state_store.node_by_id(node_id)
+        if node is None:
+            raise HTTPCodedError(404, "node not found")
+        return node, srv.state_store.get_index("nodes")
+
+    def node_allocations(self, req, query, node_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "allocs")
+        allocs = srv.state_store.allocs_by_node(node_id)
+        return allocs, srv.state_store.get_index("allocs")
+
+    def node_evaluate(self, req, query, node_id: str) -> Tuple[Any, int]:
+        self._require_write(req)
+        srv = self._srv()
+        reply = srv.node_evaluate(node_id)
+        return reply, reply.get("index", 0)
+
+    def node_drain(self, req, query, node_id: str) -> Tuple[Any, int]:
+        self._require_write(req)
+        srv = self._srv()
+        enable = query.get("enable", "").lower() in ("1", "true")
+        if "enable" not in query:
+            raise HTTPCodedError(400, "missing drain mode")
+        reply = srv.node_update_drain(node_id, enable)
+        return reply, reply.get("index", 0)
+
+    # -- alloc + eval endpoints ----------------------------------------------
+
+    def allocs_request(self, req, query) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "allocs")
+        allocs = sorted(srv.state_store.allocs(), key=lambda a: a.id)
+        allocs = _prefix_filter(allocs, query)
+        return [a.stub() for a in allocs], srv.state_store.get_index("allocs")
+
+    def alloc_request(self, req, query, alloc_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "allocs")
+        alloc = srv.state_store.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise HTTPCodedError(404, "alloc not found")
+        return alloc, srv.state_store.get_index("allocs")
+
+    def evals_request(self, req, query) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "evals")
+        evals = sorted(srv.state_store.evals(), key=lambda e: e.id)
+        evals = _prefix_filter(evals, query)
+        return evals, srv.state_store.get_index("evals")
+
+    def eval_request(self, req, query, eval_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "evals")
+        ev = srv.state_store.eval_by_id(eval_id)
+        if ev is None:
+            raise HTTPCodedError(404, "eval not found")
+        return ev, srv.state_store.get_index("evals")
+
+    def eval_allocations(self, req, query, eval_id: str) -> Tuple[Any, int]:
+        srv = self._srv()
+        self._maybe_block(query, "allocs")
+        allocs = srv.state_store.allocs_by_eval(eval_id)
+        return [a.stub() for a in allocs], srv.state_store.get_index("allocs")
+
+    def eval_trace(self, req, query, eval_id: str) -> Tuple[Any, Optional[int]]:
+        """Per-evaluation trace: the span tree recorded across broker →
+        worker → solver → plan applier → FSM (nomad_tpu_torch.trace).
+        ``?format=chrome`` returns Chrome trace-event JSON that loads
+        straight into Perfetto."""
+        tracer = trace.get_tracer()
+        if query.get("format") == "chrome":
+            doc = tracer.chrome_trace(eval_id)
+            if doc is None:
+                raise HTTPCodedError(404, "no trace for evaluation")
+            return doc, None
+        spans = tracer.get_trace(eval_id)
+        if spans is None:
+            raise HTTPCodedError(404, "no trace for evaluation")
+        return {"eval_id": eval_id, "spans": spans}, None
+
+    # -- event stream (reference: nomad/stream, /v1/event/stream) ------------
+
+    def event_stream(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Cluster event stream (nomad_tpu_torch.events).
+
+        Default: one JSON page of events with index > ``?index=N``
+        (0 returns the whole retained buffer immediately), blocking-query
+        semantics when N > 0 — the response long-polls until a newer
+        event lands or ``?wait=`` lapses. ``?topic=T`` / ``?topic=T:key``
+        filter (repeatable, OR-ed). Body carries ``index`` (the resume
+        cursor) and ``truncated`` (the cursor fell off the bounded ring —
+        re-list). ``?format=sse`` (or Accept: text/event-stream) switches
+        to live Server-Sent-Events tailing instead."""
+        srv = self._srv()
+        broker = srv.fsm.events
+        # Multi-valued params: the dispatch envelope collapses to first
+        # value, and topic filters are legitimately repeatable.
+        topics = parse_qs(urlparse(req.path).query).get("topic", [])
+        tfilter = events_mod.TopicFilter(topics)
+        try:
+            min_index = int(query.get("index", 0))
+        except ValueError:
+            raise HTTPCodedError(400, "invalid index")
+        accept = req.headers.get("Accept") or ""
+        if query.get("format") == "sse" or "text/event-stream" in accept:
+            self._stream_sse(req, broker, tfilter, min_index, query)
+            return STREAMED, None
+        wait = min(parse_duration(query.get("wait", "60s")), MAX_QUERY_TIME)
+
+        def run(b):
+            idx, evs, truncated = b.events_after(min_index, tfilter)
+            return idx, {
+                "index": idx,
+                "events": [e.to_dict() for e in evs],
+                "truncated": truncated,
+            }
+
+        if min_index <= 0:
+            # Non-blocking list (the _maybe_block convention): ?index=0
+            # returns the retained buffer immediately — on an empty
+            # broker too, where the index probe (0 > 0) would otherwise
+            # park the poll.
+            index, out = run(broker)
+            return out, index
+        index, out = blocking_query(
+            get_store=lambda: broker,
+            items=lambda b: tfilter.watch_items(),
+            run=run,
+            min_index=min_index,
+            timeout=wait,
+            max_timeout=MAX_QUERY_TIME,
+            # Filtered probe: wake/return only when a potentially
+            # matching event landed, not on every unrelated publish.
+            index_of=lambda b: b.index_for(tfilter),
+        )
+        return out, index
+
+    def _stream_sse(self, req, broker, tfilter, min_index, query) -> None:
+        """SSE framing for live tailing: one frame per event
+        (``event:`` = type, ``id:`` = index, ``data:`` = the JSON body),
+        a ``Truncated`` frame first when the resume cursor fell off the
+        ring, and ``: heartbeat`` comments while idle so proxies don't
+        reap the connection. Runs until the client disconnects or
+        ``?wait=`` (0 = tail forever) lapses."""
+        # Validate everything BEFORE the status line goes out: once the
+        # 200 + headers are written, an exception would make the
+        # dispatcher write a second response into the open SSE body.
+        raw_wait = query.get("wait", "")
+        try:
+            # "0" and absent both mean tail-forever (parse_duration needs
+            # a unit on non-empty strings, so map the bare zero itself).
+            wait = 0.0 if raw_wait in ("", "0") else parse_duration(raw_wait)
+        except Exception:
+            raise HTTPCodedError(400, "invalid wait duration")
+        _w = req.wfile.write
+        req.send_response(200)
+        req.send_header("Content-Type", "text/event-stream")
+        req.send_header("Cache-Control", "no-cache")
+        req.send_header("Connection", "close")
+        self._freshness_headers(req)
+        req.end_headers()
+        deadline = time.monotonic() + wait if wait > 0 else None
+        cursor = min_index
+        try:
+            while True:
+                idx, evs, truncated = broker.events_after(cursor, tfilter)
+                if truncated:
+                    # Every time the cursor falls off the ring — not just
+                    # on the first page: a tail that lags a burst larger
+                    # than the ring mid-stream has lost events too.
+                    _w(
+                        b"event: Truncated\ndata: "
+                        + json.dumps({"resume_index": cursor,
+                                      "horizon": broker.horizon()}).encode()
+                        + b"\n\n"
+                    )
+                for e in evs:
+                    frame = (
+                        f"event: {e.type}\nid: {e.index}\n"
+                        f"data: {json.dumps(e.to_dict())}\n\n"
+                    )
+                    _w(frame.encode())
+                req.wfile.flush()
+                cursor = idx
+                remaining = (
+                    deadline - time.monotonic() if deadline is not None
+                    else 15.0
+                )
+                if deadline is not None and remaining <= 0:
+                    return
+                try:
+                    ticket = broker.watch.register(tfilter.watch_items())
+                except RejectError:
+                    # Watcher cap mid-stream: the 200 already went out, so
+                    # closing the tail is the only honest backpressure.
+                    return
+                try:
+                    if broker.index_for(tfilter) <= cursor:
+                        fired = broker.watch.wait(
+                            ticket, timeout=min(15.0, remaining))
+                    else:
+                        fired = True
+                finally:
+                    broker.watch.unregister(ticket)
+                if not fired:
+                    # Keep-alive comment; also how a dead client is
+                    # detected while the stream is idle.
+                    _w(b": heartbeat\n\n")
+                    req.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            pass  # client went away — the normal end of a tail
+
+    # -- agent + status endpoints --------------------------------------------
+
+    def agent_self(self, req, query) -> Tuple[Any, Optional[int]]:
+        return self.agent.self_info(), None
+
+    def agent_traces(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Summaries of the tracer's retained traces, newest first
+        (``?n=`` limits)."""
+        out = trace.get_tracer().traces()
+        try:
+            n = int(query.get("n", "0"))
+        except ValueError:
+            n = 0
+        if n > 0:
+            out = out[:n]
+        return out, None
+
+    def agent_faults(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Deterministic fault injection (nomad_tpu_torch.faults), gated by
+        enable_debug like /v1/agent/debug — an ungated fault surface on a
+        production agent would be an outage button.
+
+        GET returns the armed plan + per-rule fire counts; PUT/POST
+        REPLACES the armed plan with a ``{"seed": .., "sites": {site:
+        rule|[rules]}}`` spec (validated atomically — a typo'd site arms
+        nothing, and sites absent from the new plan are disarmed); DELETE
+        clears one site (``?site=``) or everything."""
+        if not getattr(self.agent, "debug_enabled", lambda: False)():
+            raise HTTPCodedError(404, "fault endpoints disabled "
+                                      "(set enable_debug)")
+        from nomad_tpu_torch import faults
+
+        reg = faults.get_registry()
+        if req.command == "GET":
+            return reg.snapshot(), None
+        if req.command in ("PUT", "POST"):
+            reg.load(self._read_body(req))
+            return reg.snapshot(), None
+        if req.command == "DELETE":
+            reg.clear(query.get("site") or None)
+            return reg.snapshot(), None
+        raise HTTPCodedError(405, "method not allowed")
+
+    def agent_logs(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Tail of the agent's circular log buffer (the reference streams
+        the same buffer to `nomad monitor`, command/agent/log_writer.go)."""
+        writer = getattr(self.agent, "log_writer", None)
+        lines = writer.tail() if writer is not None else []
+        try:
+            n = int(query.get("n", "0"))
+        except ValueError:
+            n = 0
+        if n > 0:
+            lines = lines[-n:]
+        return {"lines": lines}, None
+
+    def agent_members(self, req, query) -> Tuple[Any, Optional[int]]:
+        return self.agent.members(), None
+
+    def agent_servers(self, req, query) -> Tuple[Any, Optional[int]]:
+        return self.agent.server_addrs(), None
+
+    def agent_join(self, req, query) -> Tuple[Any, Optional[int]]:
+        self._require_write(req)
+        addr = query.get("address", "")
+        return {"num_joined": self.agent.join(addr), "error": ""}, None
+
+    def agent_force_leave(self, req, query) -> Tuple[Any, Optional[int]]:
+        self._require_write(req)
+        self.agent.force_leave(query.get("node", ""))
+        return {}, None
+
+    def status_leader(self, req, query) -> Tuple[Any, Optional[int]]:
+        return self.agent.leader_addr(), None
+
+    def status_peers(self, req, query) -> Tuple[Any, Optional[int]]:
+        return self.agent.peer_addrs(), None

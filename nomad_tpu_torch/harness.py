@@ -3,7 +3,7 @@
 A real in-memory StateStore plus a Planner that records every plan and
 applies it straight to the store (reference: upstream
 scheduler/scheduler_test.go:32-176); ``planner`` overrides what a
-submitted plan does.
+submitted plan does (``RejectPlan`` forces the refresh/retry path).
 """
 
 from __future__ import annotations
@@ -17,6 +17,25 @@ from nomad_tpu_torch.state import StateStore
 from nomad_tpu_torch.structs import Allocation, Evaluation, Plan, PlanResult
 
 logger = logging.getLogger("nomad_tpu_torch.harness")
+
+
+class RejectPlan:
+    """Always rejects the plan and forces a state refresh
+    (reference: scheduler_test.go:13-30)."""
+
+    def __init__(self, harness: "Harness"):
+        self.harness = harness
+
+    def submit_plan(self, plan: Plan):
+        result = PlanResult()
+        result.refresh_index = self.harness.next_index()
+        return result, self.harness.state
+
+    def update_eval(self, ev: Evaluation) -> None:
+        pass
+
+    def create_eval(self, ev: Evaluation) -> None:
+        pass
 
 
 class Harness:

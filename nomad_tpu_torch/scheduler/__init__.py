@@ -1,11 +1,12 @@
 """Scheduler package: placement logic behind a Factory registry.
 
 Port of nomad_tpu.scheduler's registry (reference seam: upstream
-scheduler/scheduler.go:13-87). The host ``service``/``batch`` schedulers
-and the device-backed ``tpu-service``/``tpu-batch`` factories register
-here. Unlike nomad_tpu, there is no subprocess device probe and no
-circuit breaker that reroutes to the host oracle: a ``tpu-*`` factory
-runs the port's device solver on the requested device, or raises.
+scheduler/scheduler.go:13-87). The host ``service``/``batch``/``system``
+schedulers and the device-backed ``tpu-service``/``tpu-batch``/
+``tpu-system`` factories register here. Unlike nomad_tpu, there is no
+subprocess device probe and no circuit breaker that reroutes to the host
+oracle: a ``tpu-*`` factory runs the port's device solver on the
+requested device, or raises.
 """
 
 from __future__ import annotations
@@ -85,11 +86,14 @@ def _register_builtins() -> None:
         new_batch_scheduler,
         new_service_scheduler,
     )
+    from nomad_tpu_torch.scheduler.system import new_system_scheduler
 
     register("service", lambda s, p, log, _dev=None:
              new_service_scheduler(s, p, log))
     register("batch", lambda s, p, log, _dev=None:
              new_batch_scheduler(s, p, log))
+    register("system", lambda s, p, log, _dev=None:
+             new_system_scheduler(s, p, log))
 
     # No device probe and no DEVICE_BREAKER host fallback (nomad_tpu
     # scheduler/__init__.py:95-283,297-312): the device solver or an error.
@@ -104,6 +108,7 @@ def _register_builtins() -> None:
 
     register("tpu-service", _device("service"))
     register("tpu-batch", _device("batch"))
+    register("tpu-system", _device("system"))
 
 
 _register_builtins()

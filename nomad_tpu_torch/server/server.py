@@ -537,13 +537,6 @@ class Server:
         job.validate()
         if job.type == JOB_TYPE_CORE:
             raise ValueError("job type cannot be core")
-        if job.type == structs.JOB_TYPE_SYSTEM:
-            # Refused before any raft apply: an accepted system job would
-            # leave an eval no scheduler of the port can process.
-            raise ValueError(
-                "system jobs need the system scheduler (scheduler/system.py "
-                "and tpu-system), which nomad_tpu_torch does not have yet"
-            )
         index = self.raft.apply("job_register", {"job": job}).result()
 
         ev = Evaluation(

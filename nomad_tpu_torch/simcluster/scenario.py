@@ -65,7 +65,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from nomad_tpu_torch import structs
+from nomad_tpu_torch import NotPortedError, structs
 from nomad_tpu_torch.api.codec import to_dict
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.rpc import RemoteError
@@ -119,10 +119,6 @@ _ACTION_NEEDS = {
     **{kind: _CHAOS for kind in ("barrier", "expand_fleet", "settle",
                                  "kill_follower", "restart_follower")},
 }
-
-
-class NotPortedError(RuntimeError):
-    """A scenario needs a module nomad_tpu_torch does not have yet."""
 
 
 @dataclass

@@ -21,9 +21,10 @@ wholesale and replaces the per-placement Select loop with one batched
 evaluation regardless of count. Class names stay those of nomad_tpu so the
 two packages diff line for line.
 
-Not ported yet: ``TPUSystemScheduler``. Dropped on purpose: the
-``solver.execute`` fault site and the DEVICE_BREAKER accounting around
-each dispatch — a device fault fails the eval.
+``TPUSystemScheduler`` checks every pinned placement of a system task
+group in one fit dispatch. Dropped on purpose: the ``solver.execute``
+fault site and the DEVICE_BREAKER accounting around each dispatch — a
+device fault fails the eval.
 """
 
 from __future__ import annotations
@@ -42,19 +43,23 @@ from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.network import NetworkIndex
 from nomad_tpu_torch.ops.binpack import (
     EXACT_THRESHOLD,
+    _greedy_step_state,
     bucket,
     device_const,
     solve_counts_async,
     solve_many_async,
 )
+from nomad_tpu_torch.ops.coalesce import device_activity
 from nomad_tpu_torch.scheduler.context import EvalContext
 from nomad_tpu_torch.scheduler.feasible import _has_distinct_hosts
+from nomad_tpu_torch.scheduler import SchedulerError
 from nomad_tpu_torch.scheduler.generic import GenericScheduler
 from nomad_tpu_torch.scheduler.rank import RankedNode
 from nomad_tpu_torch.scheduler.stack import (
     BATCH_JOB_ANTI_AFFINITY_PENALTY,
     SERVICE_JOB_ANTI_AFFINITY_PENALTY,
 )
+from nomad_tpu_torch.scheduler.system import SystemScheduler
 from nomad_tpu_torch.scheduler.util import (
     AllocTuple,
     tainted_nodes,
@@ -68,6 +73,7 @@ from nomad_tpu_torch.structs import (
     ALLOC_DESIRED_STATUS_STOP,
     JOB_TYPE_BATCH,
     NODE_STATUS_READY,
+    AllocBatch,
     Allocation,
     Job,
     Node,
@@ -1683,6 +1689,327 @@ class TPUGenericScheduler(GenericScheduler):
                     failed_alloc = alloc
 
 
+class TPUSystemScheduler(SystemScheduler):
+    """SystemScheduler with a vectorized per-node fit: all pinned placements
+    of a task group are checked in one dispatch (factory: tpu-system).
+    ``device`` defaults to the CUDA card."""
+
+    # One-per-node placements at or above this count flow columnar
+    # (AllocBatch with unit runs) instead of per-Allocation objects.
+    BATCH_PLACE_THRESHOLD = 64
+
+    def __init__(self, state, planner, logger: logging.Logger, device=None):
+        super().__init__(state, planner, logger)
+        self.device = resolve_device(device)
+
+    def make_stack(self, ctx: EvalContext) -> TPUStack:
+        return TPUStack(ctx, system=True, device=self.device)
+
+    def _place_system_batch(self, tg, tg_constr, missing_list, mirror,
+                            fit_np, metrics, elig_np=None) -> bool:
+        """Columnar system placement: one AllocBatch of unit runs over the
+        fitting pinned nodes. Applies only to large network-free groups
+        with each node appearing once (the normal system diff shape —
+        repeats and network offers take the per-alloc path). Returns True
+        when the group was handled."""
+        if len(missing_list) < self.BATCH_PLACE_THRESHOLD:
+            return False
+        if tg_constr.size.networks or any(
+            t.resources is not None and t.resources.networks
+            for t in tg.tasks
+        ):
+            return False
+
+        # Pass 1 — pure validation, NO side effects: a bail-out here falls
+        # back to the sequential path, which must not see half-recorded
+        # metrics. System names repeat one string per task group
+        # ("job.tg[0]" on every node), so the bracket parse is memoized.
+        parsed = []
+        seen = set()
+        name_memo: Dict[str, Optional[int]] = {}
+        for missing in missing_list:
+            nid = missing.alloc.node_id
+            if nid in seen:
+                return False  # repeated node: sequential accounting path
+            seen.add(nid)
+            name = missing.name
+            idx_val = name_memo.get(name, -2)
+            if idx_val == -2:
+                lb = name.rfind("[")
+                if lb < 0 or not name.endswith("]"):
+                    idx_val = None
+                else:
+                    try:
+                        idx_val = int(name[lb + 1:-1])
+                    except ValueError:
+                        idx_val = None
+                name_memo[name] = idx_val
+            if idx_val is None:
+                return False
+            parsed.append((nid, idx_val))
+
+        # Pass 2 — fit decisions and metrics. The common case (every
+        # pinned node fits) is one vectorized gather; the python loop only
+        # runs to attribute metrics to the failing nodes.
+        index = mirror.index
+        rows = [index.get(nid) for nid, _ in parsed]
+        if any(r is None for r in rows):
+            # Same invariant the sequential path enforces: a pinned
+            # placement must name a known eligible node.
+            bad = parsed[rows.index(None)][0]
+            raise SchedulerError(f"could not find node {bad!r}")
+        fits = fit_np[np.asarray(rows, dtype=np.int64)]
+        failed = 0
+        first_failed_idx = 0
+        if bool(fits.all()):
+            node_ids = [nid for nid, _ in parsed]
+            name_idx = [idx for _, idx in parsed]
+        else:
+            node_ids = []
+            name_idx = []
+            for (nid, idx_val), row, ok in zip(parsed, rows, fits):
+                if ok:
+                    node_ids.append(nid)
+                    name_idx.append(idx_val)
+                else:
+                    if failed == 0:
+                        first_failed_idx = idx_val
+                    failed += 1
+                    # Constraint-filtered vs resource-exhausted, per the
+                    # reference's FilterNode/exhausted split.
+                    if elig_np is not None and not elig_np[row]:
+                        metrics.filter_node(mirror.nodes[row],
+                                            "constraint-mask")
+                    else:
+                        metrics.exhausted_node(mirror.nodes[row],
+                                               "resources")
+
+        self._emit_system_batch(tg, tg_constr, metrics, node_ids, name_idx,
+                                failed, first_failed_idx)
+        return True
+
+    def _emit_system_batch(self, tg, tg_constr, metrics, node_ids, name_idx,
+                           failed: int, first_failed_idx: int,
+                           src_hint=None) -> None:
+        """Append the columnar placement batch (+ one coalesced failed
+        alloc) for a system task group."""
+        placed = len(node_ids)
+        if placed:
+            batch = AllocBatch(
+                eval_id=self.eval.id,
+                job=self.job,
+                tg_name=tg.name,
+                resources=tg_constr.size,
+                task_resources={t.name: t.resources for t in tg.tasks},
+                metrics=metrics,
+                node_ids=node_ids,
+                node_counts=[1] * placed,
+                name_idx=np.asarray(name_idx, dtype=np.int64),
+                ids_seed=_new_ids_seed(),
+            )
+            if src_hint is not None:
+                batch.src_ids_ref, batch.src_rows = src_hint
+            self.plan.append_batch(batch)
+        if failed:
+            failed_alloc = Allocation(
+                id=generate_uuid(),
+                eval_id=self.eval.id,
+                name=f"{self.job.name}.{tg.name}[{first_failed_idx}]",
+                job_id=self.job.id,
+                job=self.job,
+                task_group=tg.name,
+                resources=tg_constr.size,
+                metrics=metrics,
+                desired_status=ALLOC_DESIRED_STATUS_FAILED,
+                desired_description="failed to find a node for placement",
+                client_status=ALLOC_CLIENT_STATUS_FAILED,
+            )
+            failed_alloc.metrics.coalesced_failures += failed - 1
+            self.plan.append_failed(failed_alloc)
+
+    def _system_fit(self, tg, tg_constr, mirror):
+        """One dispatch: fit for every node at once. Returns (prep,
+        fit_np) or None when no node is eligible (stack.prepare bail).
+        nomad_tpu's node-sharded mesh arm is left out: one card holds
+        every node bucket."""
+        prep = self.stack.prepare(tg, tg_constr)
+        if prep is None:
+            return None
+        t_dispatch = time.perf_counter()
+        with device_activity():
+            _score, fit = _greedy_step_state(
+                mirror.total, mirror.sched_cap, prep.used, prep.job_count,
+                prep.tg_count, mirror.bw_avail, prep.bw_used, prep.mask,
+                prep.ask, prep.bw_ask, 0.0,
+                prep.job_distinct, prep.tg_distinct,
+            )
+            fit_np = fit.cpu().numpy()
+        # System jobs ask one copy per node; the fit mask IS the
+        # placement decision, so fits = placements for the panel.
+        SOLVER_PANEL.record_solve(
+            "system_fit", mirror.n, mirror.padded, mirror.n, 0,
+            int(np.count_nonzero(fit_np[: mirror.n])),
+            (time.perf_counter() - t_dispatch) * 1000.0,
+        )
+        return prep, fit_np
+
+    def compute_job_allocs(self) -> None:
+        if self._fresh_columnar_allocs():
+            return
+        super().compute_job_allocs()
+
+    def _fresh_columnar_allocs(self) -> bool:
+        """Fully columnar fresh registration: a system job with no existing
+        allocations places one AllocBatch of unit runs per task group
+        straight from the mirror's fit mask — the per-node diff and its
+        10k AllocTuple/Allocation objects never exist. Falls back (False)
+        for small clusters, repeat counts, network asks, or any existing
+        allocs — those take the reference-shaped diff path."""
+        job = self.job
+        if job is None or len(self.nodes) < self.BATCH_PLACE_THRESHOLD:
+            return False
+        # Existence check only — materializing the alloc table here would
+        # double the cost the fallback path pays again (a job with only
+        # terminal allocs conservatively takes the diff path).
+        if self.state.has_allocs_for_job(self.eval.job_id):
+            return False
+        for tg in job.task_groups:
+            if tg.count > 1:
+                return False
+            if task_group_constraints(tg).size.networks or any(
+                t.resources is not None and t.resources.networks
+                for t in tg.tasks
+            ):
+                return False
+        self.limit_reached = False
+        _nodes, mirror = GLOBAL_MIRROR_CACHE.get(
+            self.state, job.datacenters, self.device)
+        self.stack.set_mirror(mirror)
+        n = len(mirror.nodes)
+        for tg in job.task_groups:
+            self.ctx.reset()
+            tg_constr = task_group_constraints(tg)
+            metrics = self.ctx.metrics()
+            res = self._system_fit(tg, tg_constr, mirror)
+            if res is None:
+                continue  # same posture as compute_placements' prep bail
+            prep, fit_np = res
+            fits = fit_np[:n]
+            placed_rows = np.nonzero(fits)[0]
+            nodes = mirror.nodes
+            ids_arr = mirror.id_array()
+            node_ids = ids_arr[placed_rows].tolist()
+            failed_rows = np.nonzero(~fits)[0]
+            # Attribute like the reference's FilterNode/exhausted split
+            # (feasible.go vs rank.go): a node the eligibility mask
+            # rejected was constraint-filtered, not resource-exhausted.
+            elig_np = prep.mask.cpu().numpy()[:n]
+            for i in failed_rows:
+                if elig_np[i]:
+                    metrics.exhausted_node(nodes[i], "resources")
+                else:
+                    metrics.filter_node(nodes[i], "constraint-mask")
+            self._emit_system_batch(
+                tg, tg_constr, metrics, node_ids,
+                np.zeros(len(node_ids), dtype=np.int64),
+                len(failed_rows), 0,
+                src_hint=(ids_arr, placed_rows),
+            )
+        return True
+
+    def compute_placements(self, place: List[AllocTuple]) -> None:
+        node_by_id = {node.id: node for node in self.nodes}
+        # self.nodes IS ready_nodes_in_dcs(state, dcs) (system.py) — the
+        # exact set the mirror cache keys on, so repeat system evals of one
+        # state generation share a resident mirror like the generic path.
+        _nodes, mirror = GLOBAL_MIRROR_CACHE.get(
+            self.state, self.job.datacenters, self.device
+        )
+        self.stack.set_mirror(mirror)
+
+        groups: Dict[int, Tuple[TaskGroup, List[AllocTuple]]] = {}
+        for missing in place:
+            key = id(missing.task_group)
+            groups.setdefault(key, (missing.task_group, []))[1].append(missing)
+
+        for tg, missing_list in groups.values():
+            self.ctx.reset()
+            tg_constr = task_group_constraints(tg)
+            metrics = self.ctx.metrics()
+            res = self._system_fit(tg, tg_constr, mirror)
+            if res is None:
+                continue
+            prep, fit_np = res
+
+            if self._place_system_batch(tg, tg_constr, missing_list,
+                                        mirror, fit_np, metrics,
+                                        elig_np=prep.mask.cpu().numpy()):
+                continue
+
+            # Host-side in-group accounting: if a node receives more than one
+            # placement in this group, deduct earlier asks before re-checking
+            # (job validation enforces count==1 for system jobs, but the diff
+            # can still repeat nodes; never overcommit).
+            totals_np = mirror.total.cpu().numpy()
+            used_np = prep.used.cpu().numpy()
+            bw_avail_np = mirror.bw_avail.cpu().numpy()
+            bw_used_np = prep.bw_used.cpu().numpy()
+            placed_on: Dict[int, int] = {}
+
+            failed_alloc: Optional[Allocation] = None
+            for missing in missing_list:
+                node = node_by_id.get(missing.alloc.node_id)
+                if node is None:
+                    raise SchedulerError(
+                        f"could not find node {missing.alloc.node_id!r}"
+                    )
+                idx = mirror.index[node.id]
+                ok = bool(fit_np[idx])
+                if ok and placed_on.get(idx, 0) > 0:
+                    extra = placed_on[idx]
+                    ok = bool(
+                        np.all(
+                            used_np[idx] + (extra + 1) * prep.ask_np
+                            <= totals_np[idx]
+                        )
+                        and bw_used_np[idx] + (extra + 1) * prep.bw_ask_val
+                        <= bw_avail_np[idx]
+                    )
+                placement = None
+                if ok:
+                    placement = self.stack._offer_networks(tg, [idx], [True])[0]
+                if placement is not None:
+                    placed_on[idx] = placed_on.get(idx, 0) + 1
+
+                if placement is None and failed_alloc is not None:
+                    failed_alloc.metrics.coalesced_failures += 1
+                    continue
+
+                alloc = Allocation(
+                    id=generate_uuid(),
+                    eval_id=self.eval.id,
+                    name=missing.name,
+                    job_id=self.job.id,
+                    job=self.job,
+                    task_group=tg.name,
+                    resources=tg_constr.size,
+                    metrics=metrics,
+                )
+                if placement is not None:
+                    alloc.node_id = placement[0].id
+                    alloc.task_resources = placement[1]
+                    alloc.desired_status = ALLOC_DESIRED_STATUS_RUN
+                    alloc.client_status = ALLOC_CLIENT_STATUS_PENDING
+                    self.plan.append_alloc(alloc)
+                else:
+                    metrics.exhausted_node(node, "resources")
+                    alloc.desired_status = ALLOC_DESIRED_STATUS_FAILED
+                    alloc.desired_description = "failed to find a node for placement"
+                    alloc.client_status = ALLOC_CLIENT_STATUS_FAILED
+                    self.plan.append_failed(alloc)
+                    failed_alloc = alloc
+
+
 def new_tpu_scheduler(variant: str, state, planner, logger: logging.Logger,
                       device=None):
     """``device`` defaults to the CUDA card; asking for CUDA without one
@@ -1693,6 +2020,8 @@ def new_tpu_scheduler(variant: str, state, planner, logger: logging.Logger,
     if variant == "batch":
         return TPUGenericScheduler(state, planner, logger, batch=True,
                                    device=device)
+    if variant == "system":
+        return TPUSystemScheduler(state, planner, logger, device=device)
     raise ValueError(f"unknown device scheduler variant {variant!r}")
 
 

@@ -24,8 +24,8 @@ Span taxonomy (producers in parentheses):
 A stage timer is live only while the calling thread carries a span
 (``use_span``); the span receives the solver's cuts through
 ``record_stages(stages, prefix)``. ``Tracer.get_trace`` reads one eval's
-spans back; the HTTP exposition, Chrome export and tracer configuration
-come with the agent slice.
+spans back; ``/v1/evaluation/<id>/trace`` and ``/v1/agent/traces`` expose
+them, and ``chrome_trace`` exports one trace for Perfetto.
 """
 
 from __future__ import annotations
@@ -303,6 +303,77 @@ class Tracer:
         out.sort(key=lambda d: (d["start"], d["name"]))
         return out
 
+    def stats(self) -> Dict[str, Any]:
+        """Aggregate tracer health: retained count plus the process-wide
+        loss counters."""
+        with self._lock:
+            return {
+                "enabled": self.enabled,
+                "retained": len(self._traces),
+                "max_traces": self.max_traces,
+                "max_spans": self.max_spans,
+                "spans_dropped": self.spans_dropped,
+                "traces_evicted": self.traces_evicted,
+            }
+
+    def traces(self) -> List[Dict[str, Any]]:
+        """Summaries of retained traces, most recently updated first
+        (/v1/agent/traces)."""
+        with self._lock:
+            items = list(self._traces.values())
+        out = []
+        for tr in items:
+            spans = list(tr.spans)
+            root = next((s for s in spans if not s.parent_id), None)
+            out.append({
+                "trace_id": tr.trace_id,
+                "spans": len(spans),
+                "open_spans": len(tr.open),
+                "dropped_spans": tr.dropped,
+                "done": tr.done,
+                "updated": tr.updated,
+                "root": root.name if root is not None else "",
+                "duration_ms": (
+                    round((root.end - root.start) * 1000.0, 4)
+                    if root is not None and root.end is not None else None
+                ),
+            })
+        out.sort(key=lambda d: d["updated"], reverse=True)
+        return out
+
+    def chrome_trace(self, trace_id: str) -> Optional[Dict[str, Any]]:
+        """Chrome trace-event JSON for one trace (loads into Perfetto /
+        chrome://tracing): complete ('X') events in microseconds, and
+        thread-name metadata events mapping thread names to tids."""
+        spans = self.get_trace(trace_id)
+        if spans is None:
+            return None
+        tids: Dict[str, int] = {}
+        events: List[Dict[str, Any]] = []
+        for s in spans:
+            tid = tids.setdefault(s["thread"], len(tids) + 1)
+            end = s["end"] if s["end"] is not None else now()
+            events.append({
+                "name": s["name"],
+                "cat": "eval",
+                "ph": "X",
+                "ts": round(s["start"] * 1e6, 1),
+                "dur": round((end - s["start"]) * 1e6, 1),
+                "pid": 1,
+                "tid": tid,
+                "args": {
+                    **s["annotations"],
+                    "span_id": s["span_id"],
+                    "parent_id": s["parent_id"],
+                },
+            })
+        for name, tid in tids.items():
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
+                "args": {"name": name},
+            })
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
 
 # ---------------------------------------------------------------------------
 # Process tracer + thread-local context
@@ -312,6 +383,15 @@ _TRACER = Tracer()
 
 
 def get_tracer() -> Tracer:
+    return _TRACER
+
+
+def configure(max_traces: int = 256, max_spans: int = 512,
+              enabled: bool = True) -> Tracer:
+    """Agent telemetry wiring: rebuild the process tracer from the
+    ``telemetry { }`` config block's knobs."""
+    global _TRACER
+    _TRACER = Tracer(max_traces, max_spans, enabled)
     return _TRACER
 
 

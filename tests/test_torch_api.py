@@ -1,0 +1,480 @@
+"""The port's HTTP API and SDK (nomad_tpu_torch.api) against nomad_tpu's.
+
+A nomad_tpu agent and a port agent (server-only dev mode, one worker,
+``device="cpu"`` for the port) get the same nodes and jobs, made once with
+nomad_tpu's ``mock`` and carried across with ``to_dict``, through each
+package's ``ApiClient``. Then every ported route is asked the same
+question in both: the status codes are equal, and the bodies are equal
+once server-made ids (eval and alloc uuids), raft indexes and timestamps
+are masked; node and job ids are the seeded ones and are not masked, so
+the alloc-to-node mapping is compared as it stands. A blocking query
+wakes on a write, the event stream gives the same event types on the same
+keys, every ``NOT_PORTED_ROUTES`` entry answers 501 naming its module,
+and a subprocess with ``jax`` and ``nomad_tpu`` blocked drives every
+route of the port's table and the CLI.
+
+Tolerance: exact. The cluster is ``mock.node()`` copies (one shape), so
+scores tie exactly and no decision falls in the pow contract's band
+(ROADMAP, Queue 3).
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+from collections import Counter
+
+import pytest
+import torch
+
+from nomad_tpu import mock as jmock
+from nomad_tpu import structs as jst
+from nomad_tpu.agent import Agent as JaxAgent
+from nomad_tpu.agent import AgentConfig as JaxAgentConfig
+from nomad_tpu.api import ApiClient as JaxApiClient
+from nomad_tpu.api.codec import to_dict
+from nomad_tpu.scheduler import wait_for_device
+from nomad_tpu_torch.agent import Agent, AgentConfig
+from nomad_tpu_torch.api import ApiClient
+from nomad_tpu_torch.api.http import NOT_PORTED_ROUTES
+from nomad_tpu_torch.convert import structs_from_reference
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WAIT_S = 60.0
+UUID = re.compile(
+    r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
+# Keys whose values the servers make: raft indexes and wall times.
+MASK_KEY = re.compile(r"(^|_)(index|time|timestamp|updated)$")
+# Each agent's own listener address.
+ADDR = re.compile(r"^(http://)?127\.0\.0\.1:\d+$")
+
+
+def _quiet_server(agent):
+    """No heartbeats reach these servers (nothing beats), no start-time
+    warm: one worker schedules in submission order."""
+    agent.server.config.min_heartbeat_ttl = 3600.0
+    agent.server.config.prewarm_shapes = False
+
+
+def _nodes():
+    nodes = []
+    for i in range(12):
+        node = jmock.node()
+        node.id = f"node-{i:02d}-0000-0000-0000-000000000000"
+        node.datacenter = "dc1" if i % 3 else "dc2"
+        nodes.append(node)
+    return nodes
+
+
+def _jobs():
+    service = jmock.job()
+    service.id = "svc-job"
+    service.task_groups[0].count = 6
+    service.task_groups[0].tasks[0].resources = jst.Resources(
+        cpu=500, memory_mb=256)
+    service.datacenters = ["dc1", "dc2"]
+    batch = jmock.job()
+    batch.id = "batch-job"
+    batch.type = jst.JOB_TYPE_BATCH
+    batch.task_groups[0].count = 300
+    batch.task_groups[0].tasks[0].resources = jst.Resources(
+        cpu=50, memory_mb=32)
+    batch.datacenters = ["dc1"]
+    system = jmock.system_job()
+    system.id = "sys-job"
+    system.datacenters = ["dc1", "dc2"]
+    for t in system.task_groups[0].tasks:
+        t.resources = jst.Resources(cpu=20, memory_mb=16)
+    return [service, batch, system]
+
+
+class Side:
+    """One package's agent, its SDK client and what it was asked."""
+
+    def __init__(self, name, agent, client, port_structs):
+        self.name = name
+        self.agent = agent
+        self.client = client
+        self.port_structs = port_structs
+        self.addr = f"http://127.0.0.1:{agent.http.port}"
+        self.eval_ids = {}
+
+    def convert(self, obj, cls):
+        if not self.port_structs:
+            return obj
+        return structs_from_reference(to_dict(obj), cls)
+
+    def get(self, path, method="GET", body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(self.addr + path, data=data,
+                                     method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=WAIT_S) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def wait(self, eval_id):
+        deadline = time.monotonic() + WAIT_S
+        while time.monotonic() < deadline:
+            ev, _ = self.client.evaluations().info(eval_id)
+            if ev.status in ("complete", "failed"):
+                return ev
+            time.sleep(0.01)
+        raise AssertionError(f"{self.name}: eval {eval_id} never ended")
+
+
+def _start(kind):
+    if kind == "jax":
+        agent = JaxAgent(JaxAgentConfig(
+            server_enabled=True, dev_mode=True, http_port=0,
+            num_schedulers=1, enable_debug=True))
+        _quiet_server(agent)
+        agent.server.config.eval_batch_size = 1
+        agent.start()
+        return Side("jax", agent, JaxApiClient(
+            address=f"http://127.0.0.1:{agent.http.port}"), False)
+    agent = Agent(AgentConfig(
+        server_enabled=True, dev_mode=True, http_port=0, num_schedulers=1,
+        enable_debug=True, device="cpu"))
+    _quiet_server(agent)
+    agent.server.config.eval_batch_size = 1
+    agent.start()
+    return Side("port", agent, ApiClient(
+        address=f"http://127.0.0.1:{agent.http.port}"), True)
+
+
+@pytest.fixture(scope="module")
+def sides():
+    assert wait_for_device(timeout=120.0) is not None
+    pair = [_start("jax"), _start("port")]
+    try:
+        nodes = _nodes()
+        for side in pair:
+            side.agent.server.node_batch_register(
+                [side.convert(n, "Node") for n in nodes])
+        for job in _jobs():
+            for side in pair:
+                eid, _ = side.client.jobs().register(side.convert(job, "Job"))
+                assert side.wait(eid).status == "complete"
+                side.eval_ids[job.id] = eid
+        # Drain one node: its allocs migrate through node-update evals.
+        for side in pair:
+            code, text = side.get(
+                f"/v1/node/{nodes[0].id}/drain?enable=true", "PUT")
+            assert code == 200
+            for eid in json.loads(text)["eval_ids"]:
+                assert side.wait(eid).status == "complete"
+        yield pair
+    finally:
+        for side in pair:
+            side.agent.shutdown()
+
+
+def mask(obj, keep):
+    """Server-made values masked: uuids not in ``keep`` (the seeded node
+    and job ids), raft indexes, times and listener addresses."""
+    if isinstance(obj, dict):
+        return {k: ("<m>" if MASK_KEY.search(str(k)) else mask(v, keep))
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [mask(v, keep) for v in obj]
+    if isinstance(obj, str) and UUID.match(obj) and obj not in keep:
+        return "<id>"
+    if isinstance(obj, str) and ADDR.match(obj):
+        return "<addr>"
+    return obj
+
+
+def _keep():
+    return {n.id for n in _nodes()} | {j.id for j in _jobs()}
+
+
+def _same(sides, path, method="GET", body=None, sort_key=None):
+    got = []
+    for side in sides:
+        code, text = side.get(path, method, body)
+        try:
+            parsed = json.loads(text)
+        except ValueError:
+            parsed = text
+        parsed = mask(parsed, _keep())
+        if sort_key is not None and isinstance(parsed, list):
+            parsed = sorted(parsed, key=sort_key)
+        got.append((code, parsed))
+    assert got[1] == got[0], path
+    return got[0]
+
+
+def _alloc_key(a):
+    return (a.get("job_id", ""), a.get("name", ""), a.get("node_id", ""),
+            a.get("desired_status", ""))
+
+
+ROUTES = {
+    "jobs": "/v1/jobs",
+    "jobs_prefix": "/v1/jobs?prefix=svc",
+    "job": "/v1/job/svc-job",
+    "job_missing": "/v1/job/nope",
+    "job_allocations_service": "/v1/job/svc-job/allocations",
+    "job_allocations_batch": "/v1/job/batch-job/allocations",
+    "job_allocations_system": "/v1/job/sys-job/allocations",
+    "job_evaluations": "/v1/job/batch-job/evaluations",
+    "nodes": "/v1/nodes",
+    "node": "/v1/node/node-01-0000-0000-0000-000000000000",
+    "node_missing": "/v1/node/nope",
+    "node_allocations": "/v1/node/node-01-0000-0000-0000-000000000000"
+                        "/allocations",
+    "allocations": "/v1/allocations",
+    "allocation_missing": "/v1/allocation/nope",
+    "evaluations": "/v1/evaluations",
+    "evaluation_missing": "/v1/evaluation/nope",
+    "trace_missing": "/v1/evaluation/nope/trace",
+    "members": "/v1/agent/members",
+    "faults": "/v1/agent/faults",
+    "unknown_route": "/v1/nope",
+    "bad_max_stale": "/v1/jobs?stale=1&max_stale=abc",
+    "bad_event_index": "/v1/event/stream?index=abc",
+}
+
+SORT = {"allocations": _alloc_key, "job_allocations_service": _alloc_key,
+        "job_allocations_batch": _alloc_key,
+        "job_allocations_system": _alloc_key, "node_allocations": _alloc_key,
+        "evaluations": lambda e: (e.get("job_id", ""), e.get("type", ""),
+                                  e.get("triggered_by", "")),
+        "job_evaluations": lambda e: e.get("triggered_by", "")}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_route_answers_as_nomad_tpu(sides, route):
+    _same(sides, ROUTES[route], sort_key=SORT.get(route))
+
+
+def test_committed_allocs_map_to_the_same_nodes(sides):
+    maps = []
+    for side in sides:
+        allocs, _ = side.client.allocations().list()
+        maps.append(Counter((a["job_id"], a["name"], a["node_id"])
+                            for a in allocs
+                            if a["desired_status"] == "run"))
+    assert maps[1] == maps[0]
+    per_job = Counter(j for j, _n, _node in maps[1].elements())
+    assert per_job["batch-job"] == 300 and per_job["svc-job"] == 6
+
+
+@pytest.mark.parametrize("job_id", [j.id for j in _jobs()])
+def test_eval_routes_answer_as_nomad_tpu(sides, job_id):
+    for suffix in ("", "/allocations"):
+        got = []
+        for side in sides:
+            code, text = side.get(
+                f"/v1/evaluation/{side.eval_ids[job_id]}{suffix}")
+            body = mask(json.loads(text), _keep())
+            if isinstance(body, list):
+                body = sorted(body, key=_alloc_key)
+            got.append((code, body))
+        assert got[1] == got[0]
+        assert got[0][0] == 200
+
+
+def test_eval_trace_and_traces(sides):
+    names = []
+    for side in sides:
+        eid = side.eval_ids["batch-job"]
+        code, text = side.get(f"/v1/evaluation/{eid}/trace")
+        assert code == 200
+        spans = json.loads(text)["spans"]
+        names.append({s["name"] for s in spans})
+        code, text = side.get(f"/v1/evaluation/{eid}/trace?format=chrome")
+        assert code == 200
+        doc = json.loads(text)
+        assert {e["ph"] for e in doc["traceEvents"]} == {"X", "M"}
+        code, text = side.get("/v1/agent/traces?n=2")
+        assert code == 200 and len(json.loads(text)) == 2
+    assert names[1] == names[0]
+
+
+def test_alloc_route_answers_as_nomad_tpu(sides):
+    got = []
+    for side in sides:
+        allocs, _ = side.client.jobs().allocations("svc-job")
+        first = sorted(allocs, key=_alloc_key)[0]
+        code, text = side.get(f"/v1/allocation/{first['id']}")
+        got.append((code, mask(json.loads(text), _keep())))
+    assert got[1] == got[0]
+    assert got[0][0] == 200
+
+
+def test_writes_answer_as_nomad_tpu(sides):
+    """job evaluate, node evaluate, node drain off, join and force-leave,
+    then a deregister (each through both packages, in the same order)."""
+    node = "node-02-0000-0000-0000-000000000000"
+    for path, method in (("/v1/job/svc-job/evaluate", "PUT"),
+                         (f"/v1/node/{node}/evaluate", "PUT"),
+                         (f"/v1/node/{node}/drain?enable=false", "PUT"),
+                         (f"/v1/node/{node}/drain", "PUT"),
+                         ("/v1/job/svc-job/evaluate", "GET"),
+                         ("/v1/agent/join?address=127.0.0.1:1", "PUT"),
+                         ("/v1/agent/force-leave?node=x", "PUT")):
+        got = []
+        for side in sides:
+            code, text = side.get(path, method)
+            body = json.loads(text) if code == 200 else text
+            got.append((code, mask(body, _keep())))
+            if code != 200:
+                continue
+            # Let each write's evals finish before the next write.
+            evals = body.get("eval_ids") or []
+            if body.get("eval_id"):
+                evals = [body["eval_id"]]
+            for eid in evals:
+                side.wait(eid)
+        assert got[1] == got[0], path
+    got = []
+    for side in sides:
+        code, text = side.get("/v1/job/batch-job", "DELETE")
+        eid = json.loads(text)["eval_id"]
+        assert side.wait(eid).status == "complete"
+        allocs, _ = side.client.jobs().allocations("batch-job")
+        got.append((code, Counter(a["desired_status"] for a in allocs)))
+    assert got[1] == got[0] == (200, Counter({"stop": 300}))
+
+
+def test_agent_self_keeps_nomad_tpus_keys(sides):
+    bodies = [json.loads(side.get("/v1/agent/self")[1]) for side in sides]
+    jax_cfg, port_cfg = bodies[0]["config"], bodies[1]["config"]
+    assert set(jax_cfg) <= set(port_cfg)
+    assert {k: port_cfg[k] for k in jax_cfg} == jax_cfg
+    assert bodies[1]["stats"]["leader"] is True
+    assert bodies[1]["stats"]["device"]["device"] == "cpu"
+    assert bodies[1]["stats"]["server"]["applied_index"] > 0
+    for path in ("/v1/status/leader", "/v1/status/peers",
+                 "/v1/agent/servers", "/v1/agent/logs?n=1"):
+        codes = [side.get(path)[0] for side in sides]
+        assert codes == [200, 200], path
+
+
+def test_event_stream_gives_the_same_types_on_the_same_keys(sides):
+    keep = _keep()
+    seen = []
+    for side in sides:
+        code, text = side.get("/v1/event/stream?index=0")
+        assert code == 200
+        events = json.loads(text)["events"]
+        seen.append(Counter(
+            (e["topic"], e["type"], "<id>" if UUID.match(e["key"] or "")
+             and e["key"] not in keep else e["key"])
+            for e in events if e["topic"] != "Fault"))
+        code, text = side.get(
+            "/v1/event/stream?index=1&wait=200ms&format=sse")
+        assert code == 200 and "event: " in text
+    assert seen[1] == seen[0]
+
+
+@pytest.mark.parametrize("kind", ["jax", "port"])
+def test_blocking_query_wakes_on_a_write(sides, kind):
+    side = sides[0] if kind == "jax" else sides[1]
+    code, _ = side.get("/v1/jobs")
+    index = int(side.agent.server.state_store.get_index("jobs"))
+    out = {}
+
+    def park():
+        t0 = time.monotonic()
+        out["code"], out["body"] = side.get(
+            f"/v1/jobs?index={index}&wait=20s")
+        out["s"] = time.monotonic() - t0
+
+    t = threading.Thread(target=park)
+    t.start()
+    time.sleep(0.3)
+    job = jmock.job()
+    job.id = f"wake-{kind}"
+    job.task_groups[0].count = 1
+    side.client.jobs().register(side.convert(job, "Job"))
+    t.join(timeout=WAIT_S)
+    assert not t.is_alive()
+    assert out["code"] == 200 and out["s"] < 10.0
+    assert job.id in {j["id"] for j in json.loads(out["body"])}
+
+
+@pytest.mark.parametrize("pattern", sorted(NOT_PORTED_ROUTES))
+def test_not_ported_route_answers_501(sides, pattern):
+    path = re.sub(r"\(\?P<[^>]+>[^)]+\)", "x", pattern).strip("^$")
+    code, text = sides[1].get(path)
+    assert code == 501
+    assert NOT_PORTED_ROUTES[pattern] in text
+    assert sides[0].get(path)[0] != 501
+
+
+def test_every_route_answers_without_jax_or_nomad_tpu():
+    """The port's agent, SDK and CLI in a subprocess that cannot import
+    jax or nomad_tpu: every route of the HTTP table answers (no 500), and
+    no module of either package is loaded at the end."""
+    code = r'''
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+import contextlib, io, json, re, time, urllib.error, urllib.request
+from nomad_tpu_torch import cli, mock
+from nomad_tpu_torch.agent import Agent, AgentConfig
+from nomad_tpu_torch.api import ApiClient
+
+agent = Agent(AgentConfig(server_enabled=True, dev_mode=True, http_port=0,
+                          num_schedulers=1, enable_debug=True,
+                          device="cpu"))
+agent.server.config.min_heartbeat_ttl = 3600.0
+agent.start()
+addr = f"http://127.0.0.1:{agent.http.port}"
+nodes = [mock.node() for _ in range(4)]
+agent.server.node_batch_register(nodes)
+c = ApiClient(address=addr)
+job = mock.job()
+job.task_groups[0].count = 2
+eid, _ = c.jobs().register(job)
+deadline = time.monotonic() + 60
+while c.evaluations().info(eid)[0].status != "complete":
+    assert time.monotonic() < deadline
+    time.sleep(0.01)
+alloc = c.jobs().allocations(job.id)[0][0]["id"]
+ids = {"job_id": job.id, "node_id": nodes[0].id, "eval_id": eid,
+       "alloc_id": alloc}
+codes = {}
+for pattern, handler in agent.http.routes:
+    path = re.sub(r"\(\?P<([^>]+)>[^)]+\)",
+                  lambda m: ids[m.group(1)], pattern.pattern).strip("^$")
+    for method in ("GET", "PUT"):
+        req = urllib.request.Request(addr + path, method=method,
+                                     data=b"{}" if method == "PUT" else None)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                code = r.status
+                r.read()
+        except urllib.error.HTTPError as e:
+            code = e.code
+        codes[(method, path)] = code
+        assert code != 500, (method, path)
+for argv in (["status"], ["status", job.id], ["node-status"],
+             ["node-status", nodes[0].id], ["alloc-status", alloc],
+             ["agent-info"], ["server-members"], ["eval-monitor", eid],
+             ["version"]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["--address", addr] + argv) == 0, argv
+agent.shutdown()
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in ("jax", "nomad_tpu")]
+assert not loaded, loaded
+print("ok", len(codes))
+'''
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[0] == "ok"

@@ -1,8 +1,10 @@
 """chip_smoke.py's pure helpers, on the CPU: its count of the bytes and
 operations that bound the water-fill, on its own instances; the server
-phase's check of committed allocs; and the simcluster phase's reading of
-the committed reference digests and its check of a run's artifact
-against them (the slow test recomputes those digests with nomad_tpu)."""
+phase's check of committed allocs (one task a node for a system job);
+the system phase at a small size; the agent phase's job and config files;
+and the simcluster phase's reading of the committed reference digests and
+its check of a run's artifact against them (the slow test recomputes
+those digests with nomad_tpu)."""
 
 import json
 
@@ -123,6 +125,83 @@ def test_check_committed(runs, other, want, error):
             cs.check_committed(snap, job, want)
 
 
+@pytest.mark.parametrize("runs, want, error", [
+    # one task on each dc1 node: the system job's plan
+    ({"a": 1, "b": 1}, 2, None),
+    # one alloc too many: a second task on a node
+    ({"a": 2, "b": 1}, 2, "live tasks"),
+    ({"a": 2, "b": 1}, 3, "other than 1"),
+    # a dc1 node left without its task
+    ({"a": 1}, 2, "live tasks"),
+])
+def test_check_committed_system(runs, want, error):
+    snap, job = committed_state(runs)
+    if error is None:
+        assert cs.check_committed(snap, job, want, per_node=1) == want
+    else:
+        with pytest.raises(AssertionError, match=error):
+            cs.check_committed(snap, job, want, per_node=1)
+
+
+def test_system_phase_commits_one_task_a_dc1_node():
+    """phase_system's pieces on a small cluster: a fresh store, tpu-system
+    on the CPU, the verifying planner; check_committed holds the result to
+    one task on each dc1 node."""
+    import logging
+
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.scheduler import new_scheduler
+
+    old = cs.N_NODES
+    cs.N_NODES = 101
+    try:
+        job = cs.system_job()
+        state = cs.system_store(job)
+        planner = cs.VerifyingPlanner(state, 3)
+        ev = structs.Evaluation(
+            id="ev-sys", priority=50, type=job.type, job_id=job.id,
+            triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER)
+        new_scheduler("tpu-system", state.snapshot(), planner,
+                      logging.getLogger("test"), device="cpu").process(ev)
+        assert planner.status == structs.EVAL_STATUS_COMPLETE
+        assert cs.system_placed() == 51
+        assert cs.check_committed(state.snapshot(), job, 51,
+                                  per_node=1) == 51
+    finally:
+        cs.N_NODES = old
+
+
+def test_agent_job_files_parse_to_make_job_jobs():
+    """The agent phase's HCL files are make_job's jobs: the port's jobspec
+    gives the same job, id aside (a file's id is its name)."""
+    from nomad_tpu_torch import jobspec
+    from nomad_tpu_torch.api.codec import to_dict
+
+    jobs = cs.agent_jobs()
+    assert [j.type for j, _ in jobs] == ["batch", "service", "system"]
+    for job, text in jobs:
+        parsed = to_dict(jobspec.parse(text))
+        want = to_dict(job)
+        for doc in (parsed, want):
+            for tg in doc["task_groups"]:
+                for task in tg["tasks"]:
+                    # jobspec fills the task fields make_job leaves empty
+                    task["config"] = task["config"] or {}
+                    task["meta"] = task["meta"] or {}
+        assert parsed == want
+
+
+def test_agent_config_file_parses_to_a_server_agent():
+    from nomad_tpu_torch import agent_config
+    from nomad_tpu_torch.agent import AgentConfig
+
+    fc = agent_config.parse_config(cs.agent_config_hcl("/data", "cuda"))
+    cfg = AgentConfig.from_file_config(fc)
+    assert (cfg.server_enabled, cfg.client_enabled, cfg.device,
+            cfg.http_port, cfg.rpc_port, cfg.bootstrap_expect,
+            cfg.data_dir) == (True, False, "cuda", 0, 0, 1, "/data")
+
+
 # -- the simcluster phase's checks --------------------------------------------
 
 
@@ -202,3 +281,35 @@ def test_reference_digests_match_nomad_tpu(name):
     assert art["events"]["digest"] == ref["digest"]
     assert art["events"]["by_type"] == ref["by_type"]
     assert art["placements"]["placed"] == ref["placed"]
+
+
+def test_agent_phase_grants_long_ttls_and_probe_times_beats(tmp_path):
+    """The agent phase's agent grants every node a TTL of at least
+    AGENT_MIN_HEARTBEAT_TTL_S, so no node goes down while the headline's
+    stop holds the store, and HeartbeatProbe times beats against it."""
+    from nomad_tpu_torch.simcluster.simnode import SimFleet
+
+    agent = cs.phase_agent_agent(torch.device("cpu"), str(tmp_path))
+    fleet = None
+    try:
+        agent.start()
+        srv = agent.server
+        deadline = cs.time.perf_counter() + 30.0
+        while not srv.raft.is_leader:
+            assert cs.time.perf_counter() < deadline
+            cs.time.sleep(0.01)
+        nodes = cs.cluster_nodes()[:4]
+        fleet = SimFleet(srv.rpc_addr)
+        fleet.register(nodes)
+        assert min(fleet.granted.values()) >= cs.AGENT_MIN_HEARTBEAT_TTL_S
+        probe = cs.HeartbeatProbe(srv.rpc_addr, nodes[0].id)
+        probe.start()
+        cs.time.sleep(5 * cs.PROBE_EVERY_S)
+        beats = probe.stop()
+        assert beats["beats"] >= 1
+        assert 0.0 < beats["p50_ms"] <= beats["max_ms"]
+        assert srv.heartbeat.stats()["expirations"] == 0
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        agent.shutdown()

@@ -260,8 +260,8 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
-# The server loop's and simcluster's modules, named so a walk that missed
-# one still fails.
+# The server loop's, simcluster's and the head's modules, named so a walk
+# that missed one still fails.
 SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
     "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
@@ -271,6 +271,11 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.simcluster.simnode",
     "nomad_tpu_torch.simcluster.workload",
     "nomad_tpu_torch.simcluster.simload",
+    "nomad_tpu_torch.scheduler.system", "nomad_tpu_torch.jobspec",
+    "nomad_tpu_torch.api.client", "nomad_tpu_torch.api.http",
+    "nomad_tpu_torch.agent", "nomad_tpu_torch.agent_config",
+    "nomad_tpu_torch.logbuf", "nomad_tpu_torch.cli",
+    "nomad_tpu_torch.__main__",
 ]
 
 
@@ -299,6 +304,7 @@ def test_port_imports_without_jax_or_nomad_tpu():
 def test_entry_points_default_to_cuda():
     """Without ``device=`` every entry point targets the CUDA card, and
     raises where there is none instead of running on the CPU."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
     from nomad_tpu_torch.convert import solve_inputs_from_numpy
     from nomad_tpu_torch.device import resolve_device
     from nomad_tpu_torch.scheduler import new_scheduler
@@ -315,6 +321,12 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         new_scheduler("tpu-service", h.snapshot(), h)
     with pytest.raises(RuntimeError, match="CUDA"):
+        new_scheduler("tpu-system", h.snapshot(), h)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Agent(AgentConfig(server_enabled=True, dev_mode=True, http_port=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
         solve_inputs_from_numpy({"total": np.zeros((8, 4))})
     with pytest.raises(RuntimeError, match="CUDA"):
         NodeMirror([])
@@ -322,3 +334,4 @@ def test_entry_points_default_to_cuda():
         MirrorCache().get(h.snapshot(), ["dc1"])
     # The host schedulers take no device and need none.
     assert new_scheduler("batch", h.snapshot(), h) is not None
+    assert new_scheduler("system", h.snapshot(), h) is not None

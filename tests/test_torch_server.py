@@ -778,14 +778,32 @@ def test_fsm_snapshot_restore_roundtrip():
 
 
 def test_system_job_is_refused():
+    """job_register refuses no system job: it places one alloc on each
+    fitting node, and a node registered afterwards gets its own alloc
+    through the node-update eval of its init -> ready transition (as a
+    client registers)."""
     srv = port_server()
     try:
-        job = port(loop_job("sys", jst.JOB_TYPE_SYSTEM, 1), "Job")
-        index = srv.raft.applied_index
-        with pytest.raises(ValueError, match="system scheduler"):
-            srv.job_register(job)
-        assert srv.raft.applied_index == index
-        assert srv.state_store.job_by_id(job.id) is None
+        srv.node_batch_register(port_nodes(16))
+        job = port(loop_job("sys", jst.JOB_TYPE_SYSTEM, 1, cpu=50, mem=64),
+                   "Job")
+        eid, _ = srv.job_register(job)
+        assert srv.wait_for_eval(eid, WAIT_S).status == "complete"
+        placed = {a.node_id for a in srv.state_store.allocs_by_job(job.id)}
+        assert placed and len(placed) == len(
+            srv.state_store.allocs_by_job(job.id))
+        late = port(jax_mock.node(), "Node")
+        late.id = "late-node"
+        late.status = jst.NODE_STATUS_INIT
+        srv.node_register(late)
+        reply = srv.node_update_status(late.id, jst.NODE_STATUS_READY)
+        assert reply["eval_ids"]
+        for node_eid in reply["eval_ids"]:
+            assert srv.wait_for_eval(node_eid, WAIT_S).status == "complete"
+        on_late = [a for a in srv.state_store.allocs_by_node(late.id)
+                   if a.job_id == job.id]
+        assert len(on_late) == 1
+        assert on_late[0].desired_status == "run"
     finally:
         srv.shutdown()
 
