@@ -78,6 +78,26 @@ Phases, each printing its own lines:
    the card, stopped by SIGINT with exit code 0. Logs register->complete
    and stop->complete p50 per job and the ms to read the headline's
    100,000 alloc stubs over HTTP.
+11. client: node agents run what the card placed. The same server-mode
+   Agent and beating SimFleet, and CLIENT_NODES real Clients
+   (nomad_tpu_torch.client) in this process over RPC, each registering
+   with the GPU fingerprint's attributes (held to torch.cuda's), with
+   mock_driver and raw_exec enabled. Every job asks $attr.driver.gpu = 1,
+   so only the clients take it: client-batch (256 mock tasks of 0.2 s,
+   1 + 3 rounds, one water-fill each) must end 256 allocs dead with exit
+   0 on the GPU nodes; client-service (8 raw_exec /bin/sleep tasks
+   through spawn daemons, the greedy scan) must run, then after
+   ``stop -detach`` leave no daemon or task pid; client-fail (2 tasks
+   that exit 3 under a batch restart policy of 2 attempts) must end
+   failed after 3 starts each. Logs placement->running and
+   register->all-dead p50, stop->pids-gone, the Node.UpdateAlloc round
+   trip and spawn start p50, the fingerprint and register ms and the
+   clients' shutdown seconds. Then ``python -m nomad_tpu_torch agent
+   -dev`` on the card (the GPU fingerprint on in its config file) runs a
+   one-task raw_exec job through ``run``, ``status`` and
+   ``alloc-status`` subprocesses (dead, exit 0, its stdout in the alloc
+   dir), lists its server through ``client-config -servers`` and exits 0
+   on SIGINT.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -2061,6 +2081,582 @@ def agent_subprocess(dev, job, path: str, card: str, tmp: str) -> None:
                 log("agent subprocess stderr tail: " + f.read()[-3000:])
 
 
+# -- the client: node agents run what the card placed ---------------------------
+
+CLIENT_NODES = 8
+CLIENT_BATCH_COUNT = 256
+CLIENT_BATCH_ROUNDS = 3
+CLIENT_SERVICE_COUNT = 8
+CLIENT_FAIL_COUNT = 2
+CLIENT_FAIL_ATTEMPTS = 2
+CLIENT_TASK_CPU, CLIENT_TASK_MEM = 100, 64
+CLIENT_WAIT_S = 120.0
+CLIENT_OPTIONS = {"fingerprint.gpu.enable": "1",
+                  "driver.raw_exec.enable": "1",
+                  "driver.mock_driver.enable": "1"}
+GPU_ATTRS = ("gpu.count", "gpu.platform", "gpu.device_kind", "gpu.capability",
+             "driver.gpu")
+
+
+# The smoke runs without network access. The client's cloud-metadata
+# fingerprints (AWS, GCE) would dial the link-local metadata address: urllib goes
+# through a closed loopback port instead, so each fails at once, and the
+# loopback itself stays direct.
+NO_NETWORK_ENV = {"http_proxy": "http://127.0.0.1:1",
+                  "no_proxy": "127.0.0.1,localhost"}
+
+
+def no_outside_network() -> None:
+    """NO_NETWORK_ENV for this process (set before its first urlopen:
+    urllib keeps the proxies it first read) and every subprocess."""
+    os.environ.update(NO_NETWORK_ENV)
+
+
+def gpu_attrs(dev) -> dict:
+    """The attributes GPUFingerprint gives a node on the card.
+    On the CPU (dry runs) there is no card, so a client is given them by
+    hand."""
+    import torch
+
+    if dev.type != "cuda":
+        return {"gpu.count": "1", "gpu.platform": "cuda",
+                "gpu.device_kind": "none (set by hand)",
+                "gpu.capability": "0.0", "driver.gpu": "1"}
+    major, minor = torch.cuda.get_device_capability(0)
+    return {"gpu.count": str(torch.cuda.device_count()),
+            "gpu.platform": "cuda",
+            "gpu.device_kind": torch.cuda.get_device_name(0),
+            "gpu.capability": f"{major}.{minor}", "driver.gpu": "1"}
+
+
+def client_job(job_id: str, typ: str, count: int, driver: str, config: dict,
+               attempts: int = 0):
+    """A job only GPU-fingerprinted nodes take ($attr.driver.gpu = 1): the
+    SimFleet's nodes advertise raw_exec too, but run nothing."""
+    from nomad_tpu_torch.structs import (
+        Constraint, Job, Resources, RestartPolicy, Task, TaskGroup,
+    )
+
+    return Job(
+        region="global", id=job_id, name=job_id, type=typ, priority=50,
+        datacenters=["dc1", "dc2"],
+        constraints=[Constraint(l_target="$attr.driver.gpu", r_target="1",
+                                operand="=")],
+        task_groups=[TaskGroup(
+            name="work", count=count,
+            restart_policy=RestartPolicy(attempts=attempts, interval=600.0,
+                                         delay=0.1),
+            tasks=[Task(name="work", driver=driver, config=dict(config),
+                        resources=Resources(cpu=CLIENT_TASK_CPU,
+                                            memory_mb=CLIENT_TASK_MEM))],
+        )],
+    )
+
+
+class ClientBooks:
+    """What the server and the clients saw, stamped on one clock: each
+    plan's commit (the FSM's alloc_update, by eval), each alloc's first
+    report of each client status (the server's Node.UpdateAlloc), each
+    client's Node.UpdateAlloc round trip, and each spawn daemon start."""
+
+    def __init__(self, srv):
+        from nomad_tpu_torch.client.driver import spawn
+
+        self.lock = threading.Lock()
+        self.commit = {}
+        self.first = {}
+        self.stopped = set()
+        self.update_ms = []
+        self.spawn_ms = []
+        self.spawns = {}
+        apply = srv.fsm.apply
+        update = srv.update_allocs_from_client
+
+        def fsm_apply(index, msg_type, payload):
+            out = apply(index, msg_type, payload)
+            if msg_type == "alloc_update" and "plan" in payload:
+                with self.lock:
+                    self.commit.setdefault(payload["plan"]["eval_id"],
+                                           time.perf_counter())
+            return out
+
+        def update_allocs(allocs):
+            out = update(allocs)
+            now = time.perf_counter()
+            with self.lock:
+                for a in allocs:
+                    self.first.setdefault((a.id, a.client_status),
+                                          (now, a.eval_id))
+                    if a.client_description == "alloc stopped":
+                        self.stopped.add(a.id)
+            return out
+
+        srv.fsm.apply = fsm_apply
+        srv.update_allocs_from_client = update_allocs
+        self._spawn_mod = spawn
+        self._spawn = spawn.spawn_detached
+
+        def spawn_detached(command, args, env, cwd, *rest, **kw):
+            t0 = time.perf_counter()
+            pid = self._spawn(command, args, env, cwd, *rest, **kw)
+            with self.lock:
+                self.spawn_ms.append((time.perf_counter() - t0) * 1000.0)
+                self.spawns[cwd] = self.spawns.get(cwd, 0) + 1
+            return pid
+        spawn.spawn_detached = spawn_detached
+
+    def time_updates(self, client) -> None:
+        endpoint = client.endpoint
+        inner = endpoint.update_allocs
+
+        def update_allocs(allocs):
+            t0 = time.perf_counter()
+            out = inner(allocs)
+            with self.lock:
+                self.update_ms.append((time.perf_counter() - t0) * 1000.0)
+            return out
+        endpoint.update_allocs = update_allocs
+
+    def close(self) -> None:
+        self._spawn_mod.spawn_detached = self._spawn
+
+    def running_ms(self, alloc_ids):
+        """placement -> running, per alloc: its plan's commit to the
+        server's first report of it running."""
+        out = []
+        with self.lock:
+            for aid in alloc_ids:
+                now, eval_id = self.first[(aid, "running")]
+                out.append((now - self.commit[eval_id]) * 1000.0)
+        return out
+
+
+def start_clients(dev, addr: str, tmp: str, n: int):
+    """n Clients over RPC to ``addr``, each with its own state and alloc
+    dirs. Returns (clients, fingerprint ms, register ms)."""
+    from nomad_tpu_torch.client import Client, ClientConfig
+
+    clients, fp_ms, reg_ms = [], [], []
+    try:
+        for i in range(n):
+            root = os.path.join(tmp, f"client-{i}")
+            t0 = time.perf_counter()
+            client = Client(ClientConfig(
+                state_dir=os.path.join(root, "state"),
+                alloc_dir=os.path.join(root, "allocs"), datacenter="dc1",
+                node_name=f"gpu-client-{i}", servers=[addr],
+                options=dict(CLIENT_OPTIONS)))
+            fp_ms.append((time.perf_counter() - t0) * 1000.0)
+            clients.append(client)
+            if dev.type != "cuda":
+                client.node.attributes.update(gpu_attrs(dev))
+            t0 = time.perf_counter()
+            client.start()
+            reg_ms.append((time.perf_counter() - t0) * 1000.0)
+    except BaseException:
+        for client in clients:
+            client.shutdown(destroy_allocs=True)
+        raise
+    return clients, fp_ms, reg_ms
+
+
+def wait_for(what: str, pred, timeout: float = CLIENT_WAIT_S) -> float:
+    """Poll pred every 5 ms; returns the perf_counter stamp it held."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if pred():
+            return time.perf_counter()
+        time.sleep(0.005)
+    raise AssertionError(f"{what}: not within {timeout}s")
+
+
+def client_statuses(srv, job_id: str):
+    from collections import Counter
+
+    return Counter(a.client_status
+                   for a in srv.state_store.snapshot().allocs_by_job(job_id))
+
+
+def check_on_gpu_nodes(srv, job_id: str, want: int, gpu_ids) -> list:
+    allocs = srv.state_store.snapshot().allocs_by_job(job_id)
+    live = [a for a in allocs if a.desired_status == "run"]
+    off = [a.node_id for a in live if a.node_id not in gpu_ids]
+    if len(live) != want or off:
+        raise AssertionError(f"{job_id}: {len(live)} live allocs (want "
+                             f"{want}), {len(off)} off the GPU nodes")
+    return live
+
+
+def runners_of(clients, job_id: str):
+    return [r for c in clients for r in list(c.alloc_runners.values())
+            if r.alloc.job_id == job_id]
+
+
+def stop_and_reap(srv, books, clients, job_id: str, eval_ids,
+                  addr: str = "") -> float:
+    """Deregister (``stop -detach`` over HTTP when ``addr`` is given),
+    wait for the eval, for every client's stop report and for every task
+    runner to end (its last report sent), then reap the evals and allocs
+    so each client drops its runners. Returns the perf_counter stamp the
+    deregister was sent."""
+    t0 = time.perf_counter()
+    if addr:
+        did = cli_out(["--address", addr, "stop", "-detach", job_id]).strip()
+    else:
+        did, _ = srv.job_deregister(job_id)
+    wait_complete(srv, did)
+    ids = [a.id for a in srv.state_store.snapshot().allocs_by_job(job_id)]
+    wait_for(f"{job_id} stop reports", lambda: books.stopped.issuperset(ids)
+             and all(tr.wait_done(0) for r in runners_of(clients, job_id)
+                     for tr in r.task_runners.values()))
+    snap = srv.state_store.snapshot()
+    srv.eval_reap(list(eval_ids) + [did],
+                  [a.id for a in snap.allocs_by_job(job_id)])
+    return t0
+
+
+def spawn_daemons(tmp: str):
+    """pids of live spawn daemons whose spec names a path under tmp."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if "spawn-daemon" in cmd and tmp in cmd:
+            out.append(int(pid))
+    return out
+
+
+def phase_client_jobs(dev, card: str, tmp: str):
+    """CLIENT_NODES real Clients beside the 10,000 SimFleet nodes of a
+    server-mode Agent, and the three client jobs. Returns (water-fill
+    launches, greedy launches)."""
+    from nomad_tpu_torch.client.driver import spawn
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.simcluster.simnode import SimFleet
+
+    agent = phase_agent_agent(dev, os.path.join(tmp, "agent"))
+    fleet = books = None
+    clients = []
+    try:
+        agent.start()
+        srv = agent.server
+        wait_for("the client phase's server leads", lambda: srv.raft.is_leader)
+        addr = f"http://127.0.0.1:{agent.http.port}"
+        fleet = SimFleet(srv.rpc_addr)
+        reg = fleet.register(cluster_nodes())
+        fleet.start_heartbeats()
+        books = ClientBooks(srv)
+
+        from nomad_tpu_torch.client.fingerprint import GPUFingerprint
+        from nomad_tpu_torch.client.config import ClientConfig
+        from nomad_tpu_torch.structs import Node
+
+        t0 = time.perf_counter()
+        probe = Node(id="probe")
+        GPUFingerprint().fingerprint(ClientConfig(options=CLIENT_OPTIONS),
+                                     probe)
+        gpu_fp_ms = (time.perf_counter() - t0) * 1000.0
+        want_attrs = gpu_attrs(dev)
+        if dev.type == "cuda" and {k: probe.attributes.get(k)
+                                   for k in GPU_ATTRS} != want_attrs:
+            raise AssertionError(f"GPUFingerprint gave {probe.attributes}")
+
+        clients, fp_ms, reg_ms = start_clients(dev, srv.rpc_addr, tmp,
+                                               CLIENT_NODES)
+        for client in clients:
+            books.time_updates(client)
+        gpu_ids = {c.node.id for c in clients}
+        snap = srv.state_store.snapshot()
+        for client in clients:
+            node = snap.node_by_id(client.node.id)
+            got = {k: node.attributes.get(k) for k in GPU_ATTRS}
+            if node.status != "ready" or got != want_attrs:
+                raise AssertionError(f"client node {node.name} registered "
+                                     f"{node.status} with {got}")
+        log(f"client: {N_NODES} SimFleet nodes in {reg['seconds']} s, "
+            f"{CLIENT_NODES} clients registered with {json.dumps(want_attrs)}"
+            f"; construct (fingerprint) p50 {p50(fp_ms):.1f} ms, start "
+            f"(register) p50 {p50(reg_ms):.1f} ms, GPUFingerprint alone "
+            f"{gpu_fp_ms:.3f} ms [{card}]")
+
+        waterfill.LAUNCHES = 0
+        greedy.LAUNCHES = 0
+
+        # client-batch: CLIENT_BATCH_COUNT mock tasks, 1 + rounds.
+        batch_ms, batch_ids = [], []
+        for i in range(1 + CLIENT_BATCH_ROUNDS):
+            job = client_job(f"client-batch-{i}", "batch", CLIENT_BATCH_COUNT,
+                             "mock_driver", {"run_for": 0.2})
+            t0 = time.perf_counter()
+            eid, _ = srv.job_register(job)
+            wait_complete(srv, eid)
+            live = check_on_gpu_nodes(srv, job.id, CLIENT_BATCH_COUNT,
+                                      gpu_ids)
+            done = wait_for(f"{job.id} dead", lambda: client_statuses(
+                srv, job.id) == {"dead": CLIENT_BATCH_COUNT})
+            runners = runners_of(clients, job.id)
+            codes = [tr.handle.wait(timeout=0) for r in runners
+                     for tr in r.task_runners.values()]
+            states = {s for r in runners for s in r.task_status.values()}
+            if (len(codes) != CLIENT_BATCH_COUNT or set(codes) != {0}
+                    or states != {"dead"}):
+                raise AssertionError(f"{job.id}: exit codes {set(codes)} "
+                                     f"of {len(codes)}, task states {states}")
+            ms = (done - t0) * 1000.0
+            if i:
+                batch_ms.append(ms)
+                batch_ids += [a.id for a in live]
+            log(f"client {job.id}{' (warm-up)' if i == 0 else ''}: "
+                f"{CLIENT_BATCH_COUNT} allocs dead, exit 0, on "
+                f"{len({a.node_id for a in live})} GPU nodes; "
+                f"register_all_dead_ms={ms:.1f}")
+            stop_and_reap(srv, books, clients, job.id, [eid])
+            wait_for(f"{job.id} runners dropped",
+                     lambda: not runners_of(clients, job.id))
+
+        # client-service: long-lived raw_exec tasks through spawn daemons.
+        job = client_job("client-service", "service", CLIENT_SERVICE_COUNT,
+                         "raw_exec", {"command": "/bin/sleep",
+                                      "args": ["3600"]})
+        eid, _ = srv.job_register(job)
+        wait_complete(srv, eid)
+        live = check_on_gpu_nodes(srv, job.id, CLIENT_SERVICE_COUNT, gpu_ids)
+        wait_for("client-service running", lambda: client_statuses(
+            srv, job.id) == {"running": CLIENT_SERVICE_COUNT})
+        service_ids = [a.id for a in live]
+        handles = [tr.handle.id() for r in runners_of(clients, job.id)
+                   for tr in r.task_runners.values()]
+        pids = [spawn.read_pid(h) for h in handles]
+        daemons = spawn_daemons(tmp)
+        if (len(pids) != CLIENT_SERVICE_COUNT
+                or not all(spawn.pid_alive(p) for p in pids)
+                or len(daemons) != CLIENT_SERVICE_COUNT):
+            raise AssertionError(f"client-service: user pids {pids}, spawn "
+                                 f"daemons {daemons}")
+        t0 = stop_and_reap(srv, books, clients, job.id, [eid], addr=addr)
+        gone = wait_for("client-service pids gone", lambda: not any(
+            spawn.pid_alive(p) for p in pids) and not spawn_daemons(tmp))
+        stop_ms = (gone - t0) * 1000.0
+        log(f"client client-service: {CLIENT_SERVICE_COUNT} raw_exec tasks "
+            f"running on {len({a.node_id for a in live})} GPU nodes, "
+            f"stop -detach -> every daemon and user pid gone in "
+            f"{stop_ms:.1f} ms [{card}]")
+
+        # client-fail: exit 3 under a batch restart policy.
+        job = client_job("client-fail", "batch", CLIENT_FAIL_COUNT,
+                         "raw_exec", {"command": "/bin/sh",
+                                      "args": ["-c", "exit 3"]},
+                         attempts=CLIENT_FAIL_ATTEMPTS)
+        eid, _ = srv.job_register(job)
+        wait_complete(srv, eid)
+        live = check_on_gpu_nodes(srv, job.id, CLIENT_FAIL_COUNT, gpu_ids)
+        wait_for("client-fail failed", lambda: client_statuses(
+            srv, job.id) == {"failed": CLIENT_FAIL_COUNT})
+        fail_ids = [a.id for a in live]
+        starts = sorted(
+            n for cwd, n in books.spawns.items()
+            if any(aid in cwd for aid in fail_ids))
+        restarts = [tr.restart_tracker.count
+                    for r in runners_of(clients, job.id)
+                    for tr in r.task_runners.values()]
+        if (starts != [1 + CLIENT_FAIL_ATTEMPTS] * CLIENT_FAIL_COUNT
+                or restarts != [CLIENT_FAIL_ATTEMPTS] * CLIENT_FAIL_COUNT):
+            raise AssertionError(f"client-fail: starts {starts}, restarts "
+                                 f"{restarts}")
+        log(f"client client-fail: {CLIENT_FAIL_COUNT} allocs failed after "
+            f"{1 + CLIENT_FAIL_ATTEMPTS} starts each")
+        stop_and_reap(srv, books, clients, job.id, [eid])
+
+        wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+        if wf < 1 + CLIENT_BATCH_ROUNDS or gr < 2:
+            raise AssertionError(f"the client jobs launched water-fill {wf} "
+                                 f"and greedy {gr} times")
+        running = books.running_ms(batch_ids + service_ids + fail_ids)
+        log(f"client: placement_running_p50_ms={p50(running):.1f} "
+            f"(max {max(running):.1f}, {len(running)} allocs), "
+            f"register_all_dead_p50_ms={p50(batch_ms):.1f} "
+            f"({CLIENT_BATCH_COUNT} allocs), stop_pids_gone_ms="
+            f"{stop_ms:.1f}, update_alloc_rtt_p50_ms="
+            f"{p50(books.update_ms):.3f} ({len(books.update_ms)} calls), "
+            f"spawn_start_p50_ms={p50(books.spawn_ms):.1f} "
+            f"({len(books.spawn_ms)} starts), waterfill_launches={wf} "
+            f"greedy_launches={gr} [{card}]")
+        hb = srv.heartbeat.stats()
+        if hb["expirations"]:
+            raise AssertionError(f"{hb['expirations']} node TTLs expired in "
+                                 "the client phase")
+        t0 = time.perf_counter()
+        for client in clients:
+            client.shutdown(destroy_allocs=True)
+        log(f"client: {CLIENT_NODES} clients shut down in "
+            f"{time.perf_counter() - t0:.3f} s")
+        clients = []
+    finally:
+        for client in clients:
+            client.shutdown(destroy_allocs=True)
+        if books is not None:
+            books.close()
+        if fleet is not None:
+            fleet.stop()
+        agent.shutdown()
+    return wf, gr
+
+
+DEV_JOB = '''job "dev-echo" {{
+    type = "batch"
+    datacenters = ["dc1"]
+{constraint}
+    group "g" {{
+        count = 1
+        task "echo" {{
+            driver = "raw_exec"
+            config {{
+                command = "/bin/sh"
+                args = ["-c", "echo {word}"]
+            }}
+            resources {{
+                cpu = 100
+                memory = 64
+            }}
+        }}
+    }}
+}}
+'''
+DEV_WORD = "placed-on-the-card"
+
+
+def dev_agent_config_hcl(device: str) -> str:
+    return f"""device = "{device}"
+
+client {{
+    options {{
+        "fingerprint.gpu.enable" = "1"
+    }}
+}}
+"""
+
+
+def client_dev_agent(dev, card: str, tmp: str) -> None:
+    """``python -m nomad_tpu_torch agent -dev`` on the card (server and
+    client in one process, the GPU fingerprint on), a one-task raw_exec
+    job through ``run``, ``status``, ``alloc-status`` and
+    ``client-config -servers`` subprocesses, the task's stdout in its
+    alloc dir, then SIGINT: exit code 0."""
+    import queue
+    import signal
+
+    from nomad_tpu_torch.api import ApiClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, **NO_NETWORK_ENV)
+    data = os.path.join(tmp, "dev")
+    cfg = os.path.join(tmp, "dev.hcl")
+    with open(cfg, "w") as f:
+        f.write(dev_agent_config_hcl(dev.type))
+    # On the CPU (dry runs) the node has no GPU attribute to select.
+    constraint = ('    constraint {\n        attribute = "$attr.driver.gpu"\n'
+                  '        value = "1"\n    }\n' if dev.type == "cuda" else "")
+    job_path = os.path.join(tmp, "dev-echo.hcl")
+    with open(job_path, "w") as f:
+        f.write(DEV_JOB.format(constraint=constraint, word=DEV_WORD))
+    err_path = os.path.join(tmp, "dev.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+             "-config", cfg, "-http-port", "0", "-data-dir", data],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=here, env=env)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        addr = None
+        deadline = time.perf_counter() + CLIENT_WAIT_S
+        while addr is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.perf_counter(),
+                                             0.01))
+            except queue.Empty:
+                raise AssertionError("agent -dev printed no HTTP address")
+            m = re.search(r"HTTP at (http://\S+)", line)
+            if m:
+                addr = m.group(1)
+        started = (time.perf_counter() - t0) * 1000.0
+
+        def cli_proc(*argv):
+            out = subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch", "--address", addr,
+                 *argv], capture_output=True, text=True, cwd=here, env=env,
+                timeout=CLIENT_WAIT_S)
+            if out.returncode != 0:
+                raise AssertionError(f"nomad_tpu_torch {argv} exited "
+                                     f"{out.returncode}: {out.stdout[-1000:]}"
+                                     f" {out.stderr[-2000:]}")
+            return out.stdout
+
+        client = ApiClient(address=addr)
+        info = client.agent().self_info()
+        node_id = info["stats"]["client"]["node_id"]
+        node, _ = client.nodes().info(node_id)
+        want = gpu_attrs(dev) if dev.type == "cuda" else {}
+        got = {k: node.attributes[k] for k in want}
+        name = info["stats"]["device"].get("name", dev.type)
+        if got != want or (dev.type == "cuda" and name != want[
+                "gpu.device_kind"]):
+            raise AssertionError(f"agent -dev: node {got}, device {name}")
+        t1 = time.perf_counter()
+        out = cli_proc("run", job_path)
+        if "complete" not in out:
+            raise AssertionError(f"agent -dev run: {out}")
+        wait_for("dev-echo dead", lambda: " dead" in cli_proc(
+            "status", "dev-echo"), timeout=CLIENT_WAIT_S)
+        run_ms = (time.perf_counter() - t1) * 1000.0
+        (stub,), _ = client.jobs().allocations("dev-echo")
+        alloc, _ = client.allocations().info(stub["id"])
+        status = cli_proc("alloc-status", stub["id"])
+        if ("Client Status  = dead" not in status
+                or alloc.client_description != "all tasks complete"):
+            raise AssertionError(f"agent -dev alloc: {status} "
+                                 f"{alloc.client_description!r}")
+        with open(os.path.join(data, "allocs", stub["id"], "alloc", "logs",
+                               "echo.stdout")) as f:
+            echoed = f.read()
+        if echoed != DEV_WORD + "\n":
+            raise AssertionError(f"agent -dev task stdout {echoed!r}")
+        servers = cli_proc("client-config", "-servers").split()
+        if servers != [addr]:
+            raise AssertionError(f"client-config -servers: {servers}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=CLIENT_WAIT_S)
+        if rc != 0:
+            raise AssertionError(f"agent -dev exited {rc} on SIGINT")
+        log(f"client agent -dev: started in {started:.0f} ms, device {name}, "
+            f"node {json.dumps(got)}, run -> task dead exit 0 in "
+            f"{run_ms:.0f} ms (stdout {echoed.strip()!r}), client-config "
+            f"-servers {servers}, SIGINT -> exit 0 in "
+            f"{time.perf_counter() - t1:.2f} s [{card}]")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+            with open(err_path) as f:
+                log("agent -dev stderr tail: " + f.read()[-3000:])
+
+
+def phase_client(dev, card: str, tmp: str):
+    """The client phase: phase_client_jobs, then client_dev_agent.
+    Returns (water-fill launches, greedy launches) of this process."""
+    wf, gr = phase_client_jobs(dev, card, tmp)
+    client_dev_agent(dev, card, tmp)
+    return wf, gr
+
+
 def main() -> int:
     import torch
 
@@ -2077,6 +2673,7 @@ def main() -> int:
         return 2
     from nomad_tpu_torch.ops import kernels
 
+    no_outside_network()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     torch.manual_seed(SEED)
@@ -2130,6 +2727,15 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         wf, gr = phase_agent(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wf_launches += wf
+    gr_launches += gr
+
+    # 11. the client: node agents run what the card placed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        wf, gr = phase_client(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wf_launches += wf

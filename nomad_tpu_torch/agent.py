@@ -1,18 +1,17 @@
-"""Agent: runs a server in one process, fronted by HTTP.
+"""Agent: runs a server and/or client in one process, fronted by HTTP.
 
 Port of nomad_tpu/agent.py (reference: upstream command/agent/agent.go,
 which builds server/client configs from the agent config and embeds
-both, agent.go:37-151, 273-279). The port runs a server only:
-``dev_mode`` gives an in-process ``Server``, otherwise a ``ClusterServer``
-with an RPC bind and raft; then the ``HTTPServer``. The server solves on
-``device`` (default: the CUDA card; raises without one unless the caller
-asks for the CPU).
+both, agent.go:37-151, 273-279). ``dev_mode`` gives an in-process
+``Server``, otherwise a ``ClusterServer`` with an RPC bind and raft; the
+client (``nomad_tpu_torch.client``) talks to the in-process server, or
+to ``client_servers`` over RPC on a client-only agent; then the
+``HTTPServer``. The server solves on ``device`` (default: the CUDA card;
+raises without one unless the caller asks for the CPU).
 
 What needs a module the port does not have yet raises
 :class:`nomad_tpu_torch.NotPortedError` naming it (``NOT_PORTED``): the
-client (so ``AgentConfig.dev()``, whose dev mode is server + client),
-the lock watchdog's analysis, the Atlas/SCADA uplink, and the debug
-bundle.
+lock watchdog's analysis, the Atlas/SCADA uplink, and the debug bundle.
 """
 
 from __future__ import annotations
@@ -26,13 +25,13 @@ from typing import Dict, List, Optional
 import torch
 
 from nomad_tpu_torch import NotPortedError
+from nomad_tpu_torch.client import Client, ClientConfig
 from nomad_tpu_torch.server.server import Server, ServerConfig
 
 # AgentConfig fields of nomad_tpu whose modules the port does not have
 # yet, with the module each needs. Setting one raises at Agent
 # construction: it is never ignored.
 NOT_PORTED = {
-    "client_enabled": "the client (client/)",
     "lock_watchdog": "the lock watchdog's lock-order analysis "
                      "(tools/nomadlint)",
     "atlas_endpoint": "the Atlas/SCADA uplink (scada.py)",
@@ -62,6 +61,12 @@ class AgentConfig:
     # Where the server's tpu-* schedulers solve: "cuda" (the card) or
     # "cpu" (the plain PyTorch versions, asked for explicitly).
     device: str = "cuda"
+    client_options: Dict[str, str] = field(default_factory=dict)
+    node_class: str = ""
+    node_meta: Dict[str, str] = field(default_factory=dict)
+    client_servers: List[str] = field(default_factory=list)
+    client_state_dir: str = ""
+    client_alloc_dir: str = ""
     num_schedulers: int = 0
     enabled_schedulers: List[str] = field(default_factory=list)
     bootstrap_expect: int = 0
@@ -94,19 +99,22 @@ class AgentConfig:
     @classmethod
     def dev(cls) -> "AgentConfig":
         """Dev mode: server + client in one process (command.go
-        DevConfig). An Agent built from it raises until ``client/`` is
-        ported."""
+        DevConfig)."""
         return cls(
             server_enabled=True,
             client_enabled=True,
             dev_mode=True,
             node_name="dev-node",
+            client_options={
+                "driver.raw_exec.enable": "1",
+                "driver.mock_driver.enable": "1",
+            },
         )
 
     @classmethod
     def from_file_config(cls, fc) -> "AgentConfig":
         """Convert a merged agent_config.FileConfig (agent.go:47-150 builds
-        nomad.Config from the file config the same way)."""
+        nomad.Config/client.Config from the file config the same way)."""
         return cls(
             region=fc.region or "global",
             datacenter=fc.datacenter or "dc1",
@@ -119,6 +127,12 @@ class AgentConfig:
             client_enabled=fc.client.enabled,
             scheduler_backend=fc.scheduler_backend or "tpu",
             device=fc.device or "cuda",
+            client_options=dict(fc.client.options),
+            node_class=fc.client.node_class,
+            node_meta=dict(fc.client.meta),
+            client_servers=list(fc.client.servers),
+            client_state_dir=fc.client.state_dir,
+            client_alloc_dir=fc.client.alloc_dir,
             # The first-class knob wins over the legacy alias when both
             # are set in the config files.
             num_schedulers=(fc.server.scheduler_workers
@@ -159,10 +173,14 @@ class Agent:
         self.config = config
         self.logger = logger or logging.getLogger("nomad_tpu_torch.agent")
         self.server: Optional[Server] = None
+        self.client: Optional[Client] = None
         self.http: Optional[object] = None
+        self.client_config: Optional[ClientConfig] = None
         if config.server_enabled:
             self._setup_server()
-        if self.server is None:
+        if config.client_enabled:
+            self._setup_client()
+        if self.server is None and self.client_config is None:
             raise ValueError("must have at least client or server mode enabled")
 
     def _setup_server(self) -> None:
@@ -201,13 +219,11 @@ class Agent:
 
         from nomad_tpu_torch.server.cluster import ClusterConfig, ClusterServer
 
-        data_dir = self.config.data_dir or os.path.join(
-            tempfile.gettempdir(), "nomad-tpu-torch-agent")
         cluster = ClusterConfig(
             node_id=server_config.node_name,
             bind_host=self.config.rpc_host or "127.0.0.1",
             bind_port=self.config.rpc_port,
-            raft_data_dir=os.path.join(data_dir, "raft"),
+            raft_data_dir=os.path.join(self._data_dir(), "raft"),
             bootstrap_expect=self.config.bootstrap_expect,
             start_join=list(self.config.start_join),
             # Production-profile raft timing (dev/test clusters tighten
@@ -218,6 +234,35 @@ class Agent:
         )
         self.server = ClusterServer(
             server_config, cluster, logger=self.logger.getChild("server")
+        )
+
+    def _data_dir(self) -> str:
+        return self.config.data_dir or os.path.join(
+            tempfile.gettempdir(), "nomad-tpu-torch-agent")
+
+    def _setup_client(self) -> None:
+        """agent.go:175-201. The client is built at start(): its
+        construction fingerprints the node and opens its endpoint."""
+        if self.server is None and not self.config.client_servers:
+            raise ValueError(
+                "client-only mode requires a servers list in the client "
+                "config block"
+            )
+        data_dir = self._data_dir()
+        self.client_config = ClientConfig(
+            dev_mode=self.config.dev_mode,
+            state_dir=self.config.client_state_dir
+            or os.path.join(data_dir, "client"),
+            alloc_dir=self.config.client_alloc_dir
+            or os.path.join(data_dir, "allocs"),
+            region=self.config.region,
+            datacenter=self.config.datacenter,
+            node_name=self.config.node_name,
+            node_class=self.config.node_class,
+            node_meta=dict(self.config.node_meta),
+            options=dict(self.config.client_options),
+            rpc_handler=self.server,
+            servers=list(self.config.client_servers),
         )
 
     def setup_telemetry(self) -> None:
@@ -259,7 +304,12 @@ class Agent:
                 "fault injection armed: %s",
                 ", ".join(sorted(self.config.faults.get("sites", {}))),
             )
-        self.server.start()
+        if self.server is not None:
+            self.server.start()
+        if self.client_config is not None:
+            self.client = Client(self.client_config,
+                                 self.logger.getChild("client"))
+            self.client.start()
         self.http = HTTPServer(
             self, self.config.http_host, self.config.http_port,
             self.logger.getChild("http"),
@@ -269,6 +319,8 @@ class Agent:
     def shutdown(self) -> None:
         if self.http is not None:
             self.http.shutdown()
+        if self.client is not None:
+            self.client.shutdown(destroy_allocs=self.config.dev_mode)
         if self.server is not None:
             self.server.shutdown()
 
@@ -287,16 +339,6 @@ class Agent:
         """/v1/agent/self: nomad_tpu's keys, with the server's device (name
         and capability from torch) and the kernels' build info in place of
         its device-probe status and Pallas mode."""
-        from nomad_tpu_torch.ops.kernels import BUILD_INFO
-
-        device = self.server.device
-        dev: Dict = {"device": str(device)}
-        if device.type == "cuda":
-            index = device.index if device.index is not None else 0
-            dev["name"] = torch.cuda.get_device_name(index)
-            dev["capability"] = list(torch.cuda.get_device_capability(index))
-        dev["kernels"] = {k: BUILD_INFO[k] for k in ("built", "seconds")
-                          if k in BUILD_INFO}
         info: Dict = {
             "config": {
                 "region": self.config.region,
@@ -308,15 +350,32 @@ class Agent:
                 "scheduler_backend": self.config.scheduler_backend,
                 "device": self.config.device,
             },
-            "stats": {
-                "server": self.server.stats(),
-                "leader": True,
-                "device": dev,
-            },
+            "stats": {},
         }
+        if self.server is not None:
+            info["stats"]["server"] = self.server.stats()
+            info["stats"]["leader"] = True
+            info["stats"]["device"] = self._device_info()
+        if self.client is not None:
+            info["stats"]["client"] = self.client.stats()
         return info
 
+    def _device_info(self) -> Dict:
+        from nomad_tpu_torch.ops.kernels import BUILD_INFO
+
+        device = self.server.device
+        dev: Dict = {"device": str(device)}
+        if device.type == "cuda":
+            index = device.index if device.index is not None else 0
+            dev["name"] = torch.cuda.get_device_name(index)
+            dev["capability"] = list(torch.cuda.get_device_capability(index))
+        dev["kernels"] = {k: BUILD_INFO[k] for k in ("built", "seconds")
+                          if k in BUILD_INFO}
+        return dev
+
     def members(self) -> List[Dict]:
+        if self.server is None:
+            return []
         if hasattr(self.server, "members"):
             return self.server.members()
         return [
@@ -329,29 +388,32 @@ class Agent:
         ]
 
     def server_addrs(self) -> List[str]:
-        if hasattr(self.server, "rpc_addr"):
+        if self.server is not None and hasattr(self.server, "rpc_addr"):
             return [self.server.rpc_addr]
-        return [self.http.addr] if self.http else []
+        if self.client_config is not None and self.client_config.servers:
+            return list(self.client_config.servers)
+        return [self.http.addr] if self.http and self.server else []
 
     def leader_addr(self) -> str:
-        leader = getattr(self.server.raft, "leader_addr", "")
-        if leader:
-            return leader
-        return self.http.addr if self.http else ""
+        if self.server is not None:
+            leader = getattr(self.server.raft, "leader_addr", "")
+            if leader:
+                return leader
+        return self.http.addr if self.http and self.server else ""
 
     def peer_addrs(self) -> List[str]:
-        if hasattr(self.server, "cluster"):
+        if self.server is not None and hasattr(self.server, "cluster"):
             return sorted(self.server.cluster.peers.values())
         return self.server_addrs()
 
     def join(self, addr: str) -> int:
-        if hasattr(self.server, "join"):
+        if self.server is not None and hasattr(self.server, "join"):
             return self.server.join(addr)
         self.logger.warning("agent join is a no-op in single-process mode")
         return 0
 
     def force_leave(self, node: str) -> None:
-        if hasattr(self.server, "force_leave"):
+        if self.server is not None and hasattr(self.server, "force_leave"):
             self.server.force_leave(node)
             return
         self.logger.warning("agent force-leave is a no-op in single-process mode")

@@ -84,8 +84,8 @@ class AdvertiseAddrs:
 
 @dataclass
 class ClientBlock:
-    """config.go ClientConfig block (parsed; an agent with the client
-    enabled raises until ``client/`` is ported)."""
+    """config.go ClientConfig block (``AgentConfig.from_file_config`` maps
+    it onto the agent's client fields)."""
 
     enabled: bool = False
     state_dir: str = ""
@@ -295,8 +295,7 @@ def default_config() -> FileConfig:
 
 def dev_config() -> FileConfig:
     """config.go DevConfig: server + client in one process, permissive
-    driver options (an agent built from it raises until ``client/`` is
-    ported)."""
+    driver options."""
     cfg = default_config()
     cfg.name = "dev-node"
     cfg.server.enabled = True

@@ -12,24 +12,47 @@ import typing
 from typing import Any, Dict, Optional, Type, get_args, get_origin, get_type_hints
 
 _HINT_CACHE: Dict[type, Dict[str, Any]] = {}
+# Per-class plans, built once: the field names to_dict walks, and the
+# (field, converter) table from_dict applies. A client re-lists its
+# node's allocations on every change, so the codec runs on the watch's
+# hot path.
+_FIELDS: Dict[type, Any] = {}
+_DECODE_PLANS: Dict[type, Dict[str, Any]] = {}
+
+
+def _field_names(cls: type):
+    names = _FIELDS.get(cls)
+    if names is None:
+        if hasattr(cls, "to_wire"):
+            names = False
+        elif dataclasses.is_dataclass(cls):
+            names = tuple(f.name for f in dataclasses.fields(cls))
+        else:
+            names = None
+        _FIELDS[cls] = names
+    return names
 
 
 def to_dict(obj: Any) -> Any:
     """Recursively convert dataclasses/lists/dicts to JSON-able values.
     Columnar types (AllocBatch) serialize through their own to_wire —
     columns stay columns on the wire."""
-    if hasattr(type(obj), "to_wire"):
+    cls = type(obj)
+    if cls in _SCALARS:
+        return obj
+    names = _field_names(cls)
+    if names is False:
         return obj.to_wire()
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        out = {}
-        for f in dataclasses.fields(obj):
-            out[f.name] = to_dict(getattr(obj, f.name))
-        return out
+    if names is not None and not isinstance(obj, type):
+        return {name: to_dict(getattr(obj, name)) for name in names}
     if isinstance(obj, dict):
         return {k: to_dict(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return [to_dict(v) for v in obj]
     return obj
+
+
+_SCALARS = frozenset((str, int, float, bool, type(None)))
 
 
 def _hints(cls: type) -> Dict[str, Any]:
@@ -40,19 +63,37 @@ def _hints(cls: type) -> Dict[str, Any]:
     return hints
 
 
+def _decode_plan(cls: type) -> Dict[str, Any]:
+    """field -> converter (None: the value passes as it is)."""
+    plan = _DECODE_PLANS.get(cls)
+    if plan is None:
+        hints = _hints(cls)
+        plan = {}
+        for f in dataclasses.fields(cls):
+            hint = hints.get(f.name)
+            if (hint is None or get_origin(hint) is not None
+                    or hasattr(hint, "from_wire")
+                    or dataclasses.is_dataclass(hint)):
+                plan[f.name] = hint
+            else:
+                plan[f.name] = None
+        _DECODE_PLANS[cls] = plan
+    return plan
+
+
 def from_dict(cls: Type, data: Any) -> Any:
     """Build ``cls`` from a JSON dict, recursing through field type hints."""
     if data is None:
         return None
     if not dataclasses.is_dataclass(cls):
         return data
-    hints = _hints(cls)
+    plan = _decode_plan(cls)
     kwargs = {}
-    field_names = {f.name for f in dataclasses.fields(cls)}
     for key, value in data.items():
-        if key not in field_names:
+        if key not in plan:
             continue
-        kwargs[key] = _convert(hints.get(key), value)
+        hint = plan[key]
+        kwargs[key] = value if hint is None else _convert(hint, value)
     return cls(**kwargs)
 
 

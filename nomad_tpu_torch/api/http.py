@@ -229,8 +229,11 @@ class HTTPServer:
         follower-read groundwork). The port has no follower read plane,
         so there is no measured leader-contact age (X-Nomad-LastContact)
         and no read index to stamp, as in nomad_tpu with
-        ``read_path { enabled = false }``."""
-        raft = self.agent.server.raft
+        ``read_path { enabled = false }``. Degrades to no headers on a
+        server-less (client-only) agent."""
+        raft = getattr(self.agent.server, "raft", None)
+        if raft is None:
+            return
         applied = int(getattr(raft, "applied_index", 0) or 0)
         commit = int(getattr(raft, "commit_index", applied) or applied)
         try:
@@ -339,7 +342,8 @@ class HTTPServer:
                 store.watch.unregister(ticket)
 
     def _srv(self):
-        # The port's agent always runs a server (no client-only mode).
+        if self.agent.server is None:
+            raise HTTPCodedError(500, "no server running")
         return self.agent.server
 
     @staticmethod

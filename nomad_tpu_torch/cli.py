@@ -7,10 +7,10 @@ node-status, run, server-members, server-join, server-force-leave,
 status, stop, validate, version. ``eval-monitor``/``run`` without
 ``-detach`` reproduce the polling monitor UI (command/monitor.go).
 
-``agent`` runs a server only and takes ``-device`` (default ``cuda``).
-``agent -dev`` (server + client), ``client-config`` and ``spawn-daemon``
-raise :class:`nomad_tpu_torch.NotPortedError` until ``client/`` is
-ported.
+``agent`` takes ``-device`` (default ``cuda``): where its server solves.
+``agent -dev`` runs a server and a client in one process.
+``spawn-daemon`` is the drivers' re-exec target (discover.py); its path
+imports neither ``torch`` nor the server, so a task start stays cheap.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import sys
 import time
 from typing import Optional
 
-from nomad_tpu_torch import NotPortedError, __version__
+from nomad_tpu_torch import __version__
 from nomad_tpu_torch.api import ApiClient, ApiError
 
 EXAMPLE_JOB = '''# Example job specification (reference: command/init.go)
@@ -151,9 +151,11 @@ def cmd_agent(args) -> int:
     agent = Agent(config)
     agent.start()
     print(f"==> nomad-tpu agent started! HTTP at {agent.http.addr}")
-    print(f"    Server: {agent.server is not None}, Client: False, "
+    print(f"    Server: {agent.server is not None}, "
+          f"Client: {agent.client is not None}, "
           f"Scheduler backend: {config.scheduler_backend}, "
-          f"Device: {agent.server.device}", flush=True)
+          f"Device: {agent.server.device if agent.server else '-'}",
+          flush=True)
 
     stop = []
     signal.signal(signal.SIGINT, lambda *a: stop.append(1))
@@ -398,13 +400,26 @@ def cmd_server_force_leave(args) -> int:
     return 0
 
 
-def _needs_client(args) -> int:
-    """client-config and spawn-daemon (command/client_config.go,
-    command/spawn_daemon.go) are the client's commands."""
-    raise NotPortedError(
-        f"{args.command} needs the client (client/), which nomad_tpu_torch "
-        "does not have yet"
-    )
+def cmd_client_config(args) -> int:
+    """reference: command/client_config.go — view the client's known
+    servers (the 0.1.2-era command surfaces -servers only)."""
+    client = _client(args)
+    if not args.servers:
+        print("Must specify -servers")
+        return 1
+    servers, _ = client.query("/v1/agent/servers")
+    for server in servers:
+        print(server)
+    return 0
+
+
+def cmd_spawn_daemon(args) -> int:
+    """reference: command/spawn_daemon.go — internal plumbing command; the
+    exec/raw_exec drivers re-exec this to double-fork user tasks so they
+    survive agent restarts."""
+    from nomad_tpu_torch.client.driver.spawn import _daemon_main
+
+    return _daemon_main(args.spec)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -420,8 +435,7 @@ def make_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("agent", help="Run an agent")
     p.add_argument("-dev", dest="dev", action="store_true",
-                   help="Dev mode: in-memory server + client (needs "
-                        "client/, not ported yet)")
+                   help="Dev mode: in-memory server + client")
     p.add_argument("-server", dest="server", action="store_true")
     p.add_argument("-client", dest="client", action="store_true")
     p.add_argument("-config", dest="config", action="append", default=[],
@@ -497,12 +511,12 @@ def make_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("client-config", help="View client configuration")
     p.add_argument("-servers", dest="servers", action="store_true",
                    help="List the known server addresses")
-    p.set_defaults(func=_needs_client)
+    p.set_defaults(func=cmd_client_config)
 
     p = sub.add_parser("spawn-daemon",
                        help="Internal: daemonize a task (used by drivers)")
     p.add_argument("spec", help="JSON spawn spec")
-    p.set_defaults(func=_needs_client)
+    p.set_defaults(func=cmd_spawn_daemon)
 
     p = sub.add_parser("version", help="Print the version")
     p.set_defaults(func=cmd_version)

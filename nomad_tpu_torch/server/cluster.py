@@ -573,17 +573,27 @@ class ClusterServer(Server):
         """Blocking Node.GetAllocs (node_endpoint.go:328) over the shared
         blocking_query machinery (server/blocking.py; rpc.go:270-335).
         Served from local (possibly follower) state — the stale-read
-        path."""
+        path.
+
+        The index is the node's own, as upstream's GetAllocs computes it:
+        the highest modify index among the node's allocs, or the allocs
+        table's index when it has none. nomad_tpu answers with the table
+        index, so a write to any node's allocs sends every parked client
+        its whole alloc list again: eight clients re-listing on each
+        other's status reports saturated the interpreter."""
         node_id = args["node_id"]
         min_index = int(args.get("min_index", 0))
+
+        def run(store):
+            allocs = store.allocs_by_node(node_id)
+            if allocs:
+                return max(a.modify_index for a in allocs), allocs
+            return store.get_index("allocs") or 1, allocs
 
         index, allocs = blocking_query(
             get_store=lambda: self.state_store,
             items=lambda store: [item_alloc_node(node_id)],
-            run=lambda store: (
-                store.get_index("allocs"), store.allocs_by_node(node_id)
-            ),
-            index_of=lambda store: store.get_index("allocs"),
+            run=run,
             min_index=min_index,
             timeout=float(args.get("timeout", 0.5)),
         )

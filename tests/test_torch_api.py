@@ -415,8 +415,10 @@ def test_not_ported_route_answers_501(sides, pattern):
 
 def test_every_route_answers_without_jax_or_nomad_tpu():
     """The port's agent, SDK and CLI in a subprocess that cannot import
-    jax or nomad_tpu: every route of the HTTP table answers (no 500), and
-    no module of either package is loaded at the end."""
+    jax or nomad_tpu: every route of the HTTP table answers (no 500), on
+    a server agent and on a client-only agent (where a route that reads
+    the server answers nomad_tpu's 500 "no server running"), and no
+    module of either package is loaded at the end."""
     code = r'''
 import sys
 sys.modules["jax"] = None
@@ -468,12 +470,59 @@ for argv in (["status"], ["status", job.id], ["node-status"],
     with contextlib.redirect_stdout(buf):
         assert cli.main(["--address", addr] + argv) == 0, argv
 agent.shutdown()
+
+# A client-only agent against a one-member cluster agent: the routes that
+# read the server answer nomad_tpu's "no server running", the agent's own
+# routes answer, and so do the CLI's agent commands.
+import tempfile
+tmp = tempfile.mkdtemp()
+server = Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0,
+                           bootstrap_expect=1, num_schedulers=1,
+                           data_dir=tmp + "/server", device="cpu"))
+server.server.config.min_heartbeat_ttl = 3600.0
+server.start()
+rpc = server.server.rpc_addr
+agent = Agent(AgentConfig(client_enabled=True, http_port=0,
+                          data_dir=tmp + "/client", client_servers=[rpc]))
+agent.start()
+addr = f"http://127.0.0.1:{agent.http.port}"
+ids["node_id"] = agent.client.node.id
+for pattern, handler in agent.http.routes:
+    path = re.sub(r"\(\?P<([^>]+)>[^)]+\)",
+                  lambda m: ids[m.group(1)], pattern.pattern).strip("^$")
+    for method in ("GET", "PUT"):
+        req = urllib.request.Request(addr + path, method=method,
+                                     data=b"{}" if method == "PUT" else None)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                code, body = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            code, body = e.code, e.read().decode()
+        codes[("client", method, path)] = code
+        assert code != 500 or body == "no server running", (method, path,
+                                                            body)
+with urllib.request.urlopen(addr + "/v1/agent/self", timeout=30) as r:
+    info = json.loads(r.read())
+assert info["stats"]["client"]["node_id"] == agent.client.node.id
+assert "server" not in info["stats"], info
+for argv, want in ((["client-config", "-servers"], 0), (["agent-info"], 0),
+                   (["server-members"], 0), (["status"], 1)):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["--address", addr] + argv) == want, argv
+    if argv[0] == "client-config":
+        assert buf.getvalue() == rpc + "\n", buf.getvalue()
+agent.shutdown()
+server.shutdown()
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "nomad_tpu")]
 assert not loaded, loaded
 print("ok", len(codes))
 '''
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # No network for the client's cloud metadata fingerprints: urllib goes
+    # through a closed loopback port, except for the loopback itself.
+    env = dict(os.environ, PYTHONPATH=REPO, http_proxy="http://127.0.0.1:1",
+               no_proxy="127.0.0.1,localhost")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]

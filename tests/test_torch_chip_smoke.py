@@ -2,9 +2,9 @@
 operations that bound the water-fill, on its own instances; the server
 phase's check of committed allocs (one task a node for a system job);
 the system phase at a small size; the agent phase's job and config files;
-and the simcluster phase's reading of the committed reference digests and
+the simcluster phase's reading of the committed reference digests and
 its check of a run's artifact against them (the slow test recomputes
-those digests with nomad_tpu)."""
+those digests with nomad_tpu); and the client phase at a small size."""
 
 import json
 
@@ -313,3 +313,59 @@ def test_agent_phase_grants_long_ttls_and_probe_times_beats(tmp_path):
         if fleet is not None:
             fleet.stop()
         agent.shutdown()
+
+
+# -- the client phase's pieces -------------------------------------------------
+
+
+@pytest.fixture
+def small_client_phase(monkeypatch):
+    """phase_client at a small size on the CPU: 16 SimFleet nodes, two
+    clients given the GPU attributes by hand, a 130-task batch job (more
+    than 128: the water-fill) and every launch of a plain version counted
+    as the card's kernels count theirs. The cloud metadata fingerprints
+    get no network (the agent -dev subprocess gets chip_smoke's
+    NO_NETWORK_ENV; this process's urllib is left as it is)."""
+    from nomad_tpu_torch.client import fingerprint
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    for name, value in (("N_NODES", 16), ("CLIENT_NODES", 2),
+                        ("CLIENT_BATCH_COUNT", 130),
+                        ("CLIENT_BATCH_ROUNDS", 1),
+                        ("CLIENT_SERVICE_COUNT", 2), ("CLIENT_TASK_CPU", 10),
+                        ("CLIENT_WAIT_S", 60.0)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(fingerprint._MetadataFingerprint, "_get",
+                        lambda self, path: None)
+    for mod, name in ((waterfill, "solve_waterfill_batched_plain"),
+                      (greedy, "solve_greedy_batched_shared_plain")):
+        inner = getattr(mod, name)
+
+        def counted(*args, _mod=mod, _inner=inner, **kw):
+            _mod.LAUNCHES += 1
+            return _inner(*args, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+
+def test_client_jobs_run_only_on_gpu_nodes(small_client_phase, tmp_path):
+    """Each client job lands only on the GPU-attributed client nodes,
+    never on a SimFleet node, and reaches its final client status: the
+    batch job dead with exit 0, the service job running then gone with
+    its pids, the failing job failed after 1 + attempts starts."""
+    wf, gr = cs.phase_client_jobs(torch.device("cpu"), "cpu", str(tmp_path))
+    assert wf >= 1 + cs.CLIENT_BATCH_ROUNDS
+    assert gr >= 2
+
+
+def test_client_jobs_need_the_gpu_attribute():
+    job = cs.client_job("j", "batch", 3, "mock_driver", {"run_for": 0.1})
+    (c,) = job.constraints
+    assert (c.l_target, c.r_target, c.operand) == ("$attr.driver.gpu", "1",
+                                                   "=")
+    assert cs.gpu_attrs(torch.device("cpu"))["driver.gpu"] == "1"
+
+
+def test_client_dev_agent_runs_a_job(small_client_phase, tmp_path):
+    """agent -dev as a subprocess on the CPU: run, status, alloc-status
+    and client-config -servers, the task's stdout, SIGINT -> 0."""
+    cs.client_dev_agent(torch.device("cpu"), "cpu", str(tmp_path))

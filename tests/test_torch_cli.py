@@ -8,8 +8,10 @@ once server-made ids (full and 8-character short uuids) and listener
 addresses are masked; lines that list allocations are compared as sorted
 sets, as the two servers may list them in another order. ``agent-info``
 prints each package's own server stats: its ``config`` block is compared.
-``agent -dev``, ``client-config`` and ``spawn-daemon`` raise naming
-``client/``; ``python -m nomad_tpu_torch version`` runs as a process.
+``client-config`` answers as nomad_tpu's, ``spawn-daemon`` runs a
+spec, ``agent -dev`` defaults to the card (a dev agent on the CPU runs
+in tests/test_torch_client.py); ``python -m nomad_tpu_torch version``
+runs as a process.
 """
 
 import contextlib
@@ -24,7 +26,8 @@ import pytest
 
 from nomad_tpu import cli as jcli
 from nomad_tpu.scheduler import wait_for_device
-from nomad_tpu_torch import NotPortedError
+import torch
+
 from nomad_tpu_torch import cli as pcli
 
 from test_torch_api import _nodes, _start
@@ -162,10 +165,30 @@ def test_agent_info_and_members(agents):
 
 @pytest.mark.parametrize("argv", [["agent", "-dev"],
                                   ["client-config", "-servers"],
-                                  ["spawn-daemon", "{}"]])
-def test_client_commands_raise_naming_client(argv):
-    with pytest.raises(NotPortedError, match=r"client/"):
-        pcli.main(argv)
+                                  ["spawn-daemon", "<spec>"]])
+def test_client_commands_raise_naming_client(argv, agents, tmp_path,
+                                            monkeypatch):
+    """The client's commands, which raised until ``client/`` was ported,
+    now work: ``client-config`` prints what nomad_tpu's prints,
+    ``spawn-daemon`` runs its spec to an exit status, and ``agent -dev``
+    starts a server on the card, so it raises where there is none."""
+    if argv[0] == "agent":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pcli.main(argv)
+    elif argv[0] == "client-config":
+        rc, text = both(agents, *argv)
+        assert rc == 0 and text == "<addr>\n"
+        assert both(agents, "client-config") == (1, "Must specify -servers\n")
+    else:
+        prefix = str(tmp_path / "task")
+        spec = json.dumps({
+            "command": "/bin/sh", "args": ["-c", "exit 4"], "env": {},
+            "cwd": str(tmp_path), "stdout": str(tmp_path / "out"),
+            "stderr": str(tmp_path / "err"), "state_prefix": prefix})
+        assert pcli.main(["spawn-daemon", spec]) == 0
+        with open(prefix + ".status") as f:
+            assert json.load(f)["exit_code"] == 4
 
 
 def test_python_m_runs_the_cli():

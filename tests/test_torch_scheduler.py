@@ -260,8 +260,8 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
-# The server loop's, simcluster's and the head's modules, named so a walk
-# that missed one still fails.
+# The server loop's, simcluster's, the head's and the client's modules,
+# named so a walk that missed one still fails.
 SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
     "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
@@ -275,7 +275,14 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.api.client", "nomad_tpu_torch.api.http",
     "nomad_tpu_torch.agent", "nomad_tpu_torch.agent_config",
     "nomad_tpu_torch.logbuf", "nomad_tpu_torch.cli",
-    "nomad_tpu_torch.__main__",
+    "nomad_tpu_torch.__main__", "nomad_tpu_torch.discover",
+    "nomad_tpu_torch.client", "nomad_tpu_torch.client.client",
+    "nomad_tpu_torch.client.servers", "nomad_tpu_torch.client.fingerprint",
+    "nomad_tpu_torch.client.alloc_runner",
+    "nomad_tpu_torch.client.task_runner",
+    "nomad_tpu_torch.client.driver.spawn",
+    "nomad_tpu_torch.client.driver.raw_exec",
+    "nomad_tpu_torch.client.driver.docker",
 ]
 
 
@@ -326,6 +333,8 @@ def test_entry_points_default_to_cuda():
         Agent(AgentConfig(server_enabled=True, dev_mode=True, http_port=0))
     with pytest.raises(RuntimeError, match="CUDA"):
         Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Agent(AgentConfig.dev())
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_inputs_from_numpy({"total": np.zeros((8, 4))})
     with pytest.raises(RuntimeError, match="CUDA"):
