@@ -98,6 +98,22 @@ Phases, each printing its own lines:
    ``alloc-status`` subprocesses (dead, exit 0, its stdout in the alloc
    dir), lists its server through ``client-config -servers`` and exits 0
    on SIGINT.
+12. planes: the server's front door and fast lanes through the port's
+   scenario runner on the card (seed 42, the attribution layer on, no
+   contrast arm): express-1k (the greedy scan), express-mix (a ~300-task
+   express stream placed in-line by the leader beside steady-10k's
+   service load), overdrive-100k (5 impolite clients offering 250 jobs
+   of 400 tasks to admission control) and read-storm (steady-10k's load
+   on a three-member cell while an impolite read fleet rides the
+   followers' HTTP fronts on the stale and linearizable lanes). Each must
+   give nomad_tpu's canonical digest, respect every queue cap, admit and
+   reject what nomad_tpu's door did, commit or reconcile every express
+   placement, and keep the read lanes' promises; every job's tasks are
+   committed and every eval complete. Logs plan p50/p95, submit->placed,
+   its stage waterfall and the SLO verdicts, express submit->placed
+   p50/p95 (and the lane's own p50/p99), the lane's commits, bounces and
+   fallbacks, admission by reason, the follower serve share and lane
+   counts, and the launches.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -1586,6 +1602,172 @@ def phase_simcluster(dev, card: str, names=SIM_SCENARIOS):
     return total
 
 
+# -- the front door and the fast lanes -----------------------------------------
+
+# express-1k drives the greedy scan on this path (its 60-task service jobs
+# and 100-task warmup); the three 10,000-node scenarios drive the water-fill.
+PLANE_SCENARIOS = ("express-1k", "express-mix", "overdrive-100k",
+                   "read-storm")
+
+
+def check_planes(art, ref) -> None:
+    """The front door's and the fast lanes' checks on one artifact: every
+    queue cap respected, the door admitting and rejecting exactly what
+    nomad_tpu's admitted and rejected, every express placement committed
+    or reconciled with no lease left, and, where the read plane served,
+    no linearizable read older than its read index, no response without
+    its freshness stamp and every read-lane objective met."""
+    from nomad_tpu_torch import slo
+
+    name = art["scenario"]
+    adm = art["admission"]
+    if not adm["caps_respected"]:
+        raise AssertionError(f"{name}: a queue cap was exceeded (peaks "
+                             f"{art['peaks']}, caps {adm['caps']})")
+    want = ref.get("admission_injector")
+    if want is not None and adm["injector"] != want:
+        raise AssertionError(f"{name}: the door gave {adm['injector']}, "
+                             f"nomad_tpu {want}")
+    lane = (art.get("express") or {}).get("lane")
+    if lane is not None:
+        if lane["committed"] + lane["reconciled"] != lane["placed"]:
+            raise AssertionError(
+                f"{name}: {lane['placed']} express placements, "
+                f"{lane['committed']} committed and {lane['reconciled']} "
+                "reconciled")
+        if lane["ledger"]["active"] or lane["backlog"]:
+            raise AssertionError(f"{name}: express leases or commits left "
+                                 "at quiescence")
+    lanes = (art.get("reads") or {}).get("lanes") or {}
+    if lanes.get("enabled"):
+        if lanes["linear_violations"] or lanes["stamp_missing"]:
+            raise AssertionError(
+                f"{name}: {lanes['linear_violations']} linearizable reads "
+                f"older than their read index, {lanes['stamp_missing']} "
+                "responses without a freshness stamp")
+        failed = [r["objective"] for r in slo.evaluate_read_lanes(art)
+                  if r["met"] is False]
+        if failed:
+            raise AssertionError(f"{name}: read-lane objectives missed: "
+                                 f"{failed}")
+
+
+def plane_rows(art):
+    """The phase's log rows for one artifact: latency, the door, the
+    express lane, the read plane."""
+    pl = art["plan_latency_ms"]
+    adm = art["admission"]
+    rows = [
+        f"plan_latency_ms p50={pl.get('p50_ms')} p95={pl.get('p95_ms')} "
+        f"n={pl['n']}",
+        "admission injector " + json.dumps(adm["injector"])
+        + " controller admitted=" + str(adm["controller"]["admitted"])
+        + " rejected_by_reason=" + json.dumps(
+            adm["controller"]["by_reason"])
+        + f" caps_respected={adm['caps_respected']}",
+    ]
+    att = art.get("latency_attribution") or {}
+    placed = att.get("submit_to_placed_ms")
+    if placed:
+        rows.append("submit_to_placed_ms " + json.dumps(placed))
+    if att.get("waterfall"):
+        rows.append("waterfall mean/p95 ms " + json.dumps(
+            {w["stage"]: [w["mean_ms"], w["p95_ms"]]
+             for w in att["waterfall"] if w["total_ms"]}))
+    if att.get("slo_check"):
+        rows.append("slo_check " + json.dumps(
+            {r["objective"]: [r["observed_ms"], r["met"]]
+             for r in att["slo_check"]}))
+    if "express" in art:
+        lane = art["express"]["lane"]
+        rows.append(
+            "express submit_to_placed_ms "
+            + json.dumps(att.get("express_placed_ms"))
+            + " lane place_ms " + json.dumps(
+                {k: lane["place_ms"].get(k)
+                 for k in ("count", "p50", "p95", "p99", "max")}))
+        rows.append(
+            f"express placed={lane['placed']} committed={lane['committed']}"
+            f" bounces={lane['bounces']} reconciled={lane['reconciled']}"
+            " fallbacks=" + json.dumps(lane["fallbacks"]))
+    lanes = (art.get("reads") or {}).get("lanes")
+    if lanes and lanes.get("enabled"):
+        rows.append(
+            f"reads follower_serve_share={lanes['follower_serve_share']} "
+            "served=" + json.dumps(lanes["served"])
+            + " by_lane=" + json.dumps(lanes["by_lane"])
+            + f" stale_reads={lanes['client']['stale_reads']}"
+            f" linear_reads={lanes['linear_reads']}"
+            f" stale_refused={lanes['stale_refused']}"
+            f" linear_refused={lanes['linear_refused']}"
+            " stale_age_ms=" + json.dumps(lanes["stale_age_ms"]))
+    return rows
+
+
+def phase_planes(dev, card: str, names=PLANE_SCENARIOS):
+    """The server's front door and fast lanes through the port's scenario
+    runner on the card (seed 42, contrast arms off, the attribution layer
+    on): each scenario held to nomad_tpu's digest (check_scenario), to
+    check_planes, and to the committed allocs and complete evals of the
+    leader's store. Returns the phase's (water-fill, greedy) launches;
+    each kernel must have launched."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.simcluster.scenario import SCENARIOS, ScenarioRunner
+
+    refs = load_reference_digests()
+    wf_total = gr_total = 0
+    for name in names:
+        runner = ScenarioRunner(SCENARIOS[name], seed=SEED, device=str(dev),
+                                attribution_layer=True)
+        waterfill.LAUNCHES = 0
+        greedy.LAUNCHES = 0
+        art = runner.run()
+        wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+        wf_total += wf
+        gr_total += gr
+        compared = check_scenario(art, refs[name])
+        check_planes(art, refs[name])
+        snap = runner._srv.state_store.snapshot()
+        jobs = list(runner._jobs.values())
+        for job in jobs:
+            want = sum(tg.count for tg in job.task_groups)
+            live = [a for a in snap.allocs_by_job(job.id)
+                    if not a.terminal_status()]
+            if len(live) != want:
+                raise AssertionError(f"planes {name}: job {job.id} holds "
+                                     f"{len(live)} live tasks, want {want}")
+            for ev in snap.evals_by_job(job.id):
+                if ev.status != structs.EVAL_STATUS_COMPLETE:
+                    raise AssertionError(f"planes {name}: eval {ev.id} of "
+                                         f"{job.id} ended {ev.status}")
+        # Placement, datacenters, constraint and every node's capacity,
+        # over the whole store (one pass covers every job's nodes).
+        biggest = max(jobs, key=lambda j: j.task_groups[0].count)
+        check_committed(snap, biggest, biggest.task_groups[0].count)
+        pl = art["placements"]
+        rows = [
+            f"placed={pl['placed']} placements_per_s="
+            f"{pl['placements_per_sec']} evals={pl['evals_injected']} "
+            f"plans={pl['plans_applied']}",
+            *plane_rows(art),
+            f"waterfill_launches={wf} greedy_launches={gr} "
+            f"device_dispatches={pl['device_dispatches']}",
+            f"window_seconds={pl['window_seconds']} "
+            f"wall_seconds={art['wall_seconds']}",
+            f"digest={art['events']['digest']} "
+            f"{'equals' if compared else 'not compared with'} nomad_tpu's",
+        ]
+        for row in rows:
+            log(f"planes {name}: {row} [{card}]")
+    log(f"planes: waterfill_launches={wf_total} greedy_launches={gr_total} "
+        f"[{card}]")
+    if wf_total == 0 or gr_total == 0:
+        raise AssertionError("the planes phase launched the water-fill "
+                             f"{wf_total} times and the greedy {gr_total}")
+    return wf_total, gr_total
+
+
 # -- the system scheduler (BASELINE config 4) --------------------------------------
 
 SYSTEM_CPU, SYSTEM_MEM = 50, 64
@@ -2738,6 +2920,11 @@ def main() -> int:
         wf, gr = phase_client(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    wf_launches += wf
+    gr_launches += gr
+
+    # 12. the front door and the fast lanes
+    wf, gr = phase_planes(dev, card)
     wf_launches += wf
     gr_launches += gr
 

@@ -42,10 +42,10 @@ NOT_PORTED = {
 class AgentConfig:
     """Agent-level configuration (reference: command/agent/config.go).
 
-    nomad_tpu's keys for the observatories, admission, the express lane,
-    the read path, the solver mesh, SLOs, TLS and the metrics sinks have
-    no field here: their modules are not ported (``agent_config`` raises
-    on them in a config file)."""
+    nomad_tpu's keys for the capacity, raft and runtime observatories,
+    the solver mesh, TLS and the metrics sinks have no field here: their
+    modules are not ported (``agent_config`` raises on them in a config
+    file)."""
 
     region: str = "global"
     datacenter: str = "dc1"
@@ -73,6 +73,18 @@ class AgentConfig:
     eval_pending_cap: int = 0
     plan_queue_cap: int = 0
     max_blocking_watchers: int = 0
+    # Admission front-door spec (server/admission.py): None = permissive.
+    admission: Optional[Dict] = None
+    # Express placement lane spec (server/express.py): None = lane off.
+    express: Optional[Dict] = None
+    # Read-path observatory spec (read_observe.py): None = defaults.
+    reads: Optional[Dict] = None
+    # Follower read plane spec (server/read_path.py): None = defaults
+    # (enabled); {"enabled": False} serves every read locally.
+    read_path: Optional[Dict] = None
+    # Declarative latency SLOs (slo.py): objective name -> threshold ms.
+    # None = the default objectives; {} disables the monitor.
+    slo_objectives: Optional[Dict[str, float]] = None
     enable_debug: bool = False
     # Eval-lifecycle tracing (nomad_tpu_torch.trace): ring size of
     # retained traces (0 = default 256) and the master enable.
@@ -142,6 +154,11 @@ class AgentConfig:
             eval_pending_cap=fc.server.eval_pending_cap,
             plan_queue_cap=fc.server.plan_queue_cap,
             max_blocking_watchers=fc.server.max_blocking_watchers,
+            admission=fc.server.admission,
+            express=fc.server.express,
+            reads=fc.server.reads,
+            read_path=fc.server.read_path,
+            slo_objectives=fc.telemetry.slo,
             enable_debug=fc.enable_debug,
             trace_buffer_size=fc.telemetry.trace_buffer_size,
             disable_tracing=fc.telemetry.disable_tracing,
@@ -196,9 +213,16 @@ class Agent:
             eval_pending_cap=self.config.eval_pending_cap,
             plan_queue_cap=self.config.plan_queue_cap,
             max_blocking_watchers=self.config.max_blocking_watchers,
+            **{
+                name: (dict(getattr(self.config, name))
+                       if getattr(self.config, name) is not None else None)
+                for name in ("admission", "express", "reads", "read_path")
+            },
         )
         if self.config.event_buffer_size:
             server_config.event_buffer_size = self.config.event_buffer_size
+        if self.config.slo_objectives is not None:
+            server_config.slo_objectives = dict(self.config.slo_objectives)
         if self.config.num_schedulers:
             # ServerConfig resolves + validates the worker count in
             # __post_init__; a post-construction override must set the

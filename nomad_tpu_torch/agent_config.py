@@ -9,9 +9,9 @@ Blocks: ports, addresses, advertise, client, server, telemetry, faults.
 The HCL dialect is the same one job specs use, so this reuses
 ``nomad_tpu_torch.jobspec.hcl``; ``.json`` files parse with the stdlib.
 
-A key whose module the port does not have yet (``NOT_PORTED_KEYS``:
-admission, express, the observatories, the read path, the solver mesh,
-SLOs, the metrics sinks, TLS, Atlas) raises
+A key whose module the port does not have yet (``NOT_PORTED_KEYS``: the
+capacity, raft and runtime observatories, the solver mesh, the metrics
+sinks, TLS, Atlas) raises
 :class:`nomad_tpu_torch.NotPortedError` naming that module: it is never
 ignored. The port adds ``device`` (default ``cuda``): where the agent's
 server solves.
@@ -22,23 +22,23 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from nomad_tpu_torch import NotPortedError
 from nomad_tpu_torch.jobspec.hcl import Block, Body, parse as parse_hcl
+from nomad_tpu_torch.read_observe import ReadObserveConfig
+from nomad_tpu_torch.server.admission import AdmissionConfig
+from nomad_tpu_torch.server.express import ExpressConfig
+from nomad_tpu_torch.server.read_path import ReadPathConfig
+from nomad_tpu_torch.slo import Objective
 
 # Config keys of nomad_tpu whose modules the port does not have yet, with
 # the module each needs.
 NOT_PORTED_KEYS = {
-    "server.admission": "admission control (server/admission.py)",
-    "server.express": "the express lane (server/express.py)",
     "server.capacity": "the capacity observatory (capacity.py)",
     "server.raft_observe": "the raft observatory (raft_observe.py)",
-    "server.reads": "the read-path observatory (read_observe.py)",
-    "server.read_path": "the follower read plane (server/read_path.py)",
     "server.profile": "the runtime observatory (profile_observe.py)",
     "server.solver_mesh": "the solver mesh (parallel/mesh.py)",
-    "telemetry.slo": "the SLO monitor (slo.py)",
     "telemetry.statsite_address": "the statsite sink (telemetry.py's sinks)",
     "telemetry.statsd_address": "the statsd sink (telemetry.py's sinks)",
     "telemetry.disable_hostname": "the metrics sinks (telemetry.py's sinks)",
@@ -104,7 +104,17 @@ class ServerBlock:
     """config.go ServerConfig block with nomad_tpu's scheduling and
     backpressure knobs: ``scheduler_workers`` (``num_schedulers`` the
     legacy alias; 0 = server default), ``eval_pending_cap``,
-    ``plan_queue_cap`` and ``max_blocking_watchers`` (0 = unbounded)."""
+    ``plan_queue_cap`` and ``max_blocking_watchers`` (0 = unbounded), and
+    the ``admission``, ``express``, ``reads`` and ``read_path`` sub-blocks
+    (each validated at parse time by its module's ``Config.parse``; None =
+    that module's defaults)::
+
+        server {
+          eval_pending_cap = 4096
+          admission { client_rate = 10  client_burst = 50 }
+          express { enabled = true }
+        }
+    """
 
     enabled: bool = False
     bootstrap_expect: int = 0
@@ -115,6 +125,10 @@ class ServerBlock:
     eval_pending_cap: int = 0
     plan_queue_cap: int = 0
     max_blocking_watchers: int = 0
+    admission: Optional[Dict[str, object]] = None
+    express: Optional[Dict[str, object]] = None
+    reads: Optional[Dict[str, object]] = None
+    read_path: Optional[Dict[str, object]] = None
     enabled_schedulers: List[str] = field(default_factory=list)
     start_join: List[str] = field(default_factory=list)
 
@@ -124,13 +138,17 @@ class Telemetry:
     """config.go Telemetry block with the eval-trace knobs:
     ``trace_buffer_size`` bounds the retained-trace ring (0 = 256),
     ``disable_tracing`` turns span recording off, ``event_buffer_size``
-    bounds the event stream ring (0 = 2048). ``lock_watchdog`` parses as
+    bounds the event stream ring (0 = 2048). The ``slo { }`` sub-block
+    declares latency objectives (``submit_to_placed_p95_ms = 250``,
+    nomad_tpu_torch.slo): no block (None) means the default objectives, an
+    empty ``slo { }`` disables the monitor. ``lock_watchdog`` parses as
     in nomad_tpu; an agent with the watchdog on raises until the
     lock-order analysis has a port."""
 
     trace_buffer_size: int = 0
     disable_tracing: bool = False
     event_buffer_size: int = 0
+    slo: Optional[Dict[str, float]] = None
     lock_watchdog: bool = False
 
 
@@ -248,6 +266,13 @@ class FileConfig:
                 other.server.max_blocking_watchers
                 or self.server.max_blocking_watchers
             ),
+            # The sub-blocks merge key-by-key: a later file overrides one
+            # knob without dropping the rest.
+            **{
+                name: _merge_block(getattr(self.server, name),
+                                   getattr(other.server, name))
+                for name in ("admission", "express", "reads", "read_path")
+            },
             enabled_schedulers=(
                 other.server.enabled_schedulers or self.server.enabled_schedulers
             ),
@@ -269,6 +294,14 @@ class FileConfig:
                 other.telemetry.event_buffer_size
                 or self.telemetry.event_buffer_size
             ),
+            # Objectives merge key-by-key; an explicit empty block anywhere
+            # in the chain disables, so a later `slo {}` must override.
+            slo=(
+                self.telemetry.slo if other.telemetry.slo is None
+                else other.telemetry.slo if (not other.telemetry.slo
+                                             or self.telemetry.slo is None)
+                else {**self.telemetry.slo, **other.telemetry.slo}
+            ),
             lock_watchdog=(
                 other.telemetry.lock_watchdog
                 or self.telemetry.lock_watchdog
@@ -281,6 +314,25 @@ class FileConfig:
             sites={**self.faults.sites, **other.faults.sites},
         )
         return out
+
+
+def _merge_block(base: Optional[Dict], over: Optional[Dict]) -> Optional[Dict]:
+    """Key-by-key merge of two optional config sub-blocks."""
+    if over is None:
+        return base
+    if base is None:
+        return over
+    return {**base, **over}
+
+
+# Server sub-blocks and the parser that validates each at load time (a
+# typo'd knob fails config load, not agent start).
+_SERVER_BLOCKS = {
+    "admission": AdmissionConfig.parse,
+    "express": ExpressConfig.parse,
+    "reads": ReadObserveConfig.parse,
+    "read_path": ReadPathConfig.parse,
+}
 
 
 def default_config() -> FileConfig:
@@ -375,6 +427,11 @@ def _from_mapping(data: dict) -> FileConfig:
                             f"server.{k} must be in [0, 10000000], got {n}"
                         )
                     setattr(cfg.server, k, n)
+                elif k in _SERVER_BLOCKS:
+                    if not isinstance(v, dict):
+                        raise ValueError(f"server.{k} must be a mapping")
+                    _SERVER_BLOCKS[k](dict(v))
+                    setattr(cfg.server, k, dict(v))
                 elif k in ("bootstrap_expect", "protocol_version"):
                     setattr(cfg.server, k, int(v))
                 else:
@@ -387,6 +444,13 @@ def _from_mapping(data: dict) -> FileConfig:
                     raise ValueError(f"unknown telemetry config key {k!r}")
                 if k in ("trace_buffer_size", "event_buffer_size"):
                     v = int(v)
+                elif k == "slo":
+                    if not isinstance(v, dict):
+                        raise ValueError("telemetry.slo must be a mapping")
+                    # A typo'd objective name fails config load.
+                    v = {name: float(ms) for name, ms in v.items()}
+                    for name, ms in v.items():
+                        Objective.parse(name, ms)
                 elif k == "lock_watchdog":
                     # Parse-time validated: the knob is process-global
                     # (it patches threading.Lock), so a stringly-typed

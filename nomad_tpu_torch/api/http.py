@@ -7,10 +7,11 @@ X-Nomad-KnownLeader / X-Nomad-LastContact response headers. Endpoint
 behaviors mirror command/agent/{job,node,eval,alloc,agent}_endpoint.go.
 
 The routes whose handler needs a module the port does not have yet
-answer 501 with a body naming the module (``NOT_PORTED_ROUTES``). The
-consistency lanes keep nomad_tpu's names; with no follower read plane
-(``server.read_path`` is None) every read is served locally, as
-nomad_tpu's lanes do with ``read_path { enabled = false }``.
+answer 501 with a body naming the module (``NOT_PORTED_ROUTES``). Every
+GET resolves its consistency lane through the server's follower read
+plane (``server/read_path.py``) before its handler runs, and each
+finished GET is folded into the read observatory's books
+(``read_observe.py``), keyed by route template.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from nomad_tpu_torch import events as events_mod
-from nomad_tpu_torch import trace
+from nomad_tpu_torch import lifecycle, trace
 from nomad_tpu_torch.api.codec import from_dict, to_dict
 from nomad_tpu_torch.jobspec import parse_duration
 from nomad_tpu_torch.server.blocking import blocking_query
@@ -42,26 +43,17 @@ from nomad_tpu_torch.structs import (
     ValidationError,
 )
 
-# Consistency lanes of a read (nomad_tpu/server/read_path.py): the
-# default leader-local read, the bounded-stale lane, and the read-index
-# confirmed lane.
-LANE_DEFAULT = "default"
-LANE_STALE = "stale"
-LANE_LINEARIZABLE = "linearizable"
+from nomad_tpu_torch.server.read_path import (
+    LANE_DEFAULT,
+    LANE_LINEARIZABLE,
+    LANE_STALE,
+)
 
 # Routes of nomad_tpu whose handlers need a module the port does not have
 # yet: route pattern -> the module. Each answers 501 naming it.
 NOT_PORTED_ROUTES = {
-    r"^/v1/evaluation/(?P<eval_id>[^/]+)/timeline$":
-        "the lifecycle timelines (lifecycle.py)",
-    r"^/v1/allocation/(?P<alloc_id>[^/]+)/timeline$":
-        "the lifecycle timelines (lifecycle.py)",
-    r"^/v1/agent/slo$": "the SLO monitor (slo.py)",
-    r"^/v1/agent/admission$": "admission control (server/admission.py)",
-    r"^/v1/agent/express$": "the express lane (server/express.py)",
     r"^/v1/agent/capacity$": "the capacity observatory (capacity.py)",
     r"^/v1/agent/raft$": "the raft observatory (raft_observe.py)",
-    r"^/v1/agent/reads$": "the read-path observatory (read_observe.py)",
     r"^/v1/agent/profile$": "the runtime observatory (profile_observe.py)",
     r"^/v1/agent/runtime$": "the runtime observatory (profile_observe.py)",
     r"^/v1/agent/solver$":
@@ -70,6 +62,20 @@ NOT_PORTED_ROUTES = {
     r"^/v1/agent/debug$": "the debug surface (bundle.py)",
     r"^/v1/agent/debug/bundle$": "the debug bundle (bundle.py)",
 }
+
+
+# The Prometheus exposition a few ported routes offer as ?format=prometheus.
+PROMETHEUS_NEEDS = "the Prometheus exposition (telemetry.py's sinks)"
+
+
+def _route_template(pattern: str) -> str:
+    """Stable attribution key for a route regex: named groups become
+    ``:name`` segments (``^/v1/job/(?P<job_id>[^/]+)$`` ->
+    ``/v1/job/:job_id``), so the read books key on the route's shape,
+    never on unbounded concrete ids."""
+    return re.sub(
+        r"\(\?P<([^>]+)>[^)]+\)", r":\1", pattern
+    ).lstrip("^").rstrip("$")
 
 
 def _prefix_filter(items, query):
@@ -142,8 +148,16 @@ class HTTPServer:
             (r"^/v1/evaluation/(?P<eval_id>[^/]+)/allocations$",
              self.eval_allocations),
             (r"^/v1/evaluation/(?P<eval_id>[^/]+)/trace$", self.eval_trace),
+            (r"^/v1/evaluation/(?P<eval_id>[^/]+)/timeline$",
+             self.eval_timeline),
+            (r"^/v1/allocation/(?P<alloc_id>[^/]+)/timeline$",
+             self.alloc_timeline),
             (r"^/v1/event/stream$", self.event_stream),
             (r"^/v1/agent/self$", self.agent_self),
+            (r"^/v1/agent/slo$", self.agent_slo),
+            (r"^/v1/agent/admission$", self.agent_admission),
+            (r"^/v1/agent/express$", self.agent_express),
+            (r"^/v1/agent/reads$", self.agent_reads),
             (r"^/v1/agent/traces$", self.agent_traces),
             (r"^/v1/agent/faults$", self.agent_faults),
             (r"^/v1/agent/logs$", self.agent_logs),
@@ -156,7 +170,14 @@ class HTTPServer:
         ]
         self.routes += [(p, self._not_ported(needs))
                         for p, needs in NOT_PORTED_ROUTES.items()]
+        # Each route's read-attribution key, by pattern.
+        self._templates = {p: _route_template(p) for p, _h in self.routes}
         self.routes = [(re.compile(p), h) for p, h in self.routes]
+        # Per-request read-attribution context (route template, lane,
+        # hold/serve seam), threaded to the responders and _maybe_block
+        # without touching every handler's signature: each request runs
+        # on its own thread (ThreadingHTTPServer).
+        self._local = threading.local()
 
     def start(self) -> None:
         self._thread.start()
@@ -174,27 +195,68 @@ class HTTPServer:
             m = pattern.match(parsed.path)
             if m is None:
                 continue
+            ctx = {"template": self._templates[pattern.pattern],
+                   "lane": "plain", "status": 200,
+                   "bytes": 0, "hold_s": 0.0, "woke": None,
+                   "consistency": LANE_DEFAULT, "role": None,
+                   "read_meta": None}
+            self._local.ctx = ctx
+            t0 = time.monotonic()
             try:
-                if req.command == "GET":
-                    self._enter_read_lane(req, query)
-                out, index = handler(req, query, **m.groupdict())
-            except HTTPCodedError as e:
-                self._respond_error(req, e.code, str(e))
-            except RejectError as e:
-                self._respond_reject(req, e)
-            except KeyError as e:
-                # Endpoints raise KeyError for missing resources
-                self._respond_error(req, 404, str(e).strip("'\""))
-            except (ValidationError, ValueError) as e:
-                self._respond_error(req, 400, str(e))
-            except Exception as e:
-                self.logger.exception("http: request failed")
-                self._respond_error(req, 500, str(e))
-            else:
-                if out is not STREAMED:  # SSE wrote its own body
-                    self._respond_json(req, out, index)
+                try:
+                    if req.command == "GET":
+                        # The consistency lane resolves BEFORE the
+                        # handler: a refusal costs nothing, and a
+                        # linearizable read touches no state until the
+                        # local applied index reaches its read index.
+                        self._enter_read_lane(req, query, ctx)
+                    out, index = handler(req, query, **m.groupdict())
+                except HTTPCodedError as e:
+                    self._respond_error(req, e.code, str(e))
+                except RejectError as e:
+                    self._respond_reject(req, e)
+                except KeyError as e:
+                    # Endpoints raise KeyError for missing resources
+                    self._respond_error(req, 404, str(e).strip("'\""))
+                except (ValidationError, ValueError) as e:
+                    self._respond_error(req, 400, str(e))
+                except Exception as e:
+                    self.logger.exception("http: request failed")
+                    self._respond_error(req, 500, str(e))
+                else:
+                    if out is not STREAMED:  # SSE wrote its own body
+                        self._respond_json(req, out, index)
+            finally:
+                self._local.ctx = None
+                self._record_read(req, ctx, time.monotonic() - t0)
             return
         self._respond_error(req, 404, "not found")
+
+    def _record_read(self, req, ctx: Dict[str, Any],
+                     duration_s: float) -> None:
+        """Fold one finished GET into the read observatory's recorder
+        (no-op on writes, on a server-less agent, or with the observatory
+        off: the knob gates recording, never headers)."""
+        if req.command != "GET":
+            return
+        obs = self._read_observatory()
+        if obs is None:
+            return
+        rec = obs.recorder
+        rec.record_request(ctx["template"], ctx["lane"], ctx["status"],
+                           duration_s, ctx["bytes"])
+        if ctx["lane"] == "blocking":
+            rec.record_blocking(ctx["template"], ctx["hold_s"],
+                                duration_s, bool(ctx["woke"]))
+
+    def _read_observatory(self):
+        """The server's read observatory, or None (no server, or
+        ``reads { enabled = false }``)."""
+        server = getattr(self.agent, "server", None)
+        obs = getattr(server, "read_observatory", None)
+        if obs is None or not obs.config.enabled:
+            return None
+        return obs
 
     @staticmethod
     def _not_ported(needs: str) -> Callable:
@@ -204,20 +266,37 @@ class HTTPServer:
                      "nomad_tpu_torch does not have yet")
         return handler
 
-    @staticmethod
-    def _enter_read_lane(req, query: Dict[str, str]) -> None:
-        """Validate one GET's consistency lane (the reference QueryOptions
+    def _enter_read_lane(self, req, query: Dict[str, str],
+                         ctx: Dict[str, Any]) -> None:
+        """Resolve one GET's consistency lane (the reference QueryOptions
         AllowStale posture plus Consul's ``?consistent=``): ``?stale=`` /
-        ``X-Nomad-Consistency: stale``, ``?max_stale=`` in ms,
-        ``?consistent=`` / ``X-Nomad-Consistency: linearizable``
-        (``LANE_*``). Without the follower read plane every lane is served
-        from the local store; only a malformed bound is refused."""
+        ``X-Nomad-Consistency: stale`` opts into bounded staleness
+        (``?max_stale=`` ms tightens the server default), ``?consistent=``
+        / ``X-Nomad-Consistency: linearizable`` asks for a read-index
+        confirmed answer. ReadPath.enter may raise a typed retriable
+        RejectError (stale bound exceeded, no confirmed read index),
+        answered 429 with Retry-After. No-op on a client-only agent."""
+        rp = getattr(getattr(self.agent, "server", None), "read_path", None)
+        if rp is None:
+            return
+        hdr = (req.headers.get("X-Nomad-Consistency") or "").strip().lower()
+        if hdr == LANE_LINEARIZABLE or "consistent" in query:
+            lane = LANE_LINEARIZABLE
+        elif hdr == LANE_STALE or "stale" in query:
+            lane = LANE_STALE
+        else:
+            lane = LANE_DEFAULT
+        max_stale_ms = None
         if query.get("max_stale"):
             try:
-                float(query["max_stale"])
+                max_stale_ms = float(query["max_stale"])
             except ValueError:
                 raise HTTPCodedError(
                     400, f"invalid max_stale (ms): {query['max_stale']!r}")
+        meta = rp.enter(lane, max_stale_ms)
+        ctx["consistency"] = meta["lane"]
+        ctx["role"] = meta["role"]
+        ctx["read_meta"] = meta
 
     def _freshness_headers(self, req) -> None:
         """Stamp the response with read-freshness meta: the serving
@@ -226,28 +305,54 @@ class HTTPServer:
         (in raft entries). Stamped on EVERY response — plain GETs,
         errors, and streams alike, not just blocking queries — so a
         consumer can always judge how fresh the state it read was (the
-        follower-read groundwork). The port has no follower read plane,
-        so there is no measured leader-contact age (X-Nomad-LastContact)
-        and no read index to stamp, as in nomad_tpu with
-        ``read_path { enabled = false }``. Degrades to no headers on a
-        server-less (client-only) agent."""
-        raft = getattr(self.agent.server, "raft", None)
+        follower-read contract). Headers stay the same with the read
+        observatory off; only the recording below is knob-gated. Degrades
+        to no headers on a server-less (client-only) agent."""
+        server = getattr(self.agent, "server", None)
+        raft = getattr(server, "raft", None)
         if raft is None:
             return
         applied = int(getattr(raft, "applied_index", 0) or 0)
         commit = int(getattr(raft, "commit_index", applied) or applied)
+        age = max(commit - applied, 0)
         try:
             known_leader = bool(self.agent.leader_addr())
         except Exception:
             known_leader = False
+        ctx = getattr(self._local, "ctx", None) or {}
+        meta = ctx.get("read_meta") or {}
         req.send_header("X-Nomad-Applied-Index", str(applied))
-        req.send_header("X-Nomad-LastIndex", str(applied))
-        req.send_header("X-Nomad-Staleness", str(max(commit - applied, 0)))
+        req.send_header("X-Nomad-LastIndex",
+                        str(int(meta.get("applied_index", applied))))
+        req.send_header("X-Nomad-Staleness", str(age))
         req.send_header("X-Nomad-KnownLeader",
                         "true" if known_leader else "false")
+        # Measured leader-contact age in ms (0 on the leader): what a
+        # stale-lane client compares with its bound. Omitted only when a
+        # follower never heard from a leader.
+        contact_ms = meta.get("last_contact_ms")
+        if not meta:
+            rp = getattr(server, "read_path", None)
+            contact_ms = (rp.last_contact_ms() if rp is not None
+                          else None)
+        if contact_ms is not None:
+            req.send_header("X-Nomad-LastContact",
+                            str(int(round(contact_ms))))
+        if meta.get("read_index") is not None:
+            req.send_header("X-Nomad-Read-Index",
+                            str(int(meta["read_index"])))
+        if req.command == "GET":
+            obs = self._read_observatory()
+            if obs is not None:
+                obs.recorder.record_staleness(
+                    age,
+                    role=ctx.get("role") or "",
+                    lane=ctx.get("consistency") or LANE_DEFAULT,
+                )
 
     def _respond_json(self, req, out: Any, index: Optional[int]) -> None:
         body = json.dumps(to_dict(out)).encode()
+        self._note_response(200, len(body))
         req.send_response(200)
         req.send_header("Content-Type", "application/json")
         req.send_header("Content-Length", str(len(body)))
@@ -260,8 +365,16 @@ class HTTPServer:
         req.end_headers()
         req.wfile.write(body)
 
+    def _note_response(self, status: int, nbytes: int) -> None:
+        """Stamp the request's read context with what went out."""
+        ctx = getattr(self._local, "ctx", None)
+        if ctx is not None:
+            ctx["status"] = status
+            ctx["bytes"] = nbytes
+
     def _respond_error(self, req, code: int, message: str) -> None:
         body = message.encode()
+        self._note_response(code, len(body))
         req.send_response(code)
         req.send_header("Content-Type", "text/plain")
         req.send_header("Content-Length", str(len(body)))
@@ -283,6 +396,7 @@ class HTTPServer:
             "reason": e.reason,
             "retry_after": e.retry_after,
         }).encode()
+        self._note_response(code, len(body))
         req.send_response(code)
         req.send_header("Content-Type", "application/json")
         req.send_header("Retry-After",
@@ -305,41 +419,54 @@ class HTTPServer:
 
     def _maybe_block(self, query: Dict[str, str], table: str) -> None:
         """Implements ?index=N&wait=D against the state watch: return when
-        the table index passes N or the wait expires."""
+        the table index passes N or the wait expires. The whole park is
+        the request's ``hold`` stage in the read books; the rest of the
+        handler is ``serve``."""
         min_index = int(query.get("index", 0))
         if min_index == 0:
             return
         # MaxQueryTime cap (rpc.go:283-291): client-supplied waits clamp
         # so a poll can never park unboundedly.
         wait = min(parse_duration(query.get("wait", "5m")), MAX_QUERY_TIME)
-        end = time.monotonic() + wait
-        while True:
-            # Re-read per pass: a raft snapshot install rebinds
-            # fsm.state, orphaning any watch parked on the previous
-            # store.
-            store = self.agent.server.state_store
-            if store.get_index(table) > min_index:
-                return
-            remaining = end - time.monotonic()
-            if remaining <= 0:
-                return
-            # register may raise a typed RejectError(WATCH_LIMIT) —
-            # the dispatcher maps it to a 503 with Retry-After.
-            ticket = store.watch.register([item_table(table)])
-            try:
-                # Identity re-check closes the register-vs-rebind
-                # race; a rebind after registration fires notify_all
-                # on the old store, so a full-length wait is safe.
-                if (self.agent.server.state_store is store
-                        and store.get_index(table) <= min_index):
-                    fired = store.watch.wait(ticket, timeout=remaining)
-                    if fired and store.get_index(table) <= min_index:
-                        # Woken by a bucket-sharing neighbor, index
-                        # unmoved: the spurious re-probe the coalesced
-                        # registry trades for O(items) publishes.
-                        store.watch.spurious_wakes += 1
-            finally:
-                store.watch.unregister(ticket)
+        ctx = getattr(self._local, "ctx", None)
+        t0 = time.monotonic()
+        woke = False
+        end = t0 + wait
+        try:
+            while True:
+                # Re-read per pass: a raft snapshot install rebinds
+                # fsm.state, orphaning any watch parked on the previous
+                # store.
+                store = self.agent.server.state_store
+                if store.get_index(table) > min_index:
+                    woke = True
+                    return
+                remaining = end - time.monotonic()
+                if remaining <= 0:
+                    return
+                # register may raise a typed RejectError(WATCH_LIMIT) —
+                # the dispatcher maps it to a 503 with Retry-After.
+                ticket = store.watch.register([item_table(table)])
+                try:
+                    # Identity re-check closes the register-vs-rebind
+                    # race; a rebind after registration fires notify_all
+                    # on the old store, so a full-length wait is safe.
+                    if (self.agent.server.state_store is store
+                            and store.get_index(table) <= min_index):
+                        fired = store.watch.wait(ticket, timeout=remaining)
+                        if fired and store.get_index(table) <= min_index:
+                            # Woken by a bucket-sharing neighbor, index
+                            # unmoved: the spurious re-probe the
+                            # coalesced registry trades for O(items)
+                            # publishes.
+                            store.watch.spurious_wakes += 1
+                finally:
+                    store.watch.unregister(ticket)
+        finally:
+            if ctx is not None:
+                ctx["lane"] = "blocking"
+                ctx["hold_s"] = time.monotonic() - t0
+                ctx["woke"] = woke
 
     def _srv(self):
         if self.agent.server is None:
@@ -511,6 +638,35 @@ class HTTPServer:
             raise HTTPCodedError(404, "no trace for evaluation")
         return {"eval_id": eval_id, "spans": spans}, None
 
+    def eval_timeline(self, req, query, eval_id: str) -> Tuple[Any, Optional[int]]:
+        """Per-evaluation lifecycle timeline (nomad_tpu_torch.lifecycle):
+        the submit→placed(→running) stage decomposition stitched from the
+        retained trace spans and the server's event ring. With tracing
+        off (or the trace evicted) the stages are all ``unattributed``,
+        but the end-to-end anchors still serve."""
+        srv = self._srv()
+        tl = lifecycle.stitch_from_server(srv, eval_id)
+        if tl is None:
+            raise HTTPCodedError(404, "no timeline for evaluation")
+        return tl.to_dict(), None
+
+    def alloc_timeline(self, req, query, alloc_id: str) -> Tuple[Any, Optional[int]]:
+        """Per-allocation timeline: the alloc's evaluation timeline (the
+        granularity plans, columnar blocks and traces share), stamped
+        with the alloc id."""
+        srv = self._srv()
+        alloc = srv.state_store.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise HTTPCodedError(404, "alloc not found")
+        if not alloc.eval_id:
+            raise HTTPCodedError(404, "alloc has no evaluation")
+        tl = lifecycle.stitch_from_server(srv, alloc.eval_id)
+        if tl is None:
+            raise HTTPCodedError(404, "no timeline for allocation")
+        out = tl.to_dict()
+        out["alloc_id"] = alloc_id
+        return out, None
+
     # -- event stream (reference: nomad/stream, /v1/event/stream) ------------
 
     def event_stream(self, req, query) -> Tuple[Any, Optional[int]]:
@@ -555,6 +711,8 @@ class HTTPServer:
             # park the poll.
             index, out = run(broker)
             return out, index
+        ctx = getattr(self._local, "ctx", None)
+        t0 = time.monotonic()
         index, out = blocking_query(
             get_store=lambda: broker,
             items=lambda b: tfilter.watch_items(),
@@ -566,6 +724,12 @@ class HTTPServer:
             # matching event landed, not on every unrelated publish.
             index_of=lambda b: b.index_for(tfilter),
         )
+        if ctx is not None:
+            # The blocking_query wall (park + index probes) is the hold
+            # stage; serialization back in the dispatcher is serve.
+            ctx["lane"] = "blocking"
+            ctx["hold_s"] = time.monotonic() - t0
+            ctx["woke"] = index > min_index
         return out, index
 
     def _stream_sse(self, req, broker, tfilter, min_index, query) -> None:
@@ -585,7 +749,17 @@ class HTTPServer:
             wait = 0.0 if raw_wait in ("", "0") else parse_duration(raw_wait)
         except Exception:
             raise HTTPCodedError(400, "invalid wait duration")
-        _w = req.wfile.write
+        ctx = getattr(self._local, "ctx", None)
+        if ctx is not None:
+            ctx["lane"] = "sse"
+        obs = self._read_observatory()
+        rec = obs.recorder if obs is not None else None
+
+        def _w(data: bytes) -> None:
+            req.wfile.write(data)
+            if ctx is not None:
+                ctx["bytes"] += len(data)
+
         req.send_response(200)
         req.send_header("Content-Type", "text/event-stream")
         req.send_header("Cache-Control", "no-cache")
@@ -594,6 +768,8 @@ class HTTPServer:
         req.end_headers()
         deadline = time.monotonic() + wait if wait > 0 else None
         cursor = min_index
+        if rec is not None:
+            rec.sse_session_start()
         try:
             while True:
                 idx, evs, truncated = broker.events_after(cursor, tfilter)
@@ -601,6 +777,8 @@ class HTTPServer:
                     # Every time the cursor falls off the ring — not just
                     # on the first page: a tail that lags a burst larger
                     # than the ring mid-stream has lost events too.
+                    if rec is not None:
+                        rec.sse_truncated()
                     _w(
                         b"event: Truncated\ndata: "
                         + json.dumps({"resume_index": cursor,
@@ -615,6 +793,12 @@ class HTTPServer:
                     _w(frame.encode())
                 req.wfile.flush()
                 cursor = idx
+                if rec is not None and evs:
+                    # Session lag behind the broker head for this filter,
+                    # sampled as the batch goes out.
+                    rec.sse_delivered(
+                        len(evs),
+                        max(broker.index_for(tfilter) - cursor, 0))
                 remaining = (
                     deadline - time.monotonic() if deadline is not None
                     else 15.0
@@ -640,13 +824,84 @@ class HTTPServer:
                     # detected while the stream is idle.
                     _w(b": heartbeat\n\n")
                     req.wfile.flush()
+                    if rec is not None:
+                        rec.sse_heartbeat()
         except (BrokenPipeError, ConnectionResetError, OSError):
             pass  # client went away — the normal end of a tail
+        finally:
+            if rec is not None:
+                rec.sse_session_end()
 
     # -- agent + status endpoints --------------------------------------------
 
     def agent_self(self, req, query) -> Tuple[Any, Optional[int]]:
         return self.agent.self_info(), None
+
+    def agent_slo(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Live SLO state (nomad_tpu_torch.slo): every objective's
+        threshold against its observed percentiles, the rolling error
+        budget and the burn rate."""
+        srv = self._srv()
+        monitor = getattr(srv, "slo_monitor", None)
+        if monitor is None:
+            raise HTTPCodedError(404, "SLO monitoring disabled "
+                                      "(empty slo_objectives)")
+        return monitor.snapshot(), None
+
+    def agent_admission(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Admission front-door state (server/admission.py): decision
+        counters by lane and reason, the rate-lane table, the recent
+        rejections, the SLO burn coupling, and the queue and watcher caps
+        (what an operator reads when clients report 429/503s)."""
+        srv = self._srv()
+        admission = getattr(srv, "admission", None)
+        if admission is None:
+            raise HTTPCodedError(404, "admission controller not running")
+        out = admission.snapshot()
+        out["queues"] = {
+            "eval_pending": srv.eval_broker.pending_total(),
+            "eval_pending_cap": srv.config.eval_pending_cap,
+            "plan_queue_depth": srv.plan_queue.depth(),
+            "plan_queue_cap": srv.config.plan_queue_cap,
+            "watchers": srv.state_store.watch.stats(),
+            "event_watchers": srv.fsm.events.watch.stats(),
+        }
+        return out, None
+
+    def agent_express(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Express lane state (server/express.py): the lane's books
+        (placed, committed, bounced, reconciled, fallbacks by reason), the
+        reservation ledger, in-line place-latency quantiles and the
+        recent committer outcomes. Answers lane-off too (enabled=false)."""
+        srv = self._srv()
+        express = getattr(srv, "express_lane", None)
+        if express is None:
+            raise HTTPCodedError(404, "express lane not available")
+        return express.snapshot(), None
+
+    def agent_reads(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Read-path books (read_observe.py): per-route-template serving
+        attribution, the blocking hold/serve split, SSE sessions, the
+        watch registries' wake economy and the response staleness, with
+        the read plane's per-(role, lane) books under ``read_path``. The
+        watch sample is refreshed before answering. ``?format=prometheus``
+        answers 501: the exposition is not ported."""
+        obs = self._read_observatory()
+        if obs is None:
+            raise HTTPCodedError(404, "read observatory not running "
+                                      "(no server, or reads "
+                                      "{ enabled = false })")
+        if query.get("format") == "prometheus":
+            raise HTTPCodedError(
+                501, f"not implemented: ?format=prometheus needs "
+                     f"{PROMETHEUS_NEEDS}, which nomad_tpu_torch does not "
+                     "have yet")
+        obs.refresh()
+        body = obs.snapshot()
+        rp = getattr(getattr(self.agent, "server", None), "read_path", None)
+        if rp is not None:
+            body["read_path"] = rp.snapshot()
+        return body, None
 
     def agent_traces(self, req, query) -> Tuple[Any, Optional[int]]:
         """Summaries of the tracer's retained traces, newest first

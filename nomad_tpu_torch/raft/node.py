@@ -202,6 +202,15 @@ class RaftNode:
 
         # Peer ack stamps of the current term: the leader's read lease.
         self._peer_ack_at: Dict[str, float] = {}
+        # Read-index books (server/read_path.py's linearizable lane):
+        # calls, how each confirmed (lease hit riding heartbeat acks vs an
+        # explicit quorum round), refusals; and the last accepted leader
+        # contact (follower side), the stale lane's measured age.
+        self._last_leader_contact: Optional[float] = None
+        self.read_index_calls = 0
+        self.read_lease_hits = 0
+        self.read_quorum_confirms = 0
+        self.read_index_refused = 0
         self.compactions = 0
         self.snapshots_installed = 0
         self.snapshots_sent = 0
@@ -301,6 +310,17 @@ class RaftNode:
         fraction = min(max(self.config.read_lease_fraction, 0.0), 0.9)
         return self.config.election_timeout_min * fraction
 
+    def last_contact_s(self) -> Optional[float]:
+        """Age of the last accepted leader contact (AppendEntries or an
+        InstallSnapshot chunk that passed the term check): 0.0 on the
+        leader itself, None when this node never heard from a leader."""
+        with self._lock:
+            if self.role == LEADER:
+                return 0.0
+            if self._last_leader_contact is None:
+                return None
+            return max(time.monotonic() - self._last_leader_contact, 0.0)
+
     def _lease_valid_locked(self, now: float) -> bool:
         """Quorum of peers acked within the lease window (self counts).
         Acks are only ever recorded for the CURRENT term
@@ -327,7 +347,9 @@ class RaftNode:
         deadline = time.monotonic() + timeout
         with self._lock:
             if self.role != LEADER:
+                self.read_index_refused += 1
                 raise NotLeaderError(self.leader_addr)
+            self.read_index_calls += 1
             term_ok = (self.commit_index > self.log_offset
                        or self.commit_index > 0) and (
                 self._term_at(self.commit_index) == self.current_term)
@@ -340,9 +362,11 @@ class RaftNode:
             self.barrier(max(deadline - time.monotonic(), 0.001))
         with self._lock:
             if self.role != LEADER:
+                self.read_index_refused += 1
                 raise NotLeaderError(self.leader_addr)
             read_idx = self.commit_index
             if self._lease_valid_locked(time.monotonic()):
+                self.read_lease_hits += 1
                 return read_idx
         # Lease expired (quiet cluster, stalled heartbeats, or a
         # partitioned leader): one explicit confirmation round. A quorum
@@ -353,6 +377,7 @@ class RaftNode:
         while True:
             with self._lock:
                 if self.role != LEADER:
+                    self.read_index_refused += 1
                     raise NotLeaderError(self.leader_addr)
                 need = len(self.config.peers) // 2 + 1
                 fresh = 1 + sum(
@@ -360,8 +385,11 @@ class RaftNode:
                     if self._peer_ack_at.get(pid, 0.0) >= t_req
                 )
                 if fresh >= need:
+                    self.read_quorum_confirms += 1
                     return read_idx
             if time.monotonic() >= deadline:
+                with self._lock:
+                    self.read_index_refused += 1
                 raise TimeoutError(
                     f"read_index: no leadership confirmation in "
                     f"{timeout:.3f}s"
@@ -988,6 +1016,7 @@ class RaftNode:
                 self._become_follower(term, args["leader_id"])
             self.leader_id = args["leader_id"]
             self._election_deadline = self._random_deadline()
+            self._last_leader_contact = time.monotonic()
 
             snap_index = args["last_included_index"]
             snap_term = args["last_included_term"]
@@ -1158,6 +1187,7 @@ class RaftNode:
                 self._become_follower(term, args["leader_id"])
             self.leader_id = args["leader_id"]
             self._election_deadline = self._random_deadline()
+            self._last_leader_contact = time.monotonic()
             if self.removed:
                 # A leader talking to us means we are a member again
                 # (re-added by a committed _config entry on its side).

@@ -9,12 +9,14 @@ leader, exactly like upstream's optimistically-concurrent worker pool.
 
 Every member of a process solves on the same device through the
 process-wide coalescer, so workers of different members stack their
-solves into one dispatch. Left out until their modules are ported: TLS
-(``ServerConfig.tls`` stays in NOT_PORTED), the observatories, the SLO
-monitor, the express lane and the capacity accountant; so
-``express_reconcile`` and ``confirmed_read_index`` are absent here as
-on the port's ``Server``. Like nomad_tpu's, ``start`` runs no shape
-warmer.
+solves into one dispatch. Every member runs the SLO monitor, the
+admission front door (consulted on the leader: followers forward writes
+before checking anything), the express lane (placing only on the leader;
+leadership loss demotes it) and the read plane (a follower's linearizable
+lane confirms its read index over ``Raft.ReadIndex``). Left out until
+their modules are ported: TLS (``ServerConfig.tls`` stays in
+NOT_PORTED) and the capacity, raft and runtime observatories. Like
+nomad_tpu's, ``start`` runs no shape warmer.
 """
 
 from __future__ import annotations
@@ -197,6 +199,10 @@ class ClusterServer(Server):
         ).start()
         self.raft.start()
         self.plan_applier.start()
+        if self.slo_monitor is not None:
+            self.slo_monitor.start()
+        self.express_lane.start()
+        self.read_observatory.start()
         for i in range(self.config.scheduler_workers):
             worker = Worker(self, i)
             worker.start()
@@ -272,12 +278,19 @@ class ClusterServer(Server):
             self.plan_queue.set_enabled(False)
             self.eval_broker.set_enabled(False)
             self.heartbeat.clear_all()
+            # Express leases are leader-local promises against a view this
+            # server no longer owns: drop them (counted). Pending express
+            # commits reconcile to the new leader through the committer's
+            # forward path.
+            self.express_lane.demote()
 
     # -- forwarding (rpc.go:163-228) ------------------------------------------
     #
     # Forwarding audit: ONLY writes and leader-owned machinery cross the
-    # wire from a follower — Eval.* broker ops, Plan.Submit and Job.*/
-    # Node.* mutations. Every read RPC in _register_endpoints below
+    # wire from a follower — Eval.* broker ops, Plan.Submit,
+    # Express.Reconcile, Job.*/Node.* mutations, and the linearizable
+    # lane's Raft.ReadIndex (an index exchange, not the read itself).
+    # Every read RPC in _register_endpoints below
     # (Node.GetAllocs, Eval.GetEval, Job.GetJob, Alloc.GetAlloc, Status.*)
     # runs against LOCAL state on whichever server was dialed.
 
@@ -401,6 +414,35 @@ class ClusterServer(Server):
         out = self._forward("Plan.Submit", {"plan": _stops_to_wire(plan)})
         return _stops_from_wire(PlanResult, out, self.state_store.alloc_by_id)
 
+    def confirmed_read_index(self, timeout: float = 2.0) -> int:
+        """The linearizable lane's read index: the leader confirms through
+        its own read lease or a quorum round; a follower asks the leader
+        over Raft.ReadIndex, the only read-path traffic that crosses the
+        wire (the data is served from local state once applied catches
+        up, read_path._await_read_index)."""
+        if self.raft.is_leader:
+            return self.raft.read_index(timeout=timeout)
+        try:
+            out = self._forward("Raft.ReadIndex", {"timeout": timeout},
+                                timeout=timeout + 2.0)
+        except RemoteError as e:
+            # A leader-side refusal (deposed mid-call, stalled quorum)
+            # crosses the wire untyped; surface it as the retriable
+            # refusal the lane maps to a typed STALE_BOUND reject.
+            raise TimeoutError(f"read index forward failed: {e}") from e
+        return int(out["index"])
+
+    def express_reconcile(self, job: Job, evals: List[Evaluation]) -> int:
+        """Express slow-path reconciliation rides to the CURRENT leader: a
+        deposed server's committer must be able to hand its uncommitted
+        express placements over durably (server/express.py)."""
+        if self.raft.is_leader:
+            return super().express_reconcile(job, evals)
+        return self._forward(
+            "Express.Reconcile",
+            {"job": to_dict(job), "evals": [to_dict(e) for e in evals]},
+        )
+
     def job_register(self, job: Job, client_id: str = ""):
         # Cross-region submissions route to the owning region first
         # (rpc.go:163-177 forward: region mismatch -> forwardRegion).
@@ -498,6 +540,10 @@ class ClusterServer(Server):
             [from_dict(Evaluation, e) for e in a["evals"]]
         ))
         r("Plan.Submit", self._rpc_plan_submit)
+        r("Express.Reconcile", lambda a: self.express_reconcile(
+            from_dict(Job, a["job"]),
+            [from_dict(Evaluation, e) for e in a["evals"]],
+        ))
         r("Job.Register", self._rpc_job_register)
         r("Job.Evaluate", self._rpc_job_evaluate)
         r("Job.Deregister", self._rpc_job_deregister)

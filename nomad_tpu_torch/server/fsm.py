@@ -325,6 +325,13 @@ class InProcRaft:
         self.fsm = fsm
         self._lock = threading.Lock()
         self._index = 0
+        # Read-index books (server/read_path.py): a quorum of one is
+        # always itself, so every linearizable read confirms trivially,
+        # counted as a lease hit.
+        self.read_index_calls = 0
+        self.read_lease_hits = 0
+        self.read_quorum_confirms = 0
+        self.read_index_refused = 0
 
     @property
     def applied_index(self) -> int:
@@ -335,6 +342,19 @@ class InProcRaft:
     def is_leader(self) -> bool:
         """A quorum of one: always the leader of itself."""
         return True
+
+    def read_index(self, timeout: float = 2.0) -> int:
+        """Trivially confirmed linearizable read point: replication is
+        synchronous, so the applied index is the commit index."""
+        del timeout
+        with self._lock:
+            self.read_index_calls += 1
+            self.read_lease_hits += 1
+            return self._index
+
+    def last_contact_s(self) -> float:
+        """The single member is its own leader: contact age is zero."""
+        return 0.0
 
     def apply(self, msg_type: str, payload: dict) -> Future:
         """Apply under the lock, publishing the index only after the FSM has

@@ -27,9 +27,9 @@ with the committed subset of each plan rolled into the snapshot between
 calls (tests/test_fuzz_differential.py). The fused pass is therefore a
 pure verification-cost optimization — it can never change what commits.
 
-Port of nomad_tpu/server/plan_pipeline.py. The express-lane hooks
-(``ledger``, ``Plan.express_lease``) are kept for the express slice; the
-port has no lane yet, so they stay None and the verifier is lease-blind.
+Port of nomad_tpu/server/plan_pipeline.py. The express lane's hooks
+(``ledger``, ``Plan.express_lease``) are live: ``Server`` sets ``ledger``
+when the lane is on, and the verifier then charges active leases.
 """
 
 from __future__ import annotations

@@ -54,20 +54,26 @@ from nomad_tpu_torch.structs import (
     PlanResult,
     generate_uuid,
 )
+from nomad_tpu_torch.read_observe import ReadObservatory, ReadObserveConfig
+from nomad_tpu_torch.server.admission import (
+    AdmissionConfig,
+    AdmissionController,
+)
+from nomad_tpu_torch.server.express import ExpressConfig, ExpressLane
+from nomad_tpu_torch.server.read_path import ReadPath, ReadPathConfig
+from nomad_tpu_torch.slo import (
+    DEFAULT_OBJECTIVES,
+    EXPRESS_OBJECTIVES,
+    SLOMonitor,
+)
 from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 
 # nomad_tpu ServerConfig keys whose modules the port does not have yet,
 # with the module each needs. Setting one raises: it is never ignored.
 NOT_PORTED = {
     "tls": "TLS on the RPC tier (tlsutil.py)",
-    "slo_objectives": "the SLO monitor (slo.py)",
-    "slo_window_s": "the SLO monitor (slo.py)",
-    "admission": "admission control (server/admission.py)",
-    "express": "the express lane (server/express.py)",
     "capacity": "the capacity observatory (capacity.py)",
     "raft_observe": "the raft observatory (raft_observe.py)",
-    "reads": "the read-path observatory (read_observe.py)",
-    "read_path": "the follower read plane (server/read_path.py)",
     "profile": "the runtime observatory (profile_observe.py)",
     "solver_mesh": "the solver mesh (parallel/mesh.py)",
 }
@@ -78,13 +84,10 @@ class ServerConfig:
     """Server tunables (reference: nomad/config.go:46-236 defaults).
 
     The keys of nomad_tpu's ServerConfig that belong to modules the port
-    does not have yet are listed in ``NOT_PORTED`` and must stay None:
-    admission control (default-permissive there, so leaving it out changes
-    no decision), the express lane (off by default there), the SLO
-    monitor, the capacity, raft, read and runtime observatories, the read
-    path, the solver mesh and TLS. ``Server.stats()`` reports the
-    server's device in place of nomad_tpu's device-probe and breaker
-    state.
+    does not have yet are listed in ``NOT_PORTED`` and must stay None: the
+    capacity, raft and runtime observatories, the solver mesh and TLS.
+    ``Server.stats()`` reports the server's device in place of nomad_tpu's
+    device-probe and breaker state.
     """
 
     region: str = "global"
@@ -132,6 +135,12 @@ class ServerConfig:
     periodic_dispatch: bool = False  # GC dispatch loop (leader.go:170-200)
     # Ring size of the cluster event stream (nomad_tpu_torch.events).
     event_buffer_size: int = 2048
+    # Declarative latency SLOs (nomad_tpu_torch.slo): objective name ->
+    # threshold ms, e.g. {"submit_to_placed_p95_ms": 250}. None = the
+    # slo.DEFAULT_OBJECTIVES set; {} disables the monitor entirely.
+    slo_objectives: Optional[Dict[str, float]] = None
+    # Rolling error-budget window for the SLO burn-rate accounting.
+    slo_window_s: float = 3600.0
     # Enforced bound on the broker's pending evals (ready + blocked +
     # waiting); past it the broker spills (typed NACK + readmission).
     # 0 = unbounded.
@@ -147,15 +156,26 @@ class ServerConfig:
     # dispatch buffers and the kernels' first load, so the first eval and
     # the first burst do not pay them inside the coalescer's hold.
     prewarm_shapes: bool = True
-    tls: object = None
-    slo_objectives: Optional[Dict[str, float]] = None
-    slo_window_s: Optional[float] = None
+    # Admission front-door spec (AdmissionConfig.parse mapping): per-
+    # client token-bucket rate lanes + SLO-coupled shedding. None =
+    # permissive defaults (admit everything).
     admission: Optional[Dict] = None
+    # Express placement lane spec (ExpressConfig.parse mapping): leader-
+    # local in-line placement of small express batch jobs under leased
+    # capacity reservations. None = lane off.
     express: Optional[Dict] = None
+    # Read-path observatory spec (ReadObserveConfig.parse mapping): the
+    # books behind /v1/agent/reads. None = defaults (enabled; it only
+    # records, nothing feeds back into a decision).
+    reads: Optional[Dict] = None
+    # Follower read plane spec (ReadPathConfig.parse mapping): the stale
+    # lane's bound, the linearizable lane's read index, per-(role, lane)
+    # serve books. None = defaults (enabled). It can refuse a read; it
+    # never touches the log beyond the once-per-term barrier.
+    read_path: Optional[Dict] = None
+    tls: object = None
     capacity: Optional[Dict] = None
     raft_observe: Optional[Dict] = None
-    reads: Optional[Dict] = None
-    read_path: Optional[Dict] = None
     profile: Optional[Dict] = None
     solver_mesh: Optional[Dict] = None
 
@@ -192,6 +212,13 @@ class ServerConfig:
                 raise ValueError(
                     f"{knob} must be an integer in [0, 10000000], got {v!r}"
                 )
+        # Parse-time validation of the front door, lane and read-plane
+        # blocks (typo'd keys and out-of-range values fail config load);
+        # the parsed configs are what Server consumes.
+        self.admission_config = AdmissionConfig.parse(self.admission)
+        self.express_config = ExpressConfig.parse(self.express)
+        self.reads_config = ReadObserveConfig.parse(self.reads)
+        self.read_path_config = ReadPathConfig.parse(self.read_path)
 
     def scheduler_factory(self, eval_type: str) -> str:
         if self.scheduler_backend == "tpu" and eval_type in (
@@ -241,6 +268,50 @@ class Server:
         self.workers: List[Worker] = []
         self._periodic_stop = threading.Event()
         self._started = False
+        # Live SLO accounting over this server's own event stream
+        # (/v1/agent/slo): an event-ring consumer, read-only on decisions.
+        # An empty objectives dict opts out; None means the defaults, plus
+        # the express lane's own target when the lane is on.
+        self.slo_monitor: Optional[SLOMonitor] = None
+        if self.config.slo_objectives is None or self.config.slo_objectives:
+            objectives = self.config.slo_objectives
+            if objectives is None and self.config.express_config.enabled:
+                objectives = {**DEFAULT_OBJECTIVES, **EXPRESS_OBJECTIVES}
+            self.slo_monitor = SLOMonitor(
+                self.fsm.events, objectives,
+                window_s=self.config.slo_window_s,
+            )
+        # The bounded front door (server/admission.py): consulted by
+        # job_register/job_evaluate BEFORE any raft apply. With no caps
+        # or rates configured it admits on a no-lock fast path.
+        monitor = self.slo_monitor
+        self.admission = AdmissionController(
+            self.config.admission_config,
+            seed=self.config.seed,
+            queue_depth=self.eval_broker.pending_total,
+            queue_cap=self.config.eval_pending_cap,
+            burn_rate=(monitor.burn_rate if monitor is not None
+                       else None),
+            events=self.fsm.events,
+        )
+        # The express lane: built always (its books answer lane-off too),
+        # active only when configured. The pipeline verifies under the
+        # lane's reservation ledger only when the lane is on.
+        self.express_lane = ExpressLane(self, self.config.express_config)
+        if self.config.express_config.enabled:
+            self.plan_applier.ledger = self.express_lane.ledger
+        # The read books the HTTP layer writes into (/v1/agent/reads);
+        # the getters re-read per poll (snapshot installs rebind
+        # fsm.state, ClusterServer swaps in a RaftNode).
+        self.read_observatory = ReadObservatory(
+            lambda: self.fsm.state,
+            lambda: self.raft,
+            self.config.reads_config,
+            events=self.fsm.events,
+        )
+        # The follower read plane: consistency-lane resolution for every
+        # HTTP read. It re-reads self.raft per request.
+        self.read_path = ReadPath(self, self.config.read_path_config)
         # Solve dispatches the start-time warmer has issued (0 until its
         # first pass over registered nodes completes).
         self.warm_dispatches = 0
@@ -281,6 +352,10 @@ class Server:
         )
         reaper.start()
         self._start_readmission()
+        if self.slo_monitor is not None:
+            self.slo_monitor.start()
+        self.express_lane.start()
+        self.read_observatory.start()
         emitter = threading.Thread(
             target=self._emit_stats, daemon=True, name="stats-emitter",
         )
@@ -346,6 +421,10 @@ class Server:
         self._periodic_stop.set()
         for worker in self.workers:
             worker.stop()
+        self.express_lane.stop()
+        self.read_observatory.stop()
+        if self.slo_monitor is not None:
+            self.slo_monitor.stop()
         self.plan_applier.stop()
         self.plan_queue.set_enabled(False)
         self.eval_broker.set_enabled(False)
@@ -530,13 +609,32 @@ class Server:
 
     def job_register(self, job: Job, client_id: str = "") -> Tuple[str, int]:
         """Register/update a job and create its evaluation
-        (job_endpoint.go:18-72). Returns (eval_id, index). ``client_id``
-        is accepted for nomad_tpu's call shape; the port has no admission
-        front door to key on it yet."""
-        del client_id
+        (job_endpoint.go:18-72). Returns (eval_id, index).
+
+        The admission front door is checked FIRST (before validation, so
+        an overload rejection stays cheap) and before any raft apply, so
+        a raised RejectError proves zero side effects."""
+        self.admission.admit_job(job, client_id)
         job.validate()
         if job.type == JOB_TYPE_CORE:
             raise ValueError("job type cannot be core")
+        # An express-eligible job places in-line against the leader's
+        # capacity view under a leased reservation; its raft entries
+        # commit asynchronously. None = ineligible or declined: take the
+        # ordinary path below.
+        express = self.express_lane.submit(job, client_id)
+        if express is not None:
+            return express
+        # A same-id express submission may still be mid-commit: wait it
+        # out so the scheduler's snapshot holds its allocations. A commit
+        # stalled past the wait is a typed capacity rejection (nothing
+        # was applied, so a replay stays safe).
+        if not self.express_lane.await_inflight(job.id):
+            raise structs.RejectError(
+                structs.REJECT_QUEUE_FULL,
+                f"express commit for job {job.id} still in flight",
+                retry_after=1.0,
+            )
         index = self.raft.apply("job_register", {"job": job}).result()
 
         ev = Evaluation(
@@ -552,11 +650,12 @@ class Server:
         return ev.id, eval_index
 
     def job_evaluate(self, job_id: str, client_id: str = "") -> Tuple[str, int]:
-        """Force re-evaluation (job_endpoint.go:75-128)."""
-        del client_id
+        """Force re-evaluation (job_endpoint.go:75-128). Eval ingress is
+        admission-gated like registration."""
         job = self.state_store.job_by_id(job_id)
         if job is None:
             raise KeyError("job not found")
+        self.admission.admit_job(job, client_id)
         ev = Evaluation(
             id=generate_uuid(),
             priority=job.priority,
@@ -573,6 +672,15 @@ class Server:
         """Remove a job and evaluate the teardown
         (job_endpoint.go:130-183)."""
         job = self.state_store.job_by_id(job_id)
+        # A deregister racing an in-flight express commit would no-op
+        # against absent state and then see the committer resurrect the
+        # job after the "successful" removal.
+        if not self.express_lane.await_inflight(job_id):
+            raise structs.RejectError(
+                structs.REJECT_QUEUE_FULL,
+                f"express commit for job {job_id} still in flight",
+                retry_after=1.0,
+            )
         index = self.raft.apply("job_deregister", {"job_id": job_id}).result()
 
         priority = job.priority if job else structs.JOB_DEFAULT_PRIORITY
@@ -907,6 +1015,25 @@ class Server:
         pending = self.plan_queue.enqueue(plan)
         return pending.wait()
 
+    # -- Read plane (server/read_path.py) ------------------------------------
+
+    def confirmed_read_index(self, timeout: float = 2.0) -> int:
+        """A leadership-confirmed read index for the linearizable lane (no
+        raft log write). InProcRaft confirms trivially; a ClusterServer
+        follower forwards Raft.ReadIndex to the leader."""
+        return self.raft.read_index(timeout=timeout)
+
+    # -- Express endpoint (server/express.py) --------------------------------
+
+    def express_reconcile(self, job: Job, evals: List[Evaluation]) -> int:
+        """Durably hand a bounced-out or failed-over express entry to the
+        ordinary scheduler: upsert the job and its evals (the original
+        express eval complete with a successor, plus the PENDING
+        reconcile eval, which the FSM enqueues) through raft. On a
+        ClusterServer a non-leader forwards Express.Reconcile."""
+        self.raft.apply("job_register", {"job": job}).result()
+        return self.eval_upsert(evals)
+
     # -- convenience --------------------------------------------------------
 
     def wait_for_eval(self, eval_id: str, timeout: float = 10.0) -> Evaluation:
@@ -933,6 +1060,13 @@ class Server:
             "plan_pipeline": self.plan_applier.stats(),
             "heartbeat_timers": self.heartbeat.num_timers(),
             "scheduler": self.solver_stats(),
+            "slo": (self.slo_monitor.summary()
+                    if self.slo_monitor is not None else None),
+            "admission": self.admission.summary(),
+            "express": self.express_lane.summary(),
+            "reads": (self.read_observatory.summary()
+                      if self.config.reads_config.enabled else None),
+            "read_path": self.read_path.summary(),
             "telemetry": telemetry.snapshot(),
         }
 

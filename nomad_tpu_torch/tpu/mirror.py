@@ -13,8 +13,11 @@ input of the solve. The node axis is padded to power-of-two buckets, the
 same ``[padded, D]`` int32 layout as nomad_tpu, so both packages hand the
 solve identical shapes. Each mirror lives on one torch device.
 
-Not ported yet: the express lane's ``capacity_view`` and the byte
-ledgers (their readers are later slices) and mesh sharding (one device).
+``capacity_view`` (the express lane's pick) reads only the host arrays:
+the lane's in-line placement never touches the device.
+
+Not ported yet: the byte ledgers (their reader, the runtime observatory,
+is a later slice) and mesh sharding (one device).
 """
 
 from __future__ import annotations
@@ -201,6 +204,13 @@ class NodeMirror:
         # mirrors and mutated by concurrent scheduler workers.
         self._block_rows: Dict[int, Tuple] = {}
         self._block_rows_lock = threading.Lock()
+        # The express lane's capacity view (capacity_view): base usage
+        # rolled IN PLACE through the alloc change log, owned by the view
+        # (a 10k-row copy per submission would be the whole sub-ms
+        # budget). (uid, allocs index, used, bw), under its own lock (not
+        # _usage_lock, which the rebuild fallback takes).
+        self._express_usage: Optional[Tuple] = None
+        self._express_roll_lock = threading.Lock()
 
     # -- delta maintenance -------------------------------------------------
 
@@ -282,6 +292,10 @@ class NodeMirror:
         new.n = new_n
         new.padded = self.padded
         new._usage_lock = threading.Lock()
+        # Node writes are the rare axis: the express view rebuilds lazily
+        # from the rolled base on its next read.
+        new._express_usage = None
+        new._express_roll_lock = threading.Lock()
         # Row numbering of resident nodes never moves on the delta path
         # (a departure forces the full rebuild above) and appends are
         # brand-new nodes no existing block can reference: cached block
@@ -719,6 +733,41 @@ class NodeMirror:
         dev = self.device
         return (_put(used, dev), _put(job_count, dev), _put(tg_count, dev),
                 _put(bw_used, dev))
+
+    def capacity_view(self, state) -> Tuple[np.ndarray, np.ndarray]:
+        """(totals[padded,4] int32, used[padded,4] int32) on the host: the
+        express lane's capacity view, per-row totals beside the
+        job-independent base usage (reserved + every existing allocation)
+        for ``state``'s alloc generation, by the same row accounting the
+        solver's build_usage starts from. Unlike ``_base_usage_for`` the
+        view rolls IN PLACE; the arrays are shared with the view, so
+        callers must not mutate them, and submissions serialize on the
+        lane's own lock."""
+        uid = getattr(state, "store_uid", "")
+        aidx = state.get_index("allocs")
+        if not uid or getattr(state, "optimistic", False):
+            used, _bw = self._base_usage_for(state)
+            return self.totals_np, used
+        with self._express_roll_lock:
+            cached = self._express_usage
+            if (cached is not None and cached[0] == uid
+                    and cached[1] == aidx):
+                return self.totals_np, cached[2]
+            used = bw = None
+            if (cached is not None and cached[0] == uid
+                    and aidx > cached[1]
+                    and hasattr(state, "alloc_node_changes_since")):
+                dirty = state.alloc_node_changes_since(cached[1])
+                if dirty is not None and len(dirty) <= max(1024,
+                                                           self.n // 2):
+                    used, bw = cached[2], cached[3]
+                    if dirty:
+                        self._usage_rows_bulk(state, dirty, used, bw)
+            if used is None:
+                base_used, base_bw = self._base_usage_for(state)
+                used, bw = base_used.copy(), base_bw.copy()
+            self._express_usage = (uid, aidx, used, bw)
+        return self.totals_np, used
 
     def _base_usage_for(self, state) -> Tuple[np.ndarray, np.ndarray]:
         """The cached job-independent (used, bw_used) base for ``state``'s

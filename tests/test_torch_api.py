@@ -430,7 +430,9 @@ from nomad_tpu_torch.api import ApiClient
 
 agent = Agent(AgentConfig(server_enabled=True, dev_mode=True, http_port=0,
                           num_schedulers=1, enable_debug=True,
-                          device="cpu"))
+                          device="cpu", express={"enabled": True},
+                          admission={"client_rate": 0.001,
+                                     "client_burst": 4}))
 agent.server.config.min_heartbeat_ttl = 3600.0
 agent.start()
 addr = f"http://127.0.0.1:{agent.http.port}"
@@ -445,6 +447,25 @@ while c.evaluations().info(eid)[0].status != "complete":
     assert time.monotonic() < deadline
     time.sleep(0.01)
 alloc = c.jobs().allocations(job.id)[0][0]["id"]
+# The express lane, the front door and the read lanes, in this process.
+from nomad_tpu_torch.simcluster.workload import build_job
+from nomad_tpu_torch.structs import RejectError
+xeid, _ = c.jobs().register(build_job("x-job", "batch", 1, express=True))
+lane = agent.server.express_lane
+deadline = time.monotonic() + 60
+while lane.committed + lane.reconciled < 1:
+    assert time.monotonic() < deadline
+    time.sleep(0.01)
+for path in ("/v1/jobs?stale=1&max_stale=100", "/v1/jobs?consistent=1"):
+    with urllib.request.urlopen(addr + path, timeout=30) as r:
+        assert r.status == 200 and r.headers["X-Nomad-LastContact"] == "0"
+try:
+    strict = ApiClient(address=addr, client_id="tenant", reject_retries=0)
+    for k in range(5):
+        strict.jobs().register(build_job(f"r-{k}", "batch", 1))
+    raise AssertionError("the door never refused")
+except RejectError as e:
+    assert e.reason == "RATE_LIMITED"
 ids = {"job_id": job.id, "node_id": nodes[0].id, "eval_id": eid,
        "alloc_id": alloc}
 codes = {}
@@ -514,6 +535,10 @@ for argv, want in ((["client-config", "-servers"], 0), (["agent-info"], 0),
         assert buf.getvalue() == rpc + "\n", buf.getvalue()
 agent.shutdown()
 server.shutdown()
+import nomad_tpu_torch.simcluster.scenario
+for name in ("slo", "lifecycle", "read_observe", "server.admission",
+             "server.express", "server.read_path", "simcluster.scenario"):
+    assert "nomad_tpu_torch." + name in sys.modules, name
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "nomad_tpu")]
 assert not loaded, loaded

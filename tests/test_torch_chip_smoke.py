@@ -4,7 +4,9 @@ phase's check of committed allocs (one task a node for a system job);
 the system phase at a small size; the agent phase's job and config files;
 the simcluster phase's reading of the committed reference digests and
 its check of a run's artifact against them (the slow test recomputes
-those digests with nomad_tpu); and the client phase at a small size."""
+those digests with nomad_tpu); the client phase at a small size; and the
+planes phase's checks of the front door and the fast lanes, and the
+phase itself on the CPU at a small size."""
 
 import json
 
@@ -210,11 +212,17 @@ def test_reference_digests_file_is_valid():
     the phase reads for each scenario the phase runs; nomad_tpu
     reproduced each digest across its two runs."""
     refs = cs.load_reference_digests()
-    for name in cs.SIM_SCENARIOS + ("steady-1k",):
+    for name in (cs.SIM_SCENARIOS + cs.PLANE_SCENARIOS
+                 + ("steady-1k", "overdrive-1k", "read-storm-800")):
         assert refs[name]["reproduced"] is True
         assert refs[name]["seed"] == cs.SEED
     assert refs["steady-10k"]["placed"] == 24 * 420
     assert refs["burst-100k"]["placed"] == 8 * 12_500
+    for name in cs.PLANE_SCENARIOS:
+        assert "admission_injector" in refs[name], name
+    assert refs["overdrive-100k"]["admission_injector"] == {
+        "offered": 250, "admitted": 5, "rejected": {"RATE_LIMITED": 245}}
+    assert refs["read-storm-800"]["other_seeds"]["11"]["reproduced"] is True
 
 
 @pytest.mark.parametrize("data, error", [
@@ -269,18 +277,26 @@ def test_check_scenario(art, ref, result):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", cs.SIM_SCENARIOS)
-def test_reference_digests_match_nomad_tpu(name):
+@pytest.mark.parametrize("name, seed", [
+    *((n, cs.SEED) for n in cs.SIM_SCENARIOS + cs.PLANE_SCENARIOS),
+    ("overdrive-1k", cs.SEED), ("read-storm-800", cs.SEED),
+    ("read-storm-800", 11),
+])
+def test_reference_digests_match_nomad_tpu(name, seed):
     """Recompute the committed reference digest with nomad_tpu, as the
     file's command says, so that the file cannot drift unseen."""
     from nomad_tpu.simcluster import run_scenario
 
-    art = run_scenario(name, seed=cs.SEED, attribution_layer=False,
+    art = run_scenario(name, seed=seed, attribution_layer=False,
                        contrast=False)
     ref = cs.load_reference_digests()[name]
+    if seed != ref["seed"]:
+        ref = ref["other_seeds"][str(seed)]
     assert art["events"]["digest"] == ref["digest"]
     assert art["events"]["by_type"] == ref["by_type"]
     assert art["placements"]["placed"] == ref["placed"]
+    if "admission_injector" in ref:
+        assert art["admission"]["injector"] == ref["admission_injector"]
 
 
 def test_agent_phase_grants_long_ttls_and_probe_times_beats(tmp_path):
@@ -369,3 +385,90 @@ def test_client_dev_agent_runs_a_job(small_client_phase, tmp_path):
     """agent -dev as a subprocess on the CPU: run, status, alloc-status
     and client-config -servers, the task's stdout, SIGINT -> 0."""
     cs.client_dev_agent(torch.device("cpu"), "cpu", str(tmp_path))
+
+
+# -- the planes phase's checks -------------------------------------------------
+
+
+def plane_artifact(caps_respected=True, injector=None, lane=None,
+                   lanes=None):
+    art = {"scenario": "synthetic", "peaks": {}, "admission": {
+        "caps": {}, "caps_respected": caps_respected,
+        "injector": injector or {"offered": 3, "admitted": 2,
+                                 "rejected": {"RATE_LIMITED": 1}}}}
+    if lane is not None:
+        art["express"] = {"lane": {"placed": 4, "committed": 3,
+                                   "reconciled": 1, "backlog": 0,
+                                   "ledger": {"active": 0}, **lane}}
+    if lanes is not None:
+        art["reads"] = {"lanes": {
+            "enabled": True, "members": 3, "follower_serve_share": 1.0,
+            "stale_bound_ms": 5000.0, "stale_age_ms": {"n": 4, "p95": 80},
+            "linear_violations": 0, "stamp_missing": 0, **lanes}}
+    return art
+
+
+PLANE_REF = {"admission_injector": {"offered": 3, "admitted": 2,
+                                    "rejected": {"RATE_LIMITED": 1}}}
+
+
+@pytest.mark.parametrize("art, error", [
+    (plane_artifact(), None),
+    (plane_artifact(lane={}, lanes={}), None),
+    (plane_artifact(caps_respected=False), "queue cap"),
+    (plane_artifact(injector={"offered": 3, "admitted": 3,
+                              "rejected": {}}), "the door gave"),
+    (plane_artifact(lane={"committed": 2}), "express placements"),
+    (plane_artifact(lane={"backlog": 1}), "leases or commits left"),
+    (plane_artifact(lane={"ledger": {"active": 2}}), "leases or commits"),
+    (plane_artifact(lanes={"linear_violations": 1}), "linearizable reads"),
+    (plane_artifact(lanes={"stamp_missing": 2}), "freshness stamp"),
+    (plane_artifact(lanes={"follower_serve_share": 0.5}),
+     "follower_serve_share"),
+    (plane_artifact(lanes={"stale_age_ms": {"n": 4, "p95": 6000}}),
+     "stale_age_p95_bound_ratio"),
+])
+def test_check_planes(art, error):
+    if error is None:
+        cs.check_planes(art, PLANE_REF)
+        return
+    with pytest.raises(AssertionError, match=error):
+        cs.check_planes(art, PLANE_REF)
+
+
+def test_check_planes_without_reference_books():
+    """A reference entry without admission books (a steady scenario) is
+    held to the caps only."""
+    cs.check_planes(plane_artifact(injector={"offered": 9}), {})
+
+
+@pytest.fixture
+def counted_plain(monkeypatch):
+    """Every launch of a plain version counted as the card's kernels count
+    theirs."""
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    for mod, name in ((waterfill, "solve_waterfill_batched_plain"),
+                      (greedy, "solve_greedy_batched_shared_plain")):
+        inner = getattr(mod, name)
+
+        def counted(*args, _mod=mod, _inner=inner, **kw):
+            _mod.LAUNCHES += 1
+            return _inner(*args, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+
+def test_planes_phase_at_a_small_size(counted_plain, capsys):
+    """phase_planes on the CPU with the slice's tier-1 scenarios (and
+    steady-1k for the water-fill): each held to nomad_tpu's digest and
+    check_planes, with its rows logged."""
+    wf, gr = cs.phase_planes(torch.device("cpu"), "cpu",
+                             names=("express-1k", "overdrive-1k",
+                                    "steady-1k"))
+    assert wf >= 1 and gr >= 1
+    out = capsys.readouterr().out
+    for name in ("express-1k", "overdrive-1k", "steady-1k"):
+        assert f"planes {name}: digest=" in out
+        assert "equals nomad_tpu's" in out
+    assert "planes express-1k: express placed=41" in out
+    assert 'rejected_by_reason={"RATE_LIMITED": 36}' in out

@@ -69,14 +69,12 @@ INJECTORS = {
 
 # Scenarios that wait for a module, each with a word its error must name.
 WAITING = {
-    "overdrive-1k": "admission", "overdrive-100k": "admission",
-    "express-1k": "express", "express-mix": "express",
     "churn-frag-200": "capacity", "churn-fragmentation": "capacity",
-    "read-storm": "read_observe", "read-storm-800": "read_observe",
     "restart-800": "raft_observe", "restart-under-load": "raft_observe",
 }
-RUNNABLE = ["burst-100k", "churn", "steady-100k-nodes", "steady-10k",
-            "steady-1k"]
+RUNNABLE = ["burst-100k", "churn", "express-1k", "express-mix",
+            "overdrive-100k", "overdrive-1k", "read-storm", "read-storm-800",
+            "steady-100k-nodes", "steady-10k", "steady-1k"]
 
 
 def payload_view(payload, to_dict):
@@ -240,10 +238,20 @@ def test_steady_1k_absent_sections_are_listed(steady_1k):
     art = steady_1k["port"]
     listed = {row["section"] for row in art["not_ported"]}
     assert listed == set(psc.NOT_PORTED_SECTIONS)
-    for section in ("capacity", "raft", "reads", "profile", "express",
-                    "latency_attribution", "slo"):
+    for section in ("capacity", "raft", "profile"):
         assert section not in art
-    assert "controller" not in art["admission"]
+    # Admission, the read books and lifecycle/SLO are ported: their
+    # sections stand as in nomad_tpu's artifact (the attribution layer is
+    # off here, so latency_attribution and slo are None; the lane is off,
+    # so there is no express section; no read fleet, so no lanes).
+    ref = steady_1k["nomad_tpu"]
+    assert set(art["admission"]) == set(ref["admission"])
+    assert art["admission"]["injector"] == ref["admission"]["injector"]
+    assert art["admission"]["controller"]["admitted"] == \
+        ref["admission"]["controller"]["admitted"]
+    assert art["reads"]["enabled"] is True and "lanes" not in art["reads"]
+    assert art["latency_attribution"] is None and art["slo"] is None
+    assert "express" not in art and "express" not in ref
     assert art["admission"]["injector"]["offered"] == 6
     assert art["backend"] == "cpu"
 
@@ -394,7 +402,7 @@ def test_simload_lists_what_runs_and_what_waits(capsys):
 
 
 @pytest.mark.parametrize("args, word", [
-    (["--scenario", "overdrive-1k"], "admission"),
+    (["--scenario", "churn-frag-200"], "capacity"),
     (["--scenario", "churn", "--verify-determinism"], "deterministic"),
     (["--scenario", "no-such"], "unknown scenario"),
 ])
