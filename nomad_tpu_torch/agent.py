@@ -42,9 +42,9 @@ NOT_PORTED = {
 class AgentConfig:
     """Agent-level configuration (reference: command/agent/config.go).
 
-    nomad_tpu's keys for the capacity, raft and runtime observatories,
-    the solver mesh, TLS and the metrics sinks have no field here: their
-    modules are not ported (``agent_config`` raises on them in a config
+    nomad_tpu's keys for the runtime observatory, the solver mesh, TLS
+    and the metrics sinks have no field here: their modules are not
+    ported (``agent_config`` raises on them in a config
     file)."""
 
     region: str = "global"
@@ -77,6 +77,10 @@ class AgentConfig:
     admission: Optional[Dict] = None
     # Express placement lane spec (server/express.py): None = lane off.
     express: Optional[Dict] = None
+    # Capacity observatory spec (capacity.py): None = defaults (enabled).
+    capacity: Optional[Dict] = None
+    # Raft & recovery observatory spec (raft_observe.py): None = defaults.
+    raft_observe: Optional[Dict] = None
     # Read-path observatory spec (read_observe.py): None = defaults.
     reads: Optional[Dict] = None
     # Follower read plane spec (server/read_path.py): None = defaults
@@ -156,6 +160,8 @@ class AgentConfig:
             max_blocking_watchers=fc.server.max_blocking_watchers,
             admission=fc.server.admission,
             express=fc.server.express,
+            capacity=fc.server.capacity,
+            raft_observe=fc.server.raft_observe,
             reads=fc.server.reads,
             read_path=fc.server.read_path,
             slo_objectives=fc.telemetry.slo,
@@ -216,7 +222,8 @@ class Agent:
             **{
                 name: (dict(getattr(self.config, name))
                        if getattr(self.config, name) is not None else None)
-                for name in ("admission", "express", "reads", "read_path")
+                for name in ("admission", "express", "capacity",
+                             "raft_observe", "reads", "read_path")
             },
         )
         if self.config.event_buffer_size:

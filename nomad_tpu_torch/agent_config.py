@@ -10,8 +10,8 @@ The HCL dialect is the same one job specs use, so this reuses
 ``nomad_tpu_torch.jobspec.hcl``; ``.json`` files parse with the stdlib.
 
 A key whose module the port does not have yet (``NOT_PORTED_KEYS``: the
-capacity, raft and runtime observatories, the solver mesh, the metrics
-sinks, TLS, Atlas) raises
+runtime observatory, the solver mesh, the metrics sinks, TLS, Atlas)
+raises
 :class:`nomad_tpu_torch.NotPortedError` naming that module: it is never
 ignored. The port adds ``device`` (default ``cuda``): where the agent's
 server solves.
@@ -25,7 +25,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from nomad_tpu_torch import NotPortedError
+from nomad_tpu_torch.capacity import CapacityConfig
 from nomad_tpu_torch.jobspec.hcl import Block, Body, parse as parse_hcl
+from nomad_tpu_torch.raft_observe import RaftObserveConfig
 from nomad_tpu_torch.read_observe import ReadObserveConfig
 from nomad_tpu_torch.server.admission import AdmissionConfig
 from nomad_tpu_torch.server.express import ExpressConfig
@@ -35,8 +37,6 @@ from nomad_tpu_torch.slo import Objective
 # Config keys of nomad_tpu whose modules the port does not have yet, with
 # the module each needs.
 NOT_PORTED_KEYS = {
-    "server.capacity": "the capacity observatory (capacity.py)",
-    "server.raft_observe": "the raft observatory (raft_observe.py)",
     "server.profile": "the runtime observatory (profile_observe.py)",
     "server.solver_mesh": "the solver mesh (parallel/mesh.py)",
     "telemetry.statsite_address": "the statsite sink (telemetry.py's sinks)",
@@ -105,9 +105,9 @@ class ServerBlock:
     backpressure knobs: ``scheduler_workers`` (``num_schedulers`` the
     legacy alias; 0 = server default), ``eval_pending_cap``,
     ``plan_queue_cap`` and ``max_blocking_watchers`` (0 = unbounded), and
-    the ``admission``, ``express``, ``reads`` and ``read_path`` sub-blocks
-    (each validated at parse time by its module's ``Config.parse``; None =
-    that module's defaults)::
+    the ``admission``, ``express``, ``capacity``, ``raft_observe``,
+    ``reads`` and ``read_path`` sub-blocks (each validated at parse time
+    by its module's ``Config.parse``; None = that module's defaults)::
 
         server {
           eval_pending_cap = 4096
@@ -127,6 +127,8 @@ class ServerBlock:
     max_blocking_watchers: int = 0
     admission: Optional[Dict[str, object]] = None
     express: Optional[Dict[str, object]] = None
+    capacity: Optional[Dict[str, object]] = None
+    raft_observe: Optional[Dict[str, object]] = None
     reads: Optional[Dict[str, object]] = None
     read_path: Optional[Dict[str, object]] = None
     enabled_schedulers: List[str] = field(default_factory=list)
@@ -271,7 +273,7 @@ class FileConfig:
             **{
                 name: _merge_block(getattr(self.server, name),
                                    getattr(other.server, name))
-                for name in ("admission", "express", "reads", "read_path")
+                for name in _SERVER_BLOCKS
             },
             enabled_schedulers=(
                 other.server.enabled_schedulers or self.server.enabled_schedulers
@@ -330,6 +332,8 @@ def _merge_block(base: Optional[Dict], over: Optional[Dict]) -> Optional[Dict]:
 _SERVER_BLOCKS = {
     "admission": AdmissionConfig.parse,
     "express": ExpressConfig.parse,
+    "capacity": CapacityConfig.parse,
+    "raft_observe": RaftObserveConfig.parse,
     "reads": ReadObserveConfig.parse,
     "read_path": ReadPathConfig.parse,
 }

@@ -52,8 +52,6 @@ from nomad_tpu_torch.server.read_path import (
 # Routes of nomad_tpu whose handlers need a module the port does not have
 # yet: route pattern -> the module. Each answers 501 naming it.
 NOT_PORTED_ROUTES = {
-    r"^/v1/agent/capacity$": "the capacity observatory (capacity.py)",
-    r"^/v1/agent/raft$": "the raft observatory (raft_observe.py)",
     r"^/v1/agent/profile$": "the runtime observatory (profile_observe.py)",
     r"^/v1/agent/runtime$": "the runtime observatory (profile_observe.py)",
     r"^/v1/agent/solver$":
@@ -157,6 +155,8 @@ class HTTPServer:
             (r"^/v1/agent/slo$", self.agent_slo),
             (r"^/v1/agent/admission$", self.agent_admission),
             (r"^/v1/agent/express$", self.agent_express),
+            (r"^/v1/agent/capacity$", self.agent_capacity),
+            (r"^/v1/agent/raft$", self.agent_raft),
             (r"^/v1/agent/reads$", self.agent_reads),
             (r"^/v1/agent/traces$", self.agent_traces),
             (r"^/v1/agent/faults$", self.agent_faults),
@@ -239,7 +239,7 @@ class HTTPServer:
         off: the knob gates recording, never headers)."""
         if req.command != "GET":
             return
-        obs = self._read_observatory()
+        obs = self._observer("read_observatory")
         if obs is None:
             return
         rec = obs.recorder
@@ -249,11 +249,11 @@ class HTTPServer:
             rec.record_blocking(ctx["template"], ctx["hold_s"],
                                 duration_s, bool(ctx["woke"]))
 
-    def _read_observatory(self):
-        """The server's read observatory, or None (no server, or
-        ``reads { enabled = false }``)."""
+    def _observer(self, attr: str):
+        """The server's observatory ``attr``, or None (no server, or that
+        observatory disabled)."""
         server = getattr(self.agent, "server", None)
-        obs = getattr(server, "read_observatory", None)
+        obs = getattr(server, attr, None)
         if obs is None or not obs.config.enabled:
             return None
         return obs
@@ -342,7 +342,7 @@ class HTTPServer:
             req.send_header("X-Nomad-Read-Index",
                             str(int(meta["read_index"])))
         if req.command == "GET":
-            obs = self._read_observatory()
+            obs = self._observer("read_observatory")
             if obs is not None:
                 obs.recorder.record_staleness(
                     age,
@@ -752,7 +752,7 @@ class HTTPServer:
         ctx = getattr(self._local, "ctx", None)
         if ctx is not None:
             ctx["lane"] = "sse"
-        obs = self._read_observatory()
+        obs = self._observer("read_observatory")
         rec = obs.recorder if obs is not None else None
 
         def _w(data: bytes) -> None:
@@ -879,6 +879,46 @@ class HTTPServer:
             raise HTTPCodedError(404, "express lane not available")
         return express.snapshot(), None
 
+    def agent_capacity(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Capacity observatory state (capacity.py): per-dim utilization,
+        bin-pack density, per-lane usage, fragmentation histograms and
+        stranded-capacity % against the reference shapes. The accountant
+        is rolled forward first, so the body reflects the store now.
+        ``?format=prometheus`` answers 501: the exposition is not
+        ported."""
+        acct = self._observer("capacity_accountant")
+        if acct is None:
+            raise HTTPCodedError(404, "capacity observatory not running "
+                                      "(no server, or capacity "
+                                      "{ enabled = false })")
+        self._no_prometheus(query)
+        acct.refresh()
+        return acct.snapshot(), None
+
+    def agent_raft(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Raft & recovery observatory state (raft_observe.py): write-path
+        stage attribution per msg_type, per-follower lag, commit-advance
+        rate, the log/snapshot economy and the restart-replay recovery
+        timeline. The node's books are drained first.
+        ``?format=prometheus`` answers 501: the exposition is not
+        ported."""
+        obs = self._observer("raft_observatory")
+        if obs is None:
+            raise HTTPCodedError(404, "raft observatory not running "
+                                      "(no server, or raft_observe "
+                                      "{ enabled = false })")
+        self._no_prometheus(query)
+        obs.refresh()
+        return obs.snapshot(), None
+
+    @staticmethod
+    def _no_prometheus(query) -> None:
+        if query.get("format") == "prometheus":
+            raise HTTPCodedError(
+                501, f"not implemented: ?format=prometheus needs "
+                     f"{PROMETHEUS_NEEDS}, which nomad_tpu_torch does not "
+                     "have yet")
+
     def agent_reads(self, req, query) -> Tuple[Any, Optional[int]]:
         """Read-path books (read_observe.py): per-route-template serving
         attribution, the blocking hold/serve split, SSE sessions, the
@@ -886,16 +926,12 @@ class HTTPServer:
         the read plane's per-(role, lane) books under ``read_path``. The
         watch sample is refreshed before answering. ``?format=prometheus``
         answers 501: the exposition is not ported."""
-        obs = self._read_observatory()
+        obs = self._observer("read_observatory")
         if obs is None:
             raise HTTPCodedError(404, "read observatory not running "
                                       "(no server, or reads "
                                       "{ enabled = false })")
-        if query.get("format") == "prometheus":
-            raise HTTPCodedError(
-                501, f"not implemented: ?format=prometheus needs "
-                     f"{PROMETHEUS_NEEDS}, which nomad_tpu_torch does not "
-                     "have yet")
+        self._no_prometheus(query)
         obs.refresh()
         body = obs.snapshot()
         rp = getattr(getattr(self.agent, "server", None), "read_path", None)

@@ -42,6 +42,12 @@ Sites (the contract between this registry and the hot paths):
 ``heartbeat.tick``  Heartbeat TTL renewal. ``drop`` discards the renewal so
                     the TTL runs out and the node goes down — the missed-
                     beat path. Target: node id.
+``solver.execute``  Device solve dispatch. ``error``/``drop``/``partition``
+                    raise DeviceFault (a simulated device death): the eval
+                    fails and is nacked, as an organic kernel fault does.
+                    There is no breaker and no host route (nomad_tpu's
+                    breaker routes redeliveries to its host oracle).
+                    ``delay`` sleeps. Target: the task group name.
 ==================  =========================================================
 
 Determinism: every rule owns a ``random.Random`` seeded from the registry
@@ -93,6 +99,7 @@ SITE_MODES = {
     "fsm.apply": ("delay",),
     "broker.dequeue": ("drop", "delay", "error"),
     "heartbeat.tick": ("drop", "delay", "partition"),
+    "solver.execute": ("drop", "delay", "error", "partition"),
 }
 
 SITES = tuple(SITE_MODES)
@@ -102,6 +109,11 @@ MODES = ("drop", "delay", "error", "partition")
 
 class FaultError(Exception):
     """An injected (not organic) failure."""
+
+
+class DeviceFault(FaultError):
+    """Simulated device death at ``solver.execute``: the eval fails like
+    it would on an organic kernel fault."""
 
 
 class FaultAction:

@@ -6,10 +6,10 @@ writing its on-disk format (meta, checksummed journal and snapshot files),
 so a port node restarts from a nomad_tpu node's data directory. Two
 differences on purpose: election jitter comes from a per-node seeded
 stream (``RaftConfig.seed`` salted by the node id, nomad_tpu_torch.prng)
-rather than the global ``random``, and the surface only the observatories
-read (write-path records, ``observe_stats``, the recovery timeline, the
-read-index books) is left out until ``raft_observe.py`` and
-``read_observe.py`` are ported. Scope notes vs the paper:
+rather than the global ``random``. The plain-data books the
+observatories read (write-path anchor records, ``observe_stats``, the
+recovery timeline, the read-index books) are kept as in nomad_tpu; this
+module never imports ``raft_observe.py``. Scope notes vs the paper:
 - log compaction via FSM snapshots (paper §7): each node snapshots its own
   FSM every ``snapshot_threshold`` applied entries and truncates the log
   prefix, keeping ``trailing_logs`` entries past the snapshot so followers
@@ -52,6 +52,7 @@ import os
 import threading
 import time
 import zlib
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -120,6 +121,10 @@ class _Entry:
     term: int
     msg_type: str
     payload: dict  # encoded (wire) form
+    # Serialized (wire/journal) size; 0 when never measured. Kept on the
+    # entry so the log's byte economy (raft_observe.py) is a cheap sum,
+    # not a re-serialization per poll.
+    wire_bytes: int = 0
 
     def to_wire(self) -> dict:
         return {"term": self.term, "type": self.msg_type, "payload": self.payload}
@@ -200,6 +205,15 @@ class RaftNode:
         self._replicate_now = threading.Event()
         self.on_leadership_change: Optional[Callable[[bool], None]] = None
 
+        # -- observability books (plain data, mutated under _lock; read
+        # by raft_observe.py — this module never imports the observer)
+        # Per-entry write-path anchor records: index -> open record with
+        # monotonic stamps (submit/persisted/first_ack/committed/
+        # fsm_start/fsm_end/resolved); finalized records move to a
+        # bounded ring the observatory drains by sequence number.
+        self._wp_open: Dict[int, dict] = {}
+        self._wp_done: "deque" = deque(maxlen=1024)
+        self._wp_seq = 0
         # Peer ack stamps of the current term: the leader's read lease.
         self._peer_ack_at: Dict[str, float] = {}
         # Read-index books (server/read_path.py's linearizable lane):
@@ -211,9 +225,19 @@ class RaftNode:
         self.read_lease_hits = 0
         self.read_quorum_confirms = 0
         self.read_index_refused = 0
+        self.commit_advances = 0
+        self.entries_appended = 0
+        self.bytes_appended = 0
+        self.entries_truncated = 0
         self.compactions = 0
+        self.compaction_wall_ms = 0.0
+        self.snapshot_persist_ms = 0.0
+        self.snapshot_last_bytes = 0
+        self.snapshot_disk_bytes = 0
         self.snapshots_installed = 0
         self.snapshots_sent = 0
+        self.snapshot_chunks_sent = 0
+        self.snapshot_chunks_received = 0
         # In-flight chunked InstallSnapshot reassembly (follower side):
         # buffer plus its (index, term) identity; an offset or identity
         # mismatch discards the transfer and the leader restarts it.
@@ -227,8 +251,26 @@ class RaftNode:
         # fail each other's offset checks forever and the follower never
         # installs. One stream per peer at a time.
         self._replicating_peers: set = set()
-        # Monotonic stamp of the first mark_serving() (None until then).
-        self.serving_at: Optional[float] = None
+        # Restart-replay timeline: populated by _load_persistent (cold
+        # start), advanced by the replaying applies, closed out by
+        # leadership + mark_serving(). All ms fields are relative to
+        # construction time.
+        self._recovery_t0 = time.monotonic()
+        self._replay_started: Optional[float] = None
+        self.recovery: Dict[str, Any] = {
+            "cold_start": False,
+            "snapshot_restore_ms": 0.0,
+            "snapshot_index": 0,
+            "snapshot_bytes": 0,
+            "log_entries_loaded": 0,
+            "journal_truncated_tail": 0,
+            "replay_target": 0,
+            "entries_replayed": 0,
+            "replayed_by_type": {},
+            "replay_wall_ms": None,
+            "time_to_leader_ms": None,
+            "time_to_serving_ms": None,
+        }
 
         self._load_persistent()
         rpc.register("Raft.RequestVote", self._handle_request_vote)
@@ -280,6 +322,7 @@ class RaftNode:
         """Append + replicate + commit + FSM-apply. Resolves with the log
         index; raises NotLeaderError through the future on followers."""
         future: Future = Future()
+        t_submit = time.monotonic()
         with self._lock:
             if self.role != LEADER:
                 future.set_exception(NotLeaderError(self.leader_addr))
@@ -290,7 +333,24 @@ class RaftNode:
             self.log.append(entry)
             index = self.log_offset + len(self.log)
             self._apply_futures[index] = future
-            self._persist_entry(index, entry)
+            # Serialize ONCE: the journal line doubles as the entry's
+            # byte measurement (in-memory mode pays the same dumps).
+            line = json.dumps({"index": index, **entry.to_wire()})
+            entry.wire_bytes = len(line)
+            self._persist_entry_line(line)
+            self.entries_appended += 1
+            self.bytes_appended += entry.wire_bytes
+            self._wp_open[index] = {
+                "index": index,
+                "msg_type": msg_type,
+                "bytes": entry.wire_bytes,
+                "anchors": {"submit": t_submit,
+                            "persisted": time.monotonic()},
+            }
+            if len(self._wp_open) > 4096:
+                # Bound the open table: insertion order is index order,
+                # so the first key is the oldest record.
+                self._wp_open.pop(next(iter(self._wp_open)))
             if len(self.config.peers) == 1:
                 self._advance_commit_locked()
         self._replicate_now.set()
@@ -478,12 +538,101 @@ class RaftNode:
                 "num_peers": len(self.config.peers) - 1,
             }
 
+    # -- observability surface (read by raft_observe.py) ---------------------
+
     def mark_serving(self) -> None:
-        """Stamp the first time leadership was established and the broker
-        restored (the cluster layer calls it; first call wins)."""
+        """Close the recovery timeline: leadership is established and the
+        broker restored, so the node serves again. Called by the cluster
+        layer's establish-leadership path; first call wins."""
         with self._lock:
-            if self.serving_at is None:
-                self.serving_at = time.monotonic()
+            if self.recovery["time_to_serving_ms"] is None:
+                self.recovery["time_to_serving_ms"] = round(
+                    (time.monotonic() - self._recovery_t0) * 1000.0, 3
+                )
+
+    def write_path_records(self, since: int):
+        """(sequence, finalized write-path records newer than ``since``),
+        the raft observatory's drain. Records fall off the bounded ring;
+        the sequence gap tells the consumer how many it missed."""
+        with self._lock:
+            seq = self._wp_seq
+            n = seq - int(since)
+            if n <= 0:
+                return seq, []
+            n = min(n, len(self._wp_done))
+            return seq, list(self._wp_done)[-n:]
+
+    def observe_stats(self) -> Dict[str, Any]:
+        """One locked read of the replication/log/snapshot books: per-
+        follower lag, log byte economy, compaction counters. Disk sizes
+        are stamps taken at write, so no I/O happens under the lock."""
+        with self._lock:
+            now = time.monotonic()
+            last_idx = self.log_offset + len(self.log)
+            peers = {}
+            for pid in sorted(self._other_peers()):
+                match = self.match_index.get(pid, 0)
+                ack = self._peer_ack_at.get(pid)
+                peers[pid] = {
+                    "match_index": match,
+                    "next_index": self.next_index.get(pid, 0),
+                    "lag_entries": max(last_idx - match, 0),
+                    "last_ack_age_s": (
+                        round(now - ack, 3) if ack is not None else None
+                    ),
+                }
+            return {
+                "node_id": self.config.node_id,
+                "state": self.role,
+                "term": self.current_term,
+                "leader_id": self.leader_id,
+                "commit_index": self.commit_index,
+                "applied_index": self.last_applied,
+                "last_log_index": last_idx,
+                "commit_advances": self.commit_advances,
+                "inflight_writes": len(self._wp_open),
+                "peers": peers,
+                "log": {
+                    "entries": len(self.log),
+                    "bytes": sum(e.wire_bytes for e in self.log),
+                    "offset": self.log_offset,
+                    "appended_entries": self.entries_appended,
+                    "appended_bytes": self.bytes_appended,
+                    "truncated_entries": self.entries_truncated,
+                    # The trailing_logs economy: entries kept in the log
+                    # although the snapshot already covers them.
+                    "retained_below_snapshot": max(
+                        self.snapshot_index - self.log_offset, 0
+                    ),
+                },
+                "read_index": {
+                    "calls": self.read_index_calls,
+                    "lease_hits": self.read_lease_hits,
+                    "quorum_confirms": self.read_quorum_confirms,
+                    "refused": self.read_index_refused,
+                    "lease_window_s": round(self.lease_window_s(), 4),
+                    "last_contact_s": (
+                        None if self._last_leader_contact is None
+                        or self.role == LEADER
+                        else round(now - self._last_leader_contact, 4)
+                    ),
+                },
+                "snapshot": {
+                    "index": self.snapshot_index,
+                    "term": self.snapshot_term,
+                    "threshold": self.config.snapshot_threshold,
+                    "trailing_logs": self.config.trailing_logs,
+                    "compactions": self.compactions,
+                    "compaction_wall_ms": round(self.compaction_wall_ms, 3),
+                    "persist_wall_ms": round(self.snapshot_persist_ms, 3),
+                    "last_bytes": self.snapshot_last_bytes,
+                    "disk_bytes": self.snapshot_disk_bytes,
+                    "installs_received": self.snapshots_installed,
+                    "installs_sent": self.snapshots_sent,
+                    "chunks_sent": self.snapshot_chunks_sent,
+                    "chunks_received": self.snapshot_chunks_received,
+                },
+            }
 
     # -- persistence --------------------------------------------------------
 
@@ -530,11 +679,12 @@ class RaftNode:
             return None
         return body
 
-    def _persist_entry(self, index: int, entry: _Entry) -> None:
-        """Append one checksummed journal line."""
+    def _persist_entry_line(self, body: str) -> None:
+        """Append one pre-serialized journal body (apply() builds it once
+        so the byte measurement and the journal share one dumps); the
+        crc32 frame is added here."""
         if not self.config.data_dir:
             return
-        body = json.dumps({"index": index, **entry.to_wire()})
         _, log_path = self._paths()
         with open(log_path, "a") as f:
             f.write(self._journal_frame(body) + "\n")
@@ -556,8 +706,10 @@ class RaftNode:
     def _write_snapshot_file(self, index: int, term: int, data: bytes) -> None:
         """Write a snapshot to disk, retaining the newest
         ``snapshot_retain`` files (raft.FileSnapshotStore, server.go:453)."""
+        self.snapshot_last_bytes = len(data)
         if not self.config.data_dir:
             return
+        t0 = time.monotonic()
         path = self._snap_path(index)
         _atomic_write(path, json.dumps({
             "index": index,
@@ -565,6 +717,11 @@ class RaftNode:
             "data": base64.b64encode(data).decode("ascii"),
         }))
         self._prune_snapshots()
+        self.snapshot_persist_ms += (time.monotonic() - t0) * 1000.0
+        try:
+            self.snapshot_disk_bytes = os.path.getsize(path)
+        except OSError:
+            pass
 
     def _prune_snapshots(self) -> None:
         snaps = sorted(glob.glob(
@@ -604,7 +761,13 @@ class RaftNode:
                 with open(path) as f:
                     snap = json.load(f)
                 data = base64.b64decode(snap["data"])
+                t_restore0 = time.monotonic()
                 self.fsm.restore_bytes(data)
+                self.recovery["snapshot_restore_ms"] = round(
+                    (time.monotonic() - t_restore0) * 1000.0, 3
+                )
+                self.recovery["snapshot_index"] = snap["index"]
+                self.recovery["snapshot_bytes"] = len(data)
             except Exception:
                 # Restore failures of ANY kind fall through to the older
                 # retained copy (that is what retain=2 is for) — but a
@@ -655,11 +818,16 @@ class RaftNode:
                             d["index"], self.log_offset + len(self.log) + 1,
                         )
                         break
-                    self.log.append(_Entry.from_wire(d))
+                    entry = _Entry.from_wire(d)
+                    # The journal body's own length is the byte measure
+                    # (the convention apply() stamps).
+                    entry.wire_bytes = len(body)
+                    self.log.append(entry)
         except OSError:
             pass
         if torn:
             telemetry.incr_counter(("raft", "journal", "truncated_tail"))
+            self.recovery["journal_truncated_tail"] += 1
             self.logger.warning(
                 "raft: journal tail torn/corrupt; truncated to last whole "
                 "checksummed entry (index %d)",
@@ -668,6 +836,18 @@ class RaftNode:
             # Rewrite the clean prefix so the NEXT append lands on a valid
             # journal instead of extending a corrupt tail.
             self._truncate_persisted_log()
+        # Close out the recovery bookkeeping for this load: the tail past
+        # last_applied is what leadership (or the next leader's commit
+        # advance) will replay into the FSM; an empty tail means replay
+        # is already done (wall 0), and a warm start (no durable state)
+        # leaves the whole record inert.
+        self.recovery["log_entries_loaded"] = len(self.log)
+        self.recovery["replay_target"] = self.log_offset + len(self.log)
+        self.recovery["cold_start"] = bool(
+            self.recovery["snapshot_index"] or self.log
+        )
+        if self.recovery["replay_target"] <= self.last_applied:
+            self.recovery["replay_wall_ms"] = 0.0
 
     # -- helpers ------------------------------------------------------------
 
@@ -716,6 +896,10 @@ class RaftNode:
             if not future.done():
                 future.set_exception(NotLeaderError(self.leader_addr))
         self._apply_futures.clear()
+        # Open write-path records belong to the deposed leadership: the
+        # entries may still commit under the new leader, but this node
+        # can no longer attribute their submit→applied path honestly.
+        self._wp_open.clear()
 
     # -- election (paper §5.2) ----------------------------------------------
 
@@ -808,6 +992,10 @@ class RaftNode:
                 "raft: node %s won election for term %d",
                 self.config.node_id, term,
             )
+            if self.recovery["time_to_leader_ms"] is None:
+                self.recovery["time_to_leader_ms"] = round(
+                    (time.monotonic() - self._recovery_t0) * 1000.0, 3
+                )
         # Commit a no-op immediately: a leader may only count replicas for
         # current-term entries (paper §5.4.2), so this is what commits any
         # prior-term tail — including a freshly replayed log.
@@ -935,9 +1123,17 @@ class RaftNode:
             if self.role != LEADER or self.current_term != term:
                 return
             if resp.get("success"):
+                old_match = self.match_index.get(pid, 0)
                 self.match_index[pid] = prev_idx + len(entries)
                 self.next_index[pid] = self.match_index[pid] + 1
-                self._peer_ack_at[pid] = time.monotonic()
+                now = time.monotonic()
+                self._peer_ack_at[pid] = now
+                # First-ack anchors for the write-path partition: the
+                # freshly covered indexes' replicate stage ends here.
+                for i in range(old_match + 1, self.match_index[pid] + 1):
+                    rec = self._wp_open.get(i)
+                    if rec is not None:
+                        rec["anchors"].setdefault("first_ack", now)
                 self._advance_commit_locked()
             else:
                 # Back off and retry (fast backtrack via follower hint)
@@ -986,6 +1182,7 @@ class RaftNode:
                     return
                 if self.role != LEADER or self.current_term != term:
                     return
+                self.snapshot_chunks_sent += 1
             if not resp.get("success", True):
                 # The follower discarded the reassembly (identity/offset
                 # mismatch — e.g. it restarted mid-transfer): abort; the
@@ -1040,6 +1237,7 @@ class RaftNode:
                 self._snap_chunks_key = None
                 return {"term": self.current_term, "success": False}
             self._snap_chunks.extend(decoded)
+            self.snapshot_chunks_received += 1
             if not done:
                 return {"term": self.current_term, "success": True}
             data = bytes(self._snap_chunks)
@@ -1079,6 +1277,7 @@ class RaftNode:
         """Advance commit index over majority-matched entries of the current
         term (paper §5.4.2), then apply."""
         last_idx, _ = self._last_log()
+        old_commit = self.commit_index
         for n in range(last_idx, self.commit_index, -1):
             if self._term_at(n) != self.current_term:
                 break
@@ -1088,12 +1287,26 @@ class RaftNode:
             if votes >= len(self.config.peers) // 2 + 1:
                 self.commit_index = n
                 break
+        if self.commit_index > old_commit:
+            self.commit_advances += 1
+            now = time.monotonic()
+            for i in range(old_commit + 1, self.commit_index + 1):
+                rec = self._wp_open.get(i)
+                if rec is not None:
+                    rec["anchors"].setdefault("committed", now)
         self._apply_committed_locked()
 
     def _apply_committed_locked(self) -> None:
         while self.last_applied < self.commit_index:
             index = self.last_applied + 1
             entry = self._entry_at(index)
+            rec = self._wp_open.get(index)
+            if rec is not None:
+                rec["anchors"]["fsm_start"] = time.monotonic()
+            replaying = (index <= self.recovery["replay_target"]
+                         and self.recovery["replay_wall_ms"] is None)
+            if replaying and self._replay_started is None:
+                self._replay_started = time.monotonic()
             try:
                 if entry.msg_type == "_config":
                     self._apply_config_locked(entry.payload)
@@ -1111,12 +1324,31 @@ class RaftNode:
                 telemetry.incr_counter(("raft", "fsm_apply_error"))
                 error = e
             self.last_applied = index
+            if replaying:
+                # Restart-replay accounting: entries re-applied from the
+                # persisted tail, per msg_type, closed out when the tail
+                # is exhausted (the recovery report's replay rate).
+                self.recovery["entries_replayed"] += 1
+                by_type = self.recovery["replayed_by_type"]
+                by_type[entry.msg_type] = by_type.get(entry.msg_type, 0) + 1
+                if index >= self.recovery["replay_target"]:
+                    self.recovery["replay_wall_ms"] = round(
+                        (time.monotonic() - self._replay_started) * 1000.0,
+                        3,
+                    )
             future = self._apply_futures.pop(index, None)
+            if rec is not None:
+                rec["anchors"]["fsm_end"] = time.monotonic()
             if future is not None and not future.done():
                 if error is None:
                     future.set_result(index)
                 else:
                     future.set_exception(error)
+            if rec is not None:
+                rec["anchors"]["resolved"] = time.monotonic()
+                self._wp_open.pop(index, None)
+                self._wp_done.append(rec)
+                self._wp_seq += 1
         if (self.last_applied - self.snapshot_index
                 >= self.config.snapshot_threshold and not self._compacting):
             self._compacting = True
@@ -1131,6 +1363,7 @@ class RaftNode:
         run off the node lock so replication and elections aren't stalled
         (the reference snapshots in a background goroutine the same way).
         Only a cheap copy-on-write handle is taken under the lock."""
+        t_compact0 = time.monotonic()
         try:
             with self._lock:
                 idx = self.last_applied
@@ -1162,6 +1395,7 @@ class RaftNode:
                     self.log_offset, idx - max(0, self.config.trailing_logs)
                 )
                 if keep_from > self.log_offset:
+                    self.entries_truncated += keep_from - self.log_offset
                     self.log_offset_term = self._term_at(keep_from)
                     del self.log[: keep_from - self.log_offset]
                     self.log_offset = keep_from
@@ -1170,6 +1404,9 @@ class RaftNode:
                 self._snap_data = data
                 self._truncate_persisted_log()
                 self.compactions += 1
+                self.compaction_wall_ms += (
+                    time.monotonic() - t_compact0
+                ) * 1000.0
             self.logger.info(
                 "raft: node %s compacted log through index %d "
                 "(%d bytes snapshot)", self.config.node_id, idx, len(data),
@@ -1232,7 +1469,15 @@ class RaftNode:
                 else:
                     append = True
                 if append:
+                    # One dumps per appended entry, in the journal-line
+                    # convention (index key included), so leader/follower/
+                    # reloaded byte books agree for identical entries.
+                    entry.wire_bytes = len(
+                        json.dumps({"index": idx, **entry.to_wire()})
+                    )
                     self.log.append(entry)
+                    self.entries_appended += 1
+                    self.bytes_appended += entry.wire_bytes
                     changed = True
             if changed:
                 self._truncate_persisted_log()

@@ -202,6 +202,8 @@ class ClusterServer(Server):
         if self.slo_monitor is not None:
             self.slo_monitor.start()
         self.express_lane.start()
+        self.capacity_accountant.start()
+        self.raft_observatory.start()
         self.read_observatory.start()
         for i in range(self.config.scheduler_workers):
             worker = Worker(self, i)
@@ -269,8 +271,9 @@ class ClusterServer(Server):
                 node.id for node in self.state_store.nodes()
                 if not node.terminal_status()
             ])
-            # Leadership is established, the broker restored, TTLs
-            # renewed: this server schedules again. Idempotent.
+            # The recovery timeline's terminal anchor: leadership is
+            # established, the broker restored, TTLs renewed, so this
+            # server schedules again (time-to-serving). Idempotent.
             self.raft.mark_serving()
         else:
             self.logger.info("cluster: %s lost leadership",

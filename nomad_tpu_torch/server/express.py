@@ -81,6 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from nomad_tpu_torch import prng, structs, telemetry, trace
+from nomad_tpu_torch.backoff import Backoff
 from nomad_tpu_torch.structs import (
     Allocation,
     AllocMetric,
@@ -92,6 +93,7 @@ from nomad_tpu_torch.structs import (
     generate_uuids,
 )
 from nomad_tpu_torch.raft import NotLeaderError
+from nomad_tpu_torch.rpc import RemoteError, RPCError
 from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 
 # Evaluation.triggered_by for express placements (sync path) and for the
@@ -424,7 +426,7 @@ class _PendingCommit:
     """One placed-but-uncommitted submission in the committer queue."""
 
     __slots__ = ("job", "ev", "allocs", "lease", "bounces", "durable",
-                 "enqueued")
+                 "enqueued", "reconcile_id")
 
     def __init__(self, job: Job, ev: Evaluation, allocs: List[Allocation],
                  lease: Lease):
@@ -436,6 +438,10 @@ class _PendingCommit:
         # job+eval raft entries committed (survives bounce retries).
         self.durable = False
         self.enqueued = time.perf_counter()
+        # The reconcile eval's id, minted once per entry: every retried
+        # hand-over names the same eval, so one that already applied is
+        # recognised on the leader and never places twice.
+        self.reconcile_id: Optional[str] = None
 
 
 class ExpressLane:
@@ -1036,10 +1042,19 @@ class ExpressLane:
         fresh eval places each task exactly once. The ORIGINAL express
         eval commits COMPLETE alongside, chained via next_eval — the
         submitter was handed that id and must see it reach a terminal
-        status (quiesce/monitor loops poll it)."""
+        status (quiesce/monitor loops poll it).
+
+        The hand-over is retried with backoff until a leader answers or
+        the lane stops: a deposed holder may see no leader for longer
+        than one forward waits (an election churning under load), and
+        giving up here would lose a placement the submitter was
+        promised. nomad_tpu tries twice and then only counts the
+        error."""
         self.ledger.release(entry.lease.id)
+        if entry.reconcile_id is None:
+            entry.reconcile_id = generate_uuid()
         ev = Evaluation(
-            id=generate_uuid(),
+            id=entry.reconcile_id,
             priority=entry.ev.priority,
             type=entry.job.type,
             triggered_by=EVAL_TRIGGER_EXPRESS_RECONCILE,
@@ -1051,12 +1066,32 @@ class ExpressLane:
         original.status = structs.EVAL_STATUS_COMPLETE
         original.status_description = f"express reconciled ({reason})"
         original.next_eval = ev.id
-        self.server.express_reconcile(entry.job, [original, ev])
+        self._hand_over(entry.job, [original, ev])
         with self._lock:
             self.reconciled += 1
         telemetry.incr_counter(("express", "reconciled"))
         self._outcome(EXPRESS_RECONCILED, eval_id=entry.ev.id,
                       reason=reason, new_eval=ev.id)
+
+    def _hand_over(self, job: Job, evals: List[Evaluation]) -> None:
+        """``Server.express_reconcile`` until it lands. Retried: no
+        leader (NotLeaderError, here or across the wire) and RPC faults
+        (the request may have executed; the leader skips a reconcile
+        eval it already holds). Anything else is raised."""
+        bo = Backoff(base=0.05, max_delay=1.0)
+        while True:
+            try:
+                self.server.express_reconcile(job, evals)
+                return
+            except RemoteError as e:
+                if "not the leader" not in str(e):
+                    raise
+                err: Exception = e
+            except (NotLeaderError, RPCError) as e:
+                err = e
+            telemetry.incr_counter(("express", "reconcile_retry"))
+            if not bo.sleep(self._stop):
+                raise err
 
     def _job_done(self, job_id: str) -> None:
         """Release the duplicate-submission guard for one job id (entry

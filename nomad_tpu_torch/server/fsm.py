@@ -57,6 +57,11 @@ class FSM:
         # its stale broker and double-deliver.
         self.enqueue_guard = lambda: True
         self.logger = logger or logging.getLogger("nomad_tpu_torch.fsm")
+        # Last snapshot-restore forensics (plain data, read by
+        # raft_observe.py for the recovery timeline): wall cost and
+        # per-table row counts of the most recent restore_bytes, None
+        # until one happens.
+        self.last_restore: Optional[Dict[str, Any]] = None
         self._handlers: Dict[str, Callable[[int, dict], Any]] = {
             "node_register": self._apply_node_register,
             "node_batch_register": self._apply_node_batch_register,
@@ -274,6 +279,7 @@ class FSM:
     def restore_bytes(self, data: bytes) -> None:
         """Rebuild a fresh state store from a snapshot (fsm.go:313-410).
         Reads nomad_tpu's snapshots too (see _SnapshotUnpickler)."""
+        t0 = time.perf_counter()
         payload = _SnapshotUnpickler(io.BytesIO(data)).load()
         old_store = self.state
         self.state = StateStore()
@@ -294,6 +300,21 @@ class FSM:
         for table, index in payload["indexes"].items():
             restore.index_restore(table, index)
         restore.commit()
+        blocks = payload.get("blocks", [])
+        self.last_restore = {
+            "wall_ms": round((time.perf_counter() - t0) * 1000.0, 3),
+            "bytes": len(data),
+            "nodes": len(payload["nodes"]),
+            "jobs": len(payload["jobs"]),
+            "evals": len(payload["evals"]),
+            "allocs": len(payload["allocs"]),
+            "blocks": len(blocks),
+            # Placements the snapshot re-materialized: object rows plus
+            # the columnar blocks' live members.
+            "placements": len(payload["allocs"]) + sum(
+                cnt for b in blocks for _nid, cnt in b.live_node_counts()
+            ),
+        }
         # Blocking queries parked on the replaced store would never be
         # notified again; wake them so they re-check against the live one.
         old_store.watch.notify_all()

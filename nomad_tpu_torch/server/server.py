@@ -54,6 +54,8 @@ from nomad_tpu_torch.structs import (
     PlanResult,
     generate_uuid,
 )
+from nomad_tpu_torch.capacity import CapacityAccountant, CapacityConfig
+from nomad_tpu_torch.raft_observe import RaftObservatory, RaftObserveConfig
 from nomad_tpu_torch.read_observe import ReadObservatory, ReadObserveConfig
 from nomad_tpu_torch.server.admission import (
     AdmissionConfig,
@@ -72,8 +74,6 @@ from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 # with the module each needs. Setting one raises: it is never ignored.
 NOT_PORTED = {
     "tls": "TLS on the RPC tier (tlsutil.py)",
-    "capacity": "the capacity observatory (capacity.py)",
-    "raft_observe": "the raft observatory (raft_observe.py)",
     "profile": "the runtime observatory (profile_observe.py)",
     "solver_mesh": "the solver mesh (parallel/mesh.py)",
 }
@@ -85,7 +85,7 @@ class ServerConfig:
 
     The keys of nomad_tpu's ServerConfig that belong to modules the port
     does not have yet are listed in ``NOT_PORTED`` and must stay None: the
-    capacity, raft and runtime observatories, the solver mesh and TLS.
+    runtime observatory, the solver mesh and TLS.
     ``Server.stats()`` reports the server's device in place of nomad_tpu's
     device-probe and breaker state.
     """
@@ -173,9 +173,17 @@ class ServerConfig:
     # serve books. None = defaults (enabled). It can refuse a read; it
     # never touches the log beyond the once-per-term barrier.
     read_path: Optional[Dict] = None
-    tls: object = None
+    # Capacity observatory spec (CapacityConfig.parse mapping): the
+    # read-only accountant behind /v1/agent/capacity. None = defaults
+    # (enabled; decision-invariant, as the churn-fragmentation
+    # contrast arm shows).
     capacity: Optional[Dict] = None
+    # Raft & recovery observatory spec (RaftObserveConfig.parse
+    # mapping): the read-only observer behind /v1/agent/raft. None =
+    # defaults (enabled; it drains books the raft node keeps as plain
+    # data).
     raft_observe: Optional[Dict] = None
+    tls: object = None
     profile: Optional[Dict] = None
     solver_mesh: Optional[Dict] = None
 
@@ -217,6 +225,8 @@ class ServerConfig:
         # the parsed configs are what Server consumes.
         self.admission_config = AdmissionConfig.parse(self.admission)
         self.express_config = ExpressConfig.parse(self.express)
+        self.capacity_config = CapacityConfig.parse(self.capacity)
+        self.raft_observe_config = RaftObserveConfig.parse(self.raft_observe)
         self.reads_config = ReadObserveConfig.parse(self.reads)
         self.read_path_config = ReadPathConfig.parse(self.read_path)
 
@@ -300,6 +310,22 @@ class Server:
         self.express_lane = ExpressLane(self, self.config.express_config)
         if self.config.express_config.enabled:
             self.plan_applier.ledger = self.express_lane.ledger
+        # The observatories are composed here and only here: no decision
+        # path imports them. The getters re-read per poll: a snapshot
+        # install rebinds fsm.state (a counted full rebuild, never a
+        # stale view), and ClusterServer swaps in a RaftNode after this
+        # constructor runs.
+        self.capacity_accountant = CapacityAccountant(
+            lambda: self.fsm.state,
+            self.config.capacity_config,
+            events=self.fsm.events,
+        )
+        self.raft_observatory = RaftObservatory(
+            lambda: self.raft,
+            self.config.raft_observe_config,
+            events=self.fsm.events,
+            fsm_getter=lambda: self.fsm,
+        )
         # The read books the HTTP layer writes into (/v1/agent/reads);
         # the getters re-read per poll (snapshot installs rebind
         # fsm.state, ClusterServer swaps in a RaftNode).
@@ -355,6 +381,8 @@ class Server:
         if self.slo_monitor is not None:
             self.slo_monitor.start()
         self.express_lane.start()
+        self.capacity_accountant.start()
+        self.raft_observatory.start()
         self.read_observatory.start()
         emitter = threading.Thread(
             target=self._emit_stats, daemon=True, name="stats-emitter",
@@ -422,6 +450,8 @@ class Server:
         for worker in self.workers:
             worker.stop()
         self.express_lane.stop()
+        self.capacity_accountant.stop()
+        self.raft_observatory.stop()
         self.read_observatory.stop()
         if self.slo_monitor is not None:
             self.slo_monitor.stop()
@@ -1030,7 +1060,13 @@ class Server:
         ordinary scheduler: upsert the job and its evals (the original
         express eval complete with a successor, plus the PENDING
         reconcile eval, which the FSM enqueues) through raft. On a
-        ClusterServer a non-leader forwards Express.Reconcile."""
+        ClusterServer a non-leader forwards Express.Reconcile.
+
+        Idempotent: a retried hand-over whose reconcile eval (the last of
+        ``evals``) is already in the state store applied before, and is
+        not applied again."""
+        if self.state_store.eval_by_id(evals[-1].id) is not None:
+            return self.raft.applied_index
         self.raft.apply("job_register", {"job": job}).result()
         return self.eval_upsert(evals)
 
@@ -1064,6 +1100,11 @@ class Server:
                     if self.slo_monitor is not None else None),
             "admission": self.admission.summary(),
             "express": self.express_lane.summary(),
+            "capacity": (self.capacity_accountant.summary()
+                         if self.config.capacity_config.enabled else None),
+            "raft_observe": (self.raft_observatory.summary()
+                             if self.config.raft_observe_config.enabled
+                             else None),
             "reads": (self.read_observatory.summary()
                       if self.config.reads_config.enabled else None),
             "read_path": self.read_path.summary(),

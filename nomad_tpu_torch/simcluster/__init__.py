@@ -14,8 +14,8 @@ Determinism posture: the injectors draw the reference's seeded streams,
 job and node ids are derived from the seed, and the artifact carries the
 canonical event digest (the multiset of per-key event-type sequences), so
 a run is checkable against a same-seed replay and against nomad_tpu's
-runner on the same scenario. ``chaos`` (the chaos families) is not ported
-yet.
+runner on the same scenario. Importing the package registers the chaos
+families (``chaos``) beside the registry's scenarios.
 """
 
 from nomad_tpu_torch.simcluster.scenario import (  # noqa: F401
@@ -31,3 +31,5 @@ from nomad_tpu_torch.simcluster.workload import (  # noqa: F401
     SteadyServiceInjector,
     UpdateChurnInjector,
 )
+
+from nomad_tpu_torch.simcluster import chaos  # noqa: E402,F401

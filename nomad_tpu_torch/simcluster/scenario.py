@@ -21,10 +21,15 @@ raises, there is no CPU fallback) and goes into every member's
 the torch device, with the card's name on CUDA.
 
 The artifact carries nomad_tpu's admission (the controller's books next
-to the injector's experience of the door), express, reads (with the
+to the injector's experience of the door), express, capacity (the
+accountant's 2 Hz trajectory and final snapshot), raft (the write-path
+partition, log economy and, after a leader restart, the recovery
+timeline with the placements-survived verdict), reads (with the
 consistency lanes' verdict block), ``latency_attribution`` and ``slo``
-sections. ``attribution_layer=False`` runs the tracer off and the SLO
-monitor unbuilt; those two sections are then None.
+sections, and for the chaos families (``simcluster/chaos.py``) the armed
+storm's ``faults`` books and the ``chaos`` verdict.
+``attribution_layer=False`` runs the tracer off and the SLO monitor
+unbuilt; those two sections are then None.
 
 Left out until their modules are ported, each named in the artifact's
 ``not_ported`` list (``NOT_PORTED_SECTIONS``); a section is absent, never
@@ -32,19 +37,15 @@ reported as zero:
 
 - the lock watchdog (``telemetry.LockWatchdog`` with ``tools/nomadlint``'s
   analysis of nomad_tpu's own sources);
-- the capacity, raft and profile sections, and the capacity branch of the
-  depth sampler;
+- the profile section;
 - a spec's contrast arm where its overrides need one of those modules:
   ``steady-10k``'s profiler-off arm is recorded as not run, with why.
 
-A scenario that needs an unported module (``unported_needs``: a server
-override in ``server.NOT_PORTED``, a leader restart, a chaos action,
-fault storm or verdict) raises :class:`NotPortedError` naming the modules
-before anything starts. It never runs a quietly reduced version.
-Runnable in this package: ``steady-1k``, ``steady-10k``,
-``steady-100k-nodes``, ``burst-100k``, ``churn``, ``overdrive-1k``,
-``overdrive-100k``, ``express-1k``, ``express-mix``, ``read-storm`` and
-``read-storm-800``.
+A scenario whose server overrides name a key of ``server.NOT_PORTED``
+(``unported_needs``) raises :class:`NotPortedError` naming the modules
+before anything starts. It never runs a quietly reduced version. Every
+scenario of nomad_tpu's registry, the three chaos families included,
+runs in this package.
 
 The read fleet (``read_storm`` actions) talks HTTP to loopback fronts of
 the port's ``api/http.py``: one on the leader, and with the read plane on
@@ -69,7 +70,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from nomad_tpu_torch import NotPortedError, lifecycle, slo, structs
+from nomad_tpu_torch import NotPortedError, faults, lifecycle, slo, structs
 from nomad_tpu_torch.api.codec import to_dict
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.rpc import RemoteError
@@ -101,20 +102,9 @@ SCHEMA_VERSION = 1
 # Sections of nomad_tpu's artifact whose modules the port does not have
 # yet, with what each needs (the artifact's "not_ported" list).
 NOT_PORTED_SECTIONS = {
-    "capacity": NOT_PORTED["capacity"],
     "lock_watchdog": "the lock watchdog (telemetry.LockWatchdog, "
                      "tools/nomadlint)",
     "profile": NOT_PORTED["profile"],
-    "raft": NOT_PORTED["raft_observe"],
-}
-
-_CHAOS = "the chaos families (simcluster/chaos.py)"
-# Action kinds whose machinery waits for a module the port does not have.
-_ACTION_NEEDS = {
-    "restart_leader": "the raft observatory (raft_observe.py), which "
-                      "holds the restart's placements-survived verdict",
-    **{kind: _CHAOS for kind in ("barrier", "expand_fleet", "settle",
-                                 "kill_follower", "restart_follower")},
 }
 
 
@@ -127,7 +117,7 @@ class ScenarioSpec:
     # Server knobs merged over the scenario default config.
     server_overrides: Dict = field(default_factory=dict)
     # Optional faults {} block armed (with the run seed) for the window
-    # (the chaos families' storms; refused until chaos.py is ported).
+    # (the chaos families' storms).
     faults_spec: Optional[Dict] = None
     # Warmup job size: warms the node bucket's water-fill + batch
     # shapes before the measured window (0 skips).
@@ -155,8 +145,11 @@ class ScenarioSpec:
     # stands up a real multi-member cell (shared peers table, one elected
     # leader, the fleet pointed at it).
     cluster_members: int = 1
-    # Chaos verdict hook (nomad_tpu/simcluster/chaos.py, not ported yet):
-    # a spec that sets it is refused.
+    # Chaos verdict hook (simcluster/chaos.py): called as
+    # chaos_check(runner, srv, artifact) after the artifact is built;
+    # returns the artifact's "chaos" section and raises on a violated
+    # invariant (exactly-once re-placement, duplicate PlanApplied, a
+    # rejoined follower whose FSM digest diverged).
     chaos_check: Optional[Callable] = None
     description: str = ""
 
@@ -554,17 +547,11 @@ def _spec_registry() -> Dict[str, ScenarioSpec]:
 SCENARIOS = _spec_registry()
 
 
-def unported_needs(spec: ScenarioSpec, seed: int = 0) -> List[str]:
+def unported_needs(spec: ScenarioSpec) -> List[str]:
     """The modules ``spec`` needs that nomad_tpu_torch does not have yet,
     sorted (empty: the port runs it whole)."""
-    needs = {NOT_PORTED[k] for k in spec.server_overrides if k in NOT_PORTED}
-    for inj in spec.injectors(seed):
-        for a in inj.actions():
-            if a.kind in _ACTION_NEEDS:
-                needs.add(_ACTION_NEEDS[a.kind])
-    if spec.chaos_check is not None or spec.faults_spec is not None:
-        needs.add(_CHAOS)
-    return sorted(needs)
+    return sorted({NOT_PORTED[k] for k in spec.server_overrides
+                   if k in NOT_PORTED})
 
 
 def _not_ported_message(what: str, needs: List[str]) -> str:
@@ -688,17 +675,38 @@ class ScenarioRunner:
         self._offer_lock = threading.Lock()
         self._offered = 0
         self._rejected: Dict[str, int] = {}
-        # Solver-panel trajectory, sampled at 2 Hz by the depth sampler.
+        # Capacity-observatory and solver-panel trajectories, sampled at
+        # 2 Hz by the depth sampler (the capacity one when the
+        # observatory is on).
+        self._capacity_samples: List[Dict] = []
         self._panel_samples: List[Dict] = []
         self._t_measure0 = 0.0
         self._panel0: Optional[Dict] = None
+        # Restart bookkeeping (restart_leader): the event watcher's
+        # raft-index floor (replayed events at or below it are dupes of
+        # collected ones and are dropped), per-server counter baselines
+        # carried across the restart (a fresh server's pipeline and
+        # heartbeat books start at zero), and the restart verdict block.
+        self._raft_floor = 0
         self._watch_stop = threading.Event()
         self._watch_thread: Optional[threading.Thread] = None
+        self._pipe0: Dict = {}
+        self._pipe_carry: Dict = {}
+        self._hb0: Dict = {}
+        self._hb_carry: Dict = {}
         self._data_dir: Optional[str] = None
+        self._restart: Optional[Dict] = None
         # Multi-member bookkeeping (cluster_members > 1): every live
-        # member (leader first after election) and the shared peers table.
+        # member (leader first after election), the shared peers table a
+        # restarted member rejoins through, the killed-follower book
+        # (kill_follower -> restart_follower), the rejoin-poll thread,
+        # and the chaos book the spec's chaos_check reduces into the
+        # artifact's chaos section.
         self._members: List[ClusterServer] = []
         self._peers: Dict[str, str] = {}
+        self._downed: Optional[Dict] = None
+        self._rejoin_thread: Optional[threading.Thread] = None
+        self._chaos: Dict = {}
         # Read fleet: the leader's loopback HTTP front (started at the
         # first storm), one front per follower when the lanes are on, the
         # reader threads and their client-side books, and the lane books
@@ -722,7 +730,11 @@ class ScenarioRunner:
     # -- observation --------------------------------------------------------
 
     def _start_watcher(self, broker, cursor: int) -> None:
-        """Tail one event broker into the run's event list."""
+        """Tail one event broker into the run's event list. A leader
+        restart stops the old server's watcher (final page included) and
+        starts a fresh one on the restarted server's broker with the
+        raft-index floor set, so the replayed prefix dedups instead of
+        double-counting."""
         self._watch_stop = threading.Event()
         self._watch_thread = threading.Thread(
             target=self._watch_events,
@@ -743,33 +755,78 @@ class ScenarioRunner:
             if truncated:
                 self._truncated = True
             if evs:
-                with self._events_lock:
-                    self._events.extend(evs)
+                self._take_events(evs)
                 cursor = latest
             if done:
                 return
             time.sleep(0.05)
 
+    def _take_events(self, evs) -> None:
+        """Collect a page, dropping post-restart replay dupes: an event
+        re-published by log replay carries the same raft index as its
+        pre-kill original (the FSM apply is deterministic), so everything
+        at or below the kill-time applied index is already collected.
+        Observer-born events (raft_index 0) always pass; their topics are
+        digest-excluded anyway."""
+        floor = self._raft_floor
+        if floor:
+            evs = [e for e in evs if not (0 < e.raft_index <= floor)]
+        if evs:
+            with self._events_lock:
+                self._events.extend(evs)
+
     def _sample_depths(self, srv) -> None:
         from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
 
+        capacity_on = srv.config.capacity_config.enabled
         tick = 0
         while not self._stop.wait(0.1):
+            # Re-read per tick: a leader restart swaps the server out
+            # from under the sampler mid-run.
+            srv = self._srv
             tick += 1
             if tick % 5 == 0:
-                # 2 Hz: the solver panel's raw padded-axis sums, which
-                # the artifact differences into in-window waste series.
-                p = SOLVER_PANEL.snapshot()
-                self._panel_samples.append({
-                    "t": time.perf_counter(),
-                    "solves": p["solves"],
-                    "placed": p["placed"],
-                    "device_ms": p["device_ms"],
-                    "live_rows": p["live_rows"],
-                    "padded_rows": p["padded_rows"],
-                    "count_live": p["count_live"],
-                    "count_padded": p["count_padded"],
-                })
+                # 2 Hz: roll the capacity accountant to the store's
+                # current generation (the change-log consumption its own
+                # poll does) and sample its headline aggregates, beside
+                # the solver panel's raw padded-axis sums, which the
+                # artifact differences into in-window waste series.
+                # Guarded: an observatory error must not kill the thread
+                # that also tracks the broker and plan-queue peaks.
+                try:
+                    now = time.perf_counter()
+                    if capacity_on:
+                        acct = srv.capacity_accountant
+                        acct.refresh()
+                        snap = acct.snapshot()
+                        self._capacity_samples.append({
+                            "t": now,
+                            "utilization": snap["utilization"],
+                            "density": snap["binpack_density"],
+                            "stranded": {
+                                st["shape"]: st["stranded_pct"]
+                                for st in snap["stranded"]
+                            },
+                            "placeable": {
+                                st["shape"]: st["placeable_count"]
+                                for st in snap["stranded"]
+                            },
+                            "occupied": snap["nodes"]["occupied"],
+                        })
+                    p = SOLVER_PANEL.snapshot()
+                    self._panel_samples.append({
+                        "t": now,
+                        "solves": p["solves"],
+                        "placed": p["placed"],
+                        "device_ms": p["device_ms"],
+                        "live_rows": p["live_rows"],
+                        "padded_rows": p["padded_rows"],
+                        "count_live": p["count_live"],
+                        "count_padded": p["count_padded"],
+                    })
+                except Exception:
+                    self.logger.exception(
+                        "simcluster: observatory sample failed")
             stats = srv.eval_broker.snapshot_stats()
             self.peaks["broker_ready"] = max(
                 self.peaks["broker_ready"], stats.total_ready)
@@ -873,26 +930,62 @@ class ScenarioRunner:
         )
 
     def _fail_nodes(self, fleet: SimFleet, payload: Dict) -> List[str]:
-        """Silence a seeded ``count`` sample of nodes, preferring
-        alloc-hosting ones so the migration path is driven. (nomad_tpu's
-        runner also books the hosted allocs for the chaos verdicts.)"""
+        """Silence nodes: a seeded ``count`` sample preferring
+        alloc-hosting nodes (the churn tranche), or an explicit
+        ``node_ids`` list (a chaos kill schedule's correlated failure
+        domain, one whole rack). Either way the hosted alloc map at kill
+        time lands in the chaos book, so a chaos_check can judge
+        exactly-once re-placement per lost alloc."""
         snap = self._srv.state_store.snapshot()
         live = set(fleet.live_nodes())
-        rng = payload["rng"]
-        count = int(payload["count"])
-        hosting = set()
+        explicit = payload.get("node_ids")
+        if explicit:
+            pick: List[str] = [n for n in explicit if n in live]
+        else:
+            rng = payload["rng"]
+            count = int(payload["count"])
+            hosting = set()
+            for job in self._jobs.values():
+                for a in snap.allocs_by_job(job.id):
+                    if a.desired_status == structs.ALLOC_DESIRED_STATUS_RUN:
+                        hosting.add(a.node_id)
+            hosting &= live
+            pick = rng.sample(sorted(hosting), min(count, len(hosting)))
+            if len(pick) < count:
+                rest = sorted(live - set(pick))
+                pick += rng.sample(rest, min(count - len(pick), len(rest)))
+        killed = set(pick)
+        hosted: Dict[str, List[str]] = {}
         for job in self._jobs.values():
             for a in snap.allocs_by_job(job.id):
-                if a.desired_status == structs.ALLOC_DESIRED_STATUS_RUN:
-                    hosting.add(a.node_id)
-        hosting &= live
-        pick = rng.sample(sorted(hosting), min(count, len(hosting)))
-        if len(pick) < count:
-            rest = sorted(live - set(pick))
-            pick += rng.sample(rest, min(count - len(pick), len(rest)))
+                if (a.desired_status == structs.ALLOC_DESIRED_STATUS_RUN
+                        and a.node_id in killed):
+                    hosted.setdefault(job.id, []).append(a.id)
+        book = self._chaos.setdefault(
+            "killed_nodes", {"nodes": [], "hosted_jobs": {}})
+        book["nodes"].extend(pick)
+        for jid, aids in sorted(hosted.items()):
+            book["hosted_jobs"].setdefault(jid, []).extend(aids)
         fleet.fail(pick)
-        self.logger.info("simcluster: silenced %d nodes", len(pick))
+        self.logger.info(
+            "simcluster: silenced %d nodes (%d jobs hosted there)",
+            len(pick), len(hosted))
         return pick
+
+    def _expand_fleet(self, fleet: SimFleet, payload: Dict) -> None:
+        """Register ``count`` fresh nodes from index ``start`` mid-run:
+        the rack-failure family's spare tranche, capacity that exists
+        only after the fill is placed (a barrier enforces it), so every
+        re-placement after the rack kill can only land on spares."""
+        start = int(payload["start"])
+        count = int(payload["count"])
+        nodes = [sim_node(i, "dc1" if i % 2 == 0 else "dc2")
+                 for i in range(start, start + count)]
+        fleet.register(nodes)
+        self._chaos.setdefault("expanded", []).append(
+            {"start": start, "count": count})
+        self.logger.info(
+            "simcluster: expanded fleet by %d spare nodes", count)
 
     def _followers(self) -> List[ClusterServer]:
         """The cell's non-leader members, sorted by node id. Re-resolves
@@ -905,6 +998,81 @@ class ScenarioRunner:
         srv = self._srv
         return sorted((m for m in self._members if m is not srv),
                       key=lambda m: m.cluster.node_id)
+
+    def _kill_follower(self, payload: Dict) -> None:
+        """Kill one follower outright mid-load (``index`` over the sorted
+        non-leader members). The cell keeps serving on the remaining
+        quorum; the kill book carries what restart_follower needs to
+        bring the same member back from its durable state on its port."""
+        followers = self._followers()
+        target = followers[int(payload.get("index", 0))]
+        book = {
+            "node_id": target.cluster.node_id,
+            "port": int(target.rpc_addr.rsplit(":", 1)[1]),
+            "data_dir": target.cluster.raft_data_dir,
+            "killed_at_s": round(
+                time.perf_counter() - self._t_measure0, 2),
+            "leader_applied_at_kill": self._srv.raft.applied_index,
+            "_index": self._members.index(target),
+        }
+        target.shutdown()
+        self._downed = book
+        self._chaos["follower_kill"] = {
+            k: v for k, v in book.items() if not k.startswith("_")}
+        self.logger.info("simcluster: killed follower %s at t=%.2fs",
+                         book["node_id"], book["killed_at_s"])
+
+    def _restart_follower(self, payload: Dict) -> None:
+        """Restart the killed follower from its durable raft state on the
+        same port and node id while the cell keeps serving. With the
+        kill-to-restart window past the leader's snapshot threshold, the
+        rejoin rides the chunked InstallSnapshot path racing live
+        appends; a background poll stamps time-to-rejoin (the follower's
+        applied index reaching the leader's commit index at restart)
+        into the chaos book, and the chaos_check joins it before judging
+        digest equality."""
+        book = self._downed
+        if book is None:
+            raise RuntimeError(
+                "restart_follower without a killed follower")
+        self._downed = None
+        name = book["node_id"]
+        cfg = ServerConfig(**{**self._cfg_kwargs, "node_name": name})
+        ccfg = self._cluster_config(bind_port=book["port"],
+                                    data_dir=book["data_dir"])
+        ccfg.node_id = name
+        ccfg.bootstrap_expect = len(self._members)
+        ccfg.peers = self._peers
+        srv2 = ClusterServer(cfg, ccfg, logger=self.logger.getChild(name))
+        self._members[book["_index"]] = srv2
+        commit_floor = self._srv.raft.commit_index
+        t_restart = time.perf_counter()
+        srv2.start()
+        restart_book = {
+            "node_id": name,
+            "restarted_at_s": round(t_restart - self._t_measure0, 2),
+            "downtime_s": round(t_restart - self._t_measure0
+                                - book["killed_at_s"], 2),
+            "commit_floor": commit_floor,
+            "time_to_rejoin_ms": None,
+        }
+        self._chaos["follower_restart"] = restart_book
+
+        def _poll_rejoin() -> None:
+            deadline = time.monotonic() + 120.0
+            while time.monotonic() < deadline:
+                if srv2.raft.applied_index >= commit_floor:
+                    restart_book["time_to_rejoin_ms"] = round(
+                        (time.perf_counter() - t_restart) * 1000.0, 1)
+                    return
+                time.sleep(0.02)
+
+        self._rejoin_thread = threading.Thread(
+            target=_poll_rejoin, daemon=True, name="sim-rejoin")
+        self._rejoin_thread.start()
+        self.logger.info(
+            "simcluster: follower %s restarting from %s (commit floor "
+            "%d)", name, book["data_dir"], commit_floor)
 
     def _read_storm(self, payload: Dict) -> None:
         """Launch the impolite read fleet (ReadFleetInjector): stand the
@@ -1074,9 +1242,35 @@ class ScenarioRunner:
             payload.get("pollers", 0), payload.get("watchers", 0),
             payload.get("sse_tails", 0), float(payload["until"]))
 
-    def _cluster_config(self, data_dir: Optional[str] = None
-                        ) -> ClusterConfig:
-        kwargs = dict(bootstrap_expect=1, bind_port=0)
+    def _resolve_fault_plan(self, plan: Dict) -> Dict:
+        """Bind member-role placeholders in an armed fault plan:
+        ``{leader}`` -> the elected leader's node id, ``{followerN}`` ->
+        the Nth sorted non-leader member. Chaos specs are written before
+        the seeded election resolves who leads, so the plan speaks in
+        roles and the runner substitutes the winners here, over every
+        string in the plan."""
+        if len(self._members) <= 1:
+            return plan
+        subs = {"{leader}": self._srv.cluster.node_id}
+        for i, m in enumerate(self._followers()):
+            subs[f"{{follower{i}}}"] = m.cluster.node_id
+
+        def sub(v):
+            if isinstance(v, str):
+                for k, s in subs.items():
+                    v = v.replace(k, s)
+                return v
+            if isinstance(v, dict):
+                return {k: sub(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [sub(x) for x in v]
+            return v
+
+        return sub(plan)
+
+    def _cluster_config(self, bind_port: int = 0,
+                        data_dir: Optional[str] = None) -> ClusterConfig:
+        kwargs = dict(bootstrap_expect=1, bind_port=bind_port)
         data_dir = data_dir or self._data_dir
         if data_dir:
             kwargs["raft_data_dir"] = data_dir
@@ -1115,6 +1309,101 @@ class ScenarioRunner:
         self._members = out
         return out
 
+    def _restart_leader(self, fleet: SimFleet) -> None:
+        """Kill the leader outright and restart it from its durable raft
+        state on the same port. The order is the contract:
+
+        1. shut the old server down (in-flight plans fail typed; their
+           evals stay pending in durable state);
+        2. drain the old event ring completely, and record the kill-time
+           applied index as the watcher's raft-index floor and the
+           pre-kill live placement map;
+        3. build the new server on the same data dir and port, let its
+           raft observatory absorb the old one's books, attach a fresh
+           watcher before start (replayed events race the first poll),
+           start it and wait for leadership;
+        4. flush the fleet's pooled conns (dead sockets invalidate on
+           first use) until the new listener answers.
+
+        The new server builds a new store (a new store uid), so its
+        solver mirror is built afresh on the device; the old store's
+        mirror is no longer reachable from any server."""
+        from nomad_tpu_torch.rpc import RPCError
+
+        if not self.spec.durable_raft or self._data_dir is None:
+            raise RuntimeError(
+                "restart_leader requires a durable_raft scenario spec")
+        old = self._srv
+        port = int(old.rpc_addr.rsplit(":", 1)[1])
+        t_kill0 = time.perf_counter()
+        self.logger.info("simcluster: killing leader at t=%.2fs",
+                         t_kill0 - self._t_measure0)
+        old.shutdown()
+        # The watcher drains the (quiescent) old ring on its way out.
+        self._stop_watcher()
+        pre_applied = old.raft.applied_index
+        pre_allocs = {
+            a.id: a.node_id for a in old.state_store.allocs()
+            if a.desired_status == structs.ALLOC_DESIRED_STATUS_RUN
+        }
+        # Carry the per-server counter baselines across the restart: the
+        # fresh server's books start at zero, and the artifact's
+        # measured-window deltas must span both lives.
+        for k, v in old.plan_pipeline.stats().items():
+            if not isinstance(v, (int, float)):
+                continue
+            if k == "max_batch_seen":  # a high-watermark, not a delta
+                self._pipe_carry[k] = max(self._pipe_carry.get(k, 0), v)
+                continue
+            self._pipe_carry[k] = (self._pipe_carry.get(k, 0)
+                                   + v - self._pipe0.get(k, 0))
+            self._pipe0[k] = 0
+        for k, v in old.heartbeat.stats().items():
+            self._hb_carry[k] = (self._hb_carry.get(k, 0)
+                                 + v - self._hb0.get(k, 0))
+            self._hb0[k] = 0
+        self._raft_floor = pre_applied
+
+        srv2 = ClusterServer(
+            ServerConfig(**self._cfg_kwargs),
+            self._cluster_config(bind_port=port), logger=self.logger,
+        )
+        self._srv = srv2
+        if self._members:
+            self._members[self._members.index(old)] = srv2
+        # The write-path books span both server lives.
+        srv2.raft_observatory.absorb(old.raft_observatory)
+        # Fresh watcher before start: the log replay publishes into the
+        # new ring within milliseconds of leadership; every replayed
+        # event is at or below the floor and dedups.
+        self._start_watcher(srv2.fsm.events, 0)
+        srv2.start()
+        wait_for_leader([srv2], timeout=60.0)
+        deadline = time.monotonic() + 30.0
+        for pool in fleet._pools:
+            while True:
+                try:
+                    pool.call(srv2.rpc_addr, "Status.Ping", {},
+                              timeout=2.0)
+                    break
+                except RPCError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+        downtime = time.perf_counter() - t_kill0
+        self._restart = {
+            "killed_at_s": round(t_kill0 - self._t_measure0, 2),
+            "downtime_s": round(downtime, 3),
+            "pre_kill_applied_index": pre_applied,
+            "pre_kill_placements": len(pre_allocs),
+            "pre_kill_alloc_map": pre_allocs,
+        }
+        self.logger.info(
+            "simcluster: leader restarted in %.2fs (replaying from "
+            "applied index %d, %d live placements pre-kill)",
+            downtime, pre_applied, len(pre_allocs),
+        )
+
     # -- the run ------------------------------------------------------------
 
     def run(self) -> Dict:
@@ -1128,7 +1417,7 @@ class ScenarioRunner:
         from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
 
         spec = self.spec
-        needs = unported_needs(spec, self.seed)
+        needs = unported_needs(spec)
         if needs:
             raise NotPortedError(
                 _not_ported_message(f"scenario {spec.name!r}", needs))
@@ -1144,6 +1433,8 @@ class ScenarioRunner:
         cfg_kwargs.update(spec.server_overrides)
         if not self.attribution_layer:
             cfg_kwargs["slo_objectives"] = {}
+        # Kept for the members a restart action builds anew.
+        self._cfg_kwargs = cfg_kwargs
         if spec.durable_raft and self._data_dir is None:
             self._data_dir = tempfile.mkdtemp(prefix="nomad-sim-raft-")
         members = self._build_cluster(cfg_kwargs)
@@ -1239,13 +1530,17 @@ class ScenarioRunner:
                 srv.slo_monitor.reset()
 
             # Phase 3: measured window. Cursor excludes bring-up/warmup.
+            if spec.faults_spec is not None:
+                plan = dict(spec.faults_spec)
+                plan.setdefault("seed", self.seed)
+                faults.get_registry().load(self._resolve_fault_plan(plan))
             broker = srv.fsm.events
             cursor = broker.get_index()
-            hb0 = srv.heartbeat.stats()
+            self._hb0 = srv.heartbeat.stats()
             t_measure0 = time.perf_counter()
             dispatches0 = GLOBAL_SOLVER.dispatches
             mirror0 = GLOBAL_MIRROR_CACHE.stats()
-            pipe0 = srv.plan_pipeline.stats()
+            self._pipe0 = srv.plan_pipeline.stats()
             self._t_measure0 = t_measure0
             # The panel is process-global: window accounting differences
             # against this baseline.
@@ -1323,10 +1618,34 @@ class ScenarioRunner:
                     self._refresh_nodes(fleet, action.payload)
                 elif action.kind == "fail_nodes":
                     failed_tranche = self._fail_nodes(fleet, action.payload)
+                elif action.kind == "restart_leader":
+                    # Synchronous in the paced loop: no registration is
+                    # in flight across the kill (only worker-side eval
+                    # and plan work, which the durable log re-drives).
+                    self._restart_leader(fleet)
+                elif action.kind == "barrier":
+                    # A chaos phase boundary: everything injected so far
+                    # terminal and the broker drained before the next
+                    # phase exists (the rack fill placed before the spare
+                    # tranche registers).
+                    self._wait_quiesced(
+                        self._srv, list(expected_evals), [],
+                        time.monotonic()
+                        + float(action.payload.get("timeout", 60.0)))
+                elif action.kind == "expand_fleet":
+                    self._expand_fleet(fleet, action.payload)
+                elif action.kind == "kill_follower":
+                    self._kill_follower(action.payload)
+                elif action.kind == "restart_follower":
+                    self._restart_follower(action.payload)
+                elif action.kind == "settle":
+                    # Pure pacing point: the sleep above held the loop
+                    # open to this action's time. The chaos compiler
+                    # emits one past the storm horizon so a fast workload
+                    # cannot quiesce while fault windows are still ahead.
+                    pass
                 else:
-                    raise NotPortedError(_not_ported_message(
-                        f"action {action.kind!r}",
-                        [_ACTION_NEEDS.get(action.kind, "its module")]))
+                    raise ValueError(f"unknown action kind {action.kind!r}")
             for t in blasters:
                 t.join()
             if blast_errors:
@@ -1345,10 +1664,17 @@ class ScenarioRunner:
                 raise RuntimeError(
                     f"read-fleet reader(s) did not stop: {live_readers}")
 
+            # A leader restart swaps the server mid-loop: everything from
+            # quiescence on reads the current one.
+            srv = self._srv
             self._wait_quiesced(srv, expected_evals, failed_tranche,
                                 time.monotonic() + spec.quiesce_timeout)
             wall = time.perf_counter() - t_run0
             measured = time.perf_counter() - t_measure0
+            # Effective baselines: counters carried across a restart (the
+            # old server's window share folded in as a negative offset).
+            hb0 = {k: self._hb0.get(k, 0) - self._hb_carry.get(k, 0)
+                   for k in self._hb0}
             hb1 = srv.heartbeat.stats()
             dispatches = GLOBAL_SOLVER.dispatches - dispatches0
             mirror1 = GLOBAL_MIRROR_CACHE.stats()
@@ -1361,12 +1687,15 @@ class ScenarioRunner:
             }
             pipe1 = srv.plan_pipeline.stats()
             pipeline = {
-                k: pipe1[k] - pipe0[k]
+                k: (pipe1[k] - self._pipe0.get(k, 0)
+                    + self._pipe_carry.get(k, 0))
                 for k in ("batches", "plans", "committed", "noops",
                           "conflicts", "refreshes", "fused_plans",
                           "scalar_plans")
             }
-            pipeline["max_batch_seen"] = pipe1["max_batch_seen"]
+            pipeline["max_batch_seen"] = max(
+                pipe1["max_batch_seen"],
+                self._pipe_carry.get("max_batch_seen", 0))
 
             # Phase 4: alloc acknowledgement (bounded client posture).
             acked = 0
@@ -1392,6 +1721,8 @@ class ScenarioRunner:
             self._stop.set()
             self._stop_watcher()
             tracer.enabled = tracing_was
+            if spec.faults_spec is not None:
+                faults.get_registry().clear()
             for h in [self._http, *self._follower_https]:
                 if h is None:
                     continue
@@ -1403,7 +1734,7 @@ class ScenarioRunner:
             self._http = None
             self._follower_https = []
             fleet.stop()
-            for m in members:
+            for m in self._members:
                 try:
                     m.shutdown()
                 except Exception:
@@ -1543,7 +1874,7 @@ class ScenarioRunner:
         not_ported = [{"section": k, "needs": v}
                       for k, v in sorted(NOT_PORTED_SECTIONS.items())]
         if self.spec.contrast_overrides is not None:
-            needs = _contrast_needs(self.spec, self.seed)
+            needs = unported_needs(_contrast_spec(self.spec))
             if needs:
                 not_ported.append({"section": "contrast",
                                    "needs": "; ".join(needs)})
@@ -1636,6 +1967,8 @@ class ScenarioRunner:
                          <= caps["plan_queue_cap"])
                 ),
             },
+            "capacity": self._capacity_section(srv),
+            "raft": self._raft_section(srv),
             "reads": self._reads_section(srv),
             "solver_panel": self._solver_panel_section(),
             "not_ported": not_ported,
@@ -1673,7 +2006,88 @@ class ScenarioRunner:
         else:
             artifact["latency_attribution"] = None
             artifact["slo"] = None
+        if self.spec.faults_spec is not None:
+            artifact["faults"] = faults.get_registry().snapshot()
+        if self.spec.chaos_check is not None:
+            # The chaos verdict (simcluster/chaos.py): judges the
+            # family's declared invariants against the finished artifact
+            # and the live cluster, and raises on a violation.
+            artifact["chaos"] = self.spec.chaos_check(self, srv, artifact)
         return artifact
+
+    def _capacity_section(self, srv) -> Dict:
+        """The capacity observatory's trajectory over the measured window
+        (stranded %, density, utilization, placeable counts) and its
+        final snapshot. {"enabled": False} in the observatory-off
+        contrast arm (presence keeps the schema stable across arms)."""
+        if not srv.config.capacity_config.enabled:
+            return {"enabled": False}
+        acct = srv.capacity_accountant
+        acct.refresh()
+        trajectory = [
+            {**{k: v for k, v in s.items() if k != "t"},
+             "t_s": round(s["t"] - self._t_measure0, 2)}
+            for s in self._capacity_samples
+        ]
+        return {
+            "enabled": True,
+            "sample_hz": 2,
+            "trajectory": trajectory,
+            "final": acct.snapshot(),
+        }
+
+    def _raft_section(self, srv) -> Dict:
+        """The raft observatory's run report (raft_observe.py): write-path
+        stage attribution per msg_type, log/snapshot economy, and after a
+        leader restart the recovery timeline with the placements-
+        survived verdict. A run that lost a pre-kill placement raises
+        here: survival is the scenario's contract, not a statistic."""
+        obs = getattr(srv, "raft_observatory", None)
+        if obs is None or not srv.config.raft_observe_config.enabled:
+            return {"enabled": False}
+        obs.refresh()
+        snap = obs.snapshot()
+        out = {
+            "enabled": True,
+            "write_path": snap["write_path"],
+            "replication": snap["replication"],
+            "log": snap["log"],
+            "snapshot": snap["snapshot"],
+            "recovery": snap["recovery"],
+            "observer": snap["observer"],
+        }
+        if self._restart is not None:
+            restart = {k: v for k, v in self._restart.items()
+                       if k != "pre_kill_alloc_map"}
+            pre = self._restart["pre_kill_alloc_map"]
+            post = {
+                a.id: a.node_id for a in srv.state_store.allocs()
+                if a.desired_status == structs.ALLOC_DESIRED_STATUS_RUN
+            }
+            # Survival = the same alloc id on the same node: a committed
+            # placement comes back from the durable log verbatim, not
+            # re-placed elsewhere.
+            surviving = sum(
+                1 for aid, nid in pre.items() if post.get(aid) == nid
+            )
+            restart["surviving_placements"] = surviving
+            restart["placements_survived"] = surviving == len(pre)
+            recovery = snap["recovery"]
+            rematerialize_ms = (
+                (recovery.get("snapshot_restore_ms") or 0.0)
+                + (recovery.get("replay_wall_ms") or 0.0)
+            )
+            restart["placements_rematerialized_per_s"] = (
+                round(len(pre) / (rematerialize_ms / 1000.0), 1)
+                if rematerialize_ms else None
+            )
+            out["restart"] = restart
+            if not restart["placements_survived"]:
+                raise RuntimeError(
+                    f"leader restart lost placements: {surviving}/"
+                    f"{len(pre)} survived the replay"
+                )
+        return out
 
     def _reads_section(self, srv) -> Dict:
         """The read books' run report (read_observe.py): per-route serving
@@ -1854,10 +2268,6 @@ def _contrast_spec(spec: ScenarioSpec) -> ScenarioSpec:
         spec, server_overrides=overrides, contrast_overrides=None)
 
 
-def _contrast_needs(spec: ScenarioSpec, seed: int) -> List[str]:
-    return unported_needs(_contrast_spec(spec), seed)
-
-
 def _equilibrium_rate(srv, fleet) -> float:
     from nomad_tpu_torch.server.heartbeat import rate_scaled_interval
 
@@ -1903,7 +2313,7 @@ def run_scenario(name: str, seed: int = 42, out_path: Optional[str] = None,
     if contrast and spec.contrast_overrides is not None:
         contrast_spec = _contrast_spec(spec)
         overrides = contrast_spec.server_overrides
-        needs = unported_needs(contrast_spec, seed)
+        needs = unported_needs(contrast_spec)
         if needs:
             artifact["contrast"] = {
                 "run": False,
@@ -1936,6 +2346,7 @@ def run_scenario(name: str, seed: int = 42, out_path: Optional[str] = None,
                     full["events"]["digest"]
                     == artifact["events"]["digest"]
                 )
+                artifact["contrast"]["capacity"] = full.get("capacity")
                 artifact["contrast"]["reads"] = full.get("reads")
     if out_path:
         with open(out_path, "w") as f:

@@ -22,9 +22,10 @@ evaluation regardless of count. Class names stay those of nomad_tpu so the
 two packages diff line for line.
 
 ``TPUSystemScheduler`` checks every pinned placement of a system task
-group in one fit dispatch. Dropped on purpose: the ``solver.execute``
-fault site and the DEVICE_BREAKER accounting around each dispatch — a
-device fault fails the eval.
+group in one fit dispatch. Each dispatch fires the ``solver.execute``
+fault site first. Dropped on purpose: the DEVICE_BREAKER accounting
+around each dispatch and its host route. A device fault, injected or
+organic, fails the eval, which is nacked and redelivered.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from nomad_tpu_torch import telemetry, trace
+from nomad_tpu_torch import faults, telemetry, trace
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.network import NetworkIndex
 from nomad_tpu_torch.ops.binpack import (
@@ -372,6 +373,15 @@ class SolverPanel:
 SOLVER_PANEL = SolverPanel()
 
 
+def _check_device_fault(target: str) -> None:
+    """Injected device death at the ``solver.execute`` site: raises, and
+    the eval fails and is nacked as on an organic kernel fault. No
+    breaker counts it and no host route takes the redelivery."""
+    fault = faults.fire("solver.execute", target=target)
+    if fault is not None and fault.mode in ("error", "drop", "partition"):
+        raise faults.DeviceFault("injected fault: solver.execute")
+
+
 def _solve_stages() -> "trace.StageTimer":
     """A live stage timer when this eval carries a trace span (the worker
     installed one via trace.use_span); the inert singleton otherwise, so
@@ -482,8 +492,9 @@ class TPUStack:
                 _emit_solver_trace(st, start, count)
                 return None, None, tg_constr.size
 
-            # nomad_tpu fires its solver.execute fault site and counts the
-            # dispatch against DEVICE_BREAKER here; the port does neither.
+            # nomad_tpu also counts the dispatch against DEVICE_BREAKER
+            # here; the port has no breaker.
+            _check_device_fault(tg.name)
             t_dispatch = time.perf_counter()
             with st.stage("transfer"):
                 fetch = solve_many_async(
@@ -530,7 +541,7 @@ class TPUStack:
                 _emit_solver_trace(st, start, count)
                 return None, count, tg_constr.size
 
-            # No fault site and no breaker accounting (see solve_group).
+            _check_device_fault(tg.name)
             t_dispatch = time.perf_counter()
             with st.stage("transfer"):
                 fetch = solve_counts_async(
@@ -1835,6 +1846,7 @@ class TPUSystemScheduler(SystemScheduler):
         prep = self.stack.prepare(tg, tg_constr)
         if prep is None:
             return None
+        _check_device_fault(tg.name)
         t_dispatch = time.perf_counter()
         with device_activity():
             _score, fit = _greedy_step_state(

@@ -10,7 +10,10 @@ are masked; node and job ids are the seeded ones and are not masked, so
 the alloc-to-node mapping is compared as it stands. A blocking query
 wakes on a write, the event stream gives the same event types on the same
 keys, every ``NOT_PORTED_ROUTES`` entry answers 501 naming its module,
-and a subprocess with ``jax`` and ``nomad_tpu`` blocked drives every
+the capacity and raft observatories answer ``/v1/agent/capacity`` and
+``/v1/agent/raft`` with nomad_tpu's keys (the capacity books equal, as the
+committed allocs are), their ``?format=prometheus`` answers 501 naming the
+telemetry sinks, and a subprocess with ``jax`` and ``nomad_tpu`` blocked drives every
 route of the port's table and the CLI.
 
 Tolerance: exact. The cluster is ``mock.node()`` copies (one shape), so
@@ -404,6 +407,61 @@ def test_blocking_query_wakes_on_a_write(sides, kind):
     assert job.id in {j["id"] for j in json.loads(out["body"])}
 
 
+def test_capacity_route_answers_as_nomad_tpu(sides):
+    """Both accountants are rolled forward by the route. The books that
+    depend only on the nodes are equal; the usage books are the sum of
+    their lanes in each (earlier tests' writes may still be placing, so
+    usage is not compared across the packages here:
+    tests/test_torch_capacity.py holds it to nomad_tpu's on one script)."""
+    bodies = []
+    for side in sides:
+        code, text = side.get("/v1/agent/capacity")
+        assert code == 200, (side.name, text)
+        bodies.append(json.loads(text))
+    assert set(bodies[1]) == set(bodies[0])
+    for key in ("dims", "total", "reserved"):
+        assert bodies[1][key] == bodies[0][key], key
+    for key in ("total", "schedulable"):
+        assert bodies[1]["nodes"][key] == bodies[0]["nodes"][key], key
+    assert bodies[1]["nodes"]["total"] == len(_nodes())
+    assert ([(s["shape"], s["ask"]) for s in bodies[1]["stranded"]]
+            == [(s["shape"], s["ask"]) for s in bodies[0]["stranded"]])
+    for body in bodies:
+        assert set(body["lanes"]) == {"service", "batch", "system",
+                                      "express"}
+        for dim in body["dims"]:
+            assert body["used"][dim] == body["reserved"][dim] + sum(
+                lane["used"][dim] for lane in body["lanes"].values())
+
+
+def test_raft_route_keeps_nomad_tpus_keys(sides):
+    bodies = []
+    for side in sides:
+        code, text = side.get("/v1/agent/raft")
+        assert code == 200, (side.name, text)
+        bodies.append(json.loads(text))
+    assert set(bodies[1]) == set(bodies[0])
+    assert set(bodies[1]["observer"]) == set(bodies[0]["observer"])
+    assert bodies[1]["recovery"] == bodies[0]["recovery"] == {
+        "cold_start": False}
+    # A dev agent applies in-process: no replication layer to attribute.
+    assert bodies[1]["raft"]["state"] == bodies[0]["raft"]["state"]
+
+
+@pytest.mark.parametrize("route", ["capacity", "raft"])
+def test_observatory_prometheus_answers_501(sides, route):
+    code, text = sides[1].get(f"/v1/agent/{route}?format=prometheus")
+    assert code == 501
+    assert "telemetry.py's sinks" in text
+
+
+@pytest.mark.parametrize("route", ["capacity", "raft"])
+def test_sdk_reads_the_observatory(sides, route):
+    got = getattr(sides[1].client.agent(), route)()
+    ref = getattr(sides[0].client.agent(), route)()
+    assert isinstance(got, dict) and set(got) == set(ref)
+
+
 @pytest.mark.parametrize("pattern", sorted(NOT_PORTED_ROUTES))
 def test_not_ported_route_answers_501(sides, pattern):
     path = re.sub(r"\(\?P<[^>]+>[^)]+\)", "x", pattern).strip("^$")
@@ -536,8 +594,10 @@ for argv, want in ((["client-config", "-servers"], 0), (["agent-info"], 0),
 agent.shutdown()
 server.shutdown()
 import nomad_tpu_torch.simcluster.scenario
+import nomad_tpu_torch.simcluster.chaos
 for name in ("slo", "lifecycle", "read_observe", "server.admission",
-             "server.express", "server.read_path", "simcluster.scenario"):
+             "server.express", "server.read_path", "simcluster.scenario",
+             "capacity", "raft_observe", "simcluster.chaos"):
     assert "nomad_tpu_torch." + name in sys.modules, name
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "nomad_tpu")]

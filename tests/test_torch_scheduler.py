@@ -260,8 +260,8 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
-# The server loop's, simcluster's, the head's and the client's modules,
-# named so a walk that missed one still fails.
+# The server loop's, simcluster's, the head's, the client's and the
+# observatories' modules, named so a walk that missed one still fails.
 SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
     "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
@@ -283,6 +283,8 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.client.driver.spawn",
     "nomad_tpu_torch.client.driver.raw_exec",
     "nomad_tpu_torch.client.driver.docker",
+    "nomad_tpu_torch.capacity", "nomad_tpu_torch.raft_observe",
+    "nomad_tpu_torch.simcluster.chaos",
 ]
 
 

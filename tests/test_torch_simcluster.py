@@ -22,6 +22,11 @@
   the port's own digest; a scenario that needs an unported module raises
   an error that names it; a contrast arm runs when its modules are
   ported and is recorded as not run, with the reason, when they are not.
+- The capacity and raft observatories' smokes: ``churn-frag-200`` (both
+  arms: the capacity-off contrast arm must reproduce the main arm's
+  digest) and ``restart-800`` (the leader killed at t=2 s and restarted
+  from its durable log) at seed 42 give nomad_tpu's committed digests,
+  and each reproduces its own digest at seed 11.
 """
 
 import dataclasses
@@ -67,14 +72,25 @@ INJECTORS = {
     "UpdateChurnInjector": dict(base_jobs=3, tasks_per_job=40, updates=6),
 }
 
-# Scenarios that wait for a module, each with a word its error must name.
+# Every scenario of nomad_tpu's registry and the three chaos families run.
+RUNNABLE = ["burst-100k", "churn", "churn-frag-200", "churn-fragmentation",
+            "express-1k", "express-mix", "follower-crash-rejoin",
+            "overdrive-100k", "overdrive-1k", "partition-flap",
+            "rack-failure", "read-storm", "read-storm-800", "restart-800",
+            "restart-under-load", "steady-100k-nodes", "steady-10k",
+            "steady-1k"]
+# Specs that would wait for a module the port does not have (none of the
+# registry's does), each with a word its error must name.
 WAITING = {
-    "churn-frag-200": "capacity", "churn-fragmentation": "capacity",
-    "restart-800": "raft_observe", "restart-under-load": "raft_observe",
+    "needs-profile": ({"profile": {"enabled": True}}, "profile_observe"),
+    "needs-mesh": ({"solver_mesh": {"axis": 1}}, "parallel/mesh"),
 }
-RUNNABLE = ["burst-100k", "churn", "express-1k", "express-mix",
-            "overdrive-100k", "overdrive-1k", "read-storm", "read-storm-800",
-            "steady-100k-nodes", "steady-10k", "steady-1k"]
+
+
+def waiting_spec(name):
+    overrides, _word = WAITING[name]
+    return dataclasses.replace(psc.SCENARIOS["steady-1k"], name=name,
+                               server_overrides=overrides)
 
 
 def payload_view(payload, to_dict):
@@ -138,9 +154,13 @@ def test_registry_spec_equals_reference(name):
 
 
 def test_registry_leaves_out_only_chaos_families():
+    """Nothing is left out any more: the chaos families are registered
+    too, and the registry is nomad_tpu's, name for name."""
     rest = set(jsc.SCENARIOS) - set(psc.SCENARIOS)
-    assert all(jsc.SCENARIOS[n].chaos_check is not None for n in rest)
-    assert set(psc.SCENARIOS) == set(WAITING) | set(RUNNABLE)
+    assert not rest
+    assert set(psc.SCENARIOS) == set(jsc.SCENARIOS) == set(RUNNABLE)
+    assert ({n for n, s in psc.SCENARIOS.items() if s.chaos_check}
+            == {n for n, s in jsc.SCENARIOS.items() if s.chaos_check})
 
 
 # -- reductions ---------------------------------------------------------------
@@ -237,14 +257,22 @@ def test_steady_1k_sections_equal_reference(steady_1k):
 def test_steady_1k_absent_sections_are_listed(steady_1k):
     art = steady_1k["port"]
     listed = {row["section"] for row in art["not_ported"]}
-    assert listed == set(psc.NOT_PORTED_SECTIONS)
-    for section in ("capacity", "raft", "profile"):
-        assert section not in art
+    assert listed == set(psc.NOT_PORTED_SECTIONS) == {"lock_watchdog",
+                                                       "profile"}
+    assert "profile" not in art
+    # The capacity and raft sections stand as in nomad_tpu's artifact.
+    ref = steady_1k["nomad_tpu"]
+    for section in ("capacity", "raft"):
+        assert art[section]["enabled"] is True
+        assert set(art[section]) == set(ref[section]), section
+    assert set(art["capacity"]["final"]) == set(ref["capacity"]["final"])
+    assert art["capacity"]["final"]["nodes"] == ref["capacity"]["final"][
+        "nodes"]
+    assert set(art["raft"]["write_path"]) == set(ref["raft"]["write_path"])
     # Admission, the read books and lifecycle/SLO are ported: their
     # sections stand as in nomad_tpu's artifact (the attribution layer is
     # off here, so latency_attribution and slo are None; the lane is off,
     # so there is no express section; no read fleet, so no lanes).
-    ref = steady_1k["nomad_tpu"]
     assert set(art["admission"]) == set(ref["admission"])
     assert art["admission"]["injector"] == ref["admission"]["injector"]
     assert art["admission"]["controller"]["admitted"] == \
@@ -359,13 +387,122 @@ def test_contrast_arm_that_waits_is_recorded_not_run(monkeypatch):
     assert art["placements"]["placed"] == 300
 
 
+# -- the capacity and raft observatories' smokes ------------------------------
+
+
+def committed_reference(name, seed=42):
+    with open(os.path.join(REPO, "nomad_tpu_torch", "simcluster",
+                           "reference_digests.json")) as f:
+        ref = json.load(f)["scenarios"][name]
+    return ref if seed == ref["seed"] else ref["other_seeds"][str(seed)]
+
+
+@pytest.fixture(scope="module")
+def churn_frag_200():
+    return psc.run_scenario("churn-frag-200", seed=42, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def restart_800():
+    return psc.run_scenario("restart-800", seed=42, device="cpu")
+
+
+@pytest.mark.parametrize("fixture", ["churn_frag_200", "restart_800"])
+def test_smoke_digest_equals_committed_reference(fixture, request):
+    art = request.getfixturevalue(fixture)
+    ref = committed_reference(art["scenario"])
+    assert art["events"]["digest"] == ref["digest"]
+    assert art["events"]["by_type"] == ref["by_type"]
+    assert art["placements"]["placed"] == ref["placed"]
+    assert art["events"]["truncated"] is False
+
+
+def test_churn_frag_200_capacity_off_arm_keeps_the_digest(churn_frag_200):
+    """The observatory-off contrast arm reproduces the main arm's digest:
+    the accountant reads cluster state and changes no decision."""
+    contrast = churn_frag_200["contrast"]
+    assert contrast["run"] is True
+    assert contrast["capacity"] == {"enabled": False}
+    assert contrast["digest_matches"] is True
+    assert contrast["events"]["digest"] == churn_frag_200["events"]["digest"]
+    assert contrast["placements"]["placed"] == 6 * 400 + 2 * 40
+
+
+def test_churn_frag_200_capacity_section(churn_frag_200):
+    """tests/test_simcluster.py's churn-frag-200 smoke, on the port."""
+    art = churn_frag_200
+    assert art["placements"]["placed"] == 6 * 400 + 2 * 40
+    assert art["placements"]["stopped"] == 3 * 400
+    cap = art["capacity"]
+    assert cap["enabled"] is True and len(cap["trajectory"]) >= 3
+    final = cap["final"]
+    assert final["nodes"]["schedulable"] == 200
+    assert final["nodes"]["occupied"] > 0
+    assert 0 < final["binpack_density"]["cpu"] <= 1
+    assert final["accountant"]["rebuilds"] <= 1
+    assert final["accountant"]["rolls"] >= 1
+    assert {s["shape"] for s in final["stranded"]} == {"small", "medium",
+                                                      "large"}
+    utils = [s["utilization"]["cpu"] for s in cap["trajectory"]]
+    assert max(utils) > min(utils)
+
+
+def test_restart_800_recovery(restart_800):
+    """tests/test_simcluster.py's restart-800 smoke, on the port: every
+    pre-kill placement survives the replay (same alloc id, same node) and
+    the recovery timeline is populated."""
+    raft = restart_800["raft"]
+    assert restart_800["placements"]["placed"] == 6 * 120
+    restart = raft["restart"]
+    assert restart["placements_survived"] is True
+    assert restart["pre_kill_placements"] > 0
+    assert restart["surviving_placements"] == restart["pre_kill_placements"]
+    recovery = raft["recovery"]
+    assert recovery["cold_start"] is True
+    assert recovery["entries_replayed"] > 0
+    assert recovery["replayed_by_type"].get("alloc_update", 0) >= 1
+    for key in ("replay_wall_ms", "time_to_leader_ms",
+                "time_to_serving_ms"):
+        assert recovery[key] is not None, key
+    assert recovery["replay_entries_per_s"] > 0
+    assert raft["write_path"]["alloc_update"]["count"] >= 6
+    assert raft["write_path"]["alloc_update"]["total_ms"]["p95"] > 0
+
+
+@pytest.mark.parametrize("name", ["churn-frag-200", "restart-800"])
+def test_smoke_reproduces_at_seed_11(name):
+    """Same seed, same digest (tests/test_simcluster.py's seed-11
+    determinism tests), equal to nomad_tpu's at that seed."""
+    a = psc.run_scenario(name, seed=11, contrast=False, device="cpu",
+                         attribution_layer=False)
+    b = psc.run_scenario(name, seed=11, contrast=False, device="cpu",
+                         attribution_layer=False)
+    assert a["events"]["digest"] == b["events"]["digest"]
+    assert a["events"]["by_type"] == b["events"]["by_type"]
+    assert a["events"]["digest"] == committed_reference(name, 11)["digest"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["rack-failure", "partition-flap",
+                                  "follower-crash-rejoin"])
+def test_chaos_family_end_to_end(name):
+    """A chaos family at its registry size on the CPU (60-100 s each): the
+    verdict ok and the digest one of those nomad_tpu gave."""
+    art = psc.run_scenario(name, seed=42, device="cpu", contrast=False)
+    assert art["chaos"]["ok"] is True
+    ref = committed_reference(name)
+    seen = ref.get("digests_seen") or {ref["digest"]: ref}
+    assert art["events"]["digest"] in seen
+    assert art["placements"]["placed"] == ref["placed"]
+
+
 # -- what waits, and the device -----------------------------------------------
 
 
 @pytest.mark.parametrize("name", sorted(WAITING))
 def test_waiting_scenario_names_its_module(name):
-    runner = psc.ScenarioRunner(psc.SCENARIOS[name], device="cpu")
-    with pytest.raises(psc.NotPortedError, match=WAITING[name]):
+    runner = psc.ScenarioRunner(waiting_spec(name), device="cpu")
+    with pytest.raises(psc.NotPortedError, match=WAITING[name][1]):
         runner.run()
     assert runner._srv is None  # refused before anything started
 
@@ -390,23 +527,27 @@ def test_runner_defaults_to_cuda():
 # -- the CLI ------------------------------------------------------------------
 
 
-def test_simload_lists_what_runs_and_what_waits(capsys):
+def test_simload_lists_what_runs_and_what_waits(capsys, monkeypatch):
+    for name in WAITING:
+        monkeypatch.setitem(psc.SCENARIOS, name, waiting_spec(name))
     assert simload.main(["--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == len(psc.SCENARIOS)
     state = {line.split()[0]: line for line in lines}
     for name in RUNNABLE:
         assert state[name].endswith("runs")
-    for name, word in WAITING.items():
+    for name, (_overrides, word) in WAITING.items():
         assert "waits for" in state[name] and word in state[name]
 
 
 @pytest.mark.parametrize("args, word", [
-    (["--scenario", "churn-frag-200"], "capacity"),
+    (["--scenario", "needs-profile"], "profile"),
     (["--scenario", "churn", "--verify-determinism"], "deterministic"),
     (["--scenario", "no-such"], "unknown scenario"),
 ])
-def test_simload_refuses(args, word, capsys):
+def test_simload_refuses(args, word, capsys, monkeypatch):
+    monkeypatch.setitem(psc.SCENARIOS, "needs-profile",
+                        waiting_spec("needs-profile"))
     assert simload.main(args + ["--device", "cpu"]) == 2
     assert word in capsys.readouterr().err
 
