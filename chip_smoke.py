@@ -39,7 +39,7 @@ Phases, each printing its own lines:
 7. cluster: a three-member ClusterServer cell (raft over loopback RPC,
    workers on every member, one card). The 10,000 nodes through a
    follower (forwarded, then replicated); the headline and the service
-   job, each 1 warm-up and 3 timed rounds of register (through a
+   job, each 1 warm-up and 2 timed rounds of register (through a
    follower) -> complete -> deregister -> complete, with the time until
    every member has applied each and check_committed on every member's
    store; then 8 batch jobs of 12,500 tasks through the leader, the
@@ -55,9 +55,15 @@ Phases, each printing its own lines:
    every node within its capacity in the leader's store, launch the
    water-fill, and give the canonical event digest that nomad_tpu's
    runner gave on the same scenario and seed
-   (nomad_tpu_torch/simcluster/reference_digests.json). Logs
-   registration nodes/s, placements/s, plan and eval latency, device
-   dispatches, window and wall seconds and the span stage p50s.
+   (nomad_tpu_torch/simcluster/reference_digests.json). steady-10k runs
+   its profiler-off contrast arm too, which must give the same digest;
+   its profiled arm (the lock watchdog installed) must carry role wall
+   shares, a lock-contention table with no lock-order violation and the
+   byte ledger's 1M-row projection. Logs registration nodes/s,
+   placements/s, plan and eval latency, device dispatches, window and
+   wall seconds, the span stage p50s, the profiler's overhead on plan
+   p50, the byte ledger (per-row bytes, the projection, the CUDA bytes
+   of the resident mirrors) and the role shares.
 9. system: BASELINE config 4 (bench.py run_config4) through the port's
    tpu-system scheduler: the same 10,000 nodes and a system job on dc1
    (kernel.name = linux, 50 MHz / 64 MB), 1 warm-up and 5 timed evals,
@@ -84,7 +90,7 @@ Phases, each printing its own lines:
    with the GPU fingerprint's attributes (held to torch.cuda's), with
    mock_driver and raw_exec enabled. Every job asks $attr.driver.gpu = 1,
    so only the clients take it: client-batch (256 mock tasks of 0.2 s,
-   1 + 3 rounds, one water-fill each) must end 256 allocs dead with exit
+   1 + 2 rounds, one water-fill each) must end 256 allocs dead with exit
    0 on the GPU nodes; client-service (8 raw_exec /bin/sleep tasks
    through spawn daemons, the greedy scan) must run, then after
    ``stop -detach`` leave no daemon or task pid; client-fail (2 tasks
@@ -132,6 +138,21 @@ Phases, each printing its own lines:
    message type, stranded capacity and placeable counts before and after
    the deregistration, the chaos checks and fault books, plan p50/p95,
    placements/s, wall and the launches.
+14. operator: the agent's operator surface. A port Agent in server mode
+   built from a config file (telemetry { statsd_address = a UDP port
+   this script binds, lock_watchdog = true, histogram_buckets },
+   enable_debug, server { profile { enabled = true } }), the 10,000
+   nodes over RPC from a beating SimFleet, and the headline and the
+   count-100 service job through the SDK, each 1 warm-up and 2 timed
+   rounds of register -> complete -> deregister -> complete. Then
+   /v1/agent/metrics (JSON, and its Prometheus scrape parsed line by line
+   with nomad_tpu's families and the configured buckets), the statsd
+   lines, /v1/agent/solver (both kernels' solves), /v1/agent/runtime and
+   /profile in every format, capacity/raft/reads as Prometheus text,
+   /v1/agent/debug and the debug bundle's every section, and no
+   lock-order violation. Logs the ten lock sites with the most wait, the
+   raft and store locks over each headline deregister, the profiler's
+   role shares over each job's rounds and the scrape's size and time.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -1207,7 +1228,9 @@ def phase_server_burst(dev):
 # -- the cluster tier ------------------------------------------------------------
 
 CLUSTER_MEMBERS = 3
-CLUSTER_ROUNDS = 3
+# 3 until the operator phase was added; cut to 2 to keep the script's
+# command time near 600 s (each round carries a headline deregister).
+CLUSTER_ROUNDS = 2
 # Raft timing for three members' raft, RPC, broker, worker and pipeline
 # threads in one interpreter (nomad_tpu's tests widen theirs by the stall
 # they measure): 0.1 s heartbeats, 10-15 s elections. A raft node applies
@@ -1563,35 +1586,104 @@ def check_scenario(art, ref) -> bool:
     return True
 
 
+def check_profile(name: str, art) -> None:
+    """The profiled arm's profile section: enabled, role wall shares, a
+    non-empty lock-contention table with no lock-order violation, and the
+    mirror byte ledger's 1M-row projection."""
+    prof = art.get("profile") or {}
+    if not prof.get("enabled"):
+        raise AssertionError(f"{name}: the profile section is not enabled")
+    roles = prof["profiler"]["roles"]
+    if not roles or not any(r["wall_share"] for r in roles.values()):
+        raise AssertionError(f"{name}: no role wall shares {roles}")
+    locks = prof["locks"]
+    if not locks.get("installed") or not locks.get("contention"):
+        raise AssertionError(f"{name}: no lock-contention table {locks}")
+    if locks["violations"]:
+        raise AssertionError(f"{name}: {locks['violations']} lock-order "
+                             "violations")
+    if not prof["bytes"]["mirror"].get("projected_1m_bytes"):
+        raise AssertionError(f"{name}: the byte ledger has no 1M-row "
+                             f"projection {prof['bytes']['mirror']}")
+
+
+def run_checked(name: str, spec, dev, refs):
+    """One arm of one scenario on the card: held to nomad_tpu's digest,
+    every job's tasks committed within capacity, every eval complete.
+    Returns (artifact, water-fill launches, span stages, digest
+    compared)."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import waterfill
+    from nomad_tpu_torch.simcluster.scenario import ScenarioRunner
+
+    runner = ScenarioRunner(spec, seed=SEED, device=str(dev))
+    waterfill.LAUNCHES = 0
+    art = runner.run()
+    launches = waterfill.LAUNCHES
+    if launches == 0:
+        raise AssertionError(f"simcluster {name} never launched the "
+                             "water-fill kernel")
+    compared = check_scenario(art, refs[name])
+    snap = runner._srv.state_store.snapshot()
+    stages = []
+    for job in runner._jobs.values():
+        check_committed(snap, job, job.task_groups[0].count)
+        for ev in snap.evals_by_job(job.id):
+            if ev.status != structs.EVAL_STATUS_COMPLETE:
+                raise AssertionError(f"simcluster {name}: eval {ev.id} "
+                                     f"of {job.id} ended {ev.status}")
+            stages.append(eval_stages(ev.id))
+    return art, launches, stages, compared
+
+
 def phase_simcluster(dev, card: str, names=SIM_SCENARIOS):
     """Each scenario of ``names`` through the port's scenario runner on
     the card, held to nomad_tpu's digest and to the committed allocs of
-    the leader's store. Returns the water-fill launches of the phase."""
-    from nomad_tpu_torch import structs
-    from nomad_tpu_torch.ops import waterfill
-    from nomad_tpu_torch.simcluster.scenario import SCENARIOS, ScenarioRunner
+    the leader's store; a scenario with a contrast arm (steady-10k's
+    profiler-off arm) runs it too, and it must give the same digest. The
+    profiled arm's profile section is checked (check_profile). Returns
+    the water-fill launches of the phase."""
+    from nomad_tpu_torch.simcluster.scenario import (
+        SCENARIOS,
+        _contrast_spec,
+        profiler_overhead,
+    )
+    from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 
     refs = load_reference_digests()
     total = 0
     for name in names:
-        runner = ScenarioRunner(SCENARIOS[name], seed=SEED, device=str(dev))
-        waterfill.LAUNCHES = 0
-        art = runner.run()
-        launches = waterfill.LAUNCHES
+        spec = SCENARIOS[name]
+        art, launches, stages, compared = run_checked(name, spec, dev, refs)
         total += launches
-        if launches == 0:
-            raise AssertionError(f"simcluster {name} never launched the "
-                                 "water-fill kernel")
-        compared = check_scenario(art, refs[name])
-        snap = runner._srv.state_store.snapshot()
-        stages = []
-        for job in runner._jobs.values():
-            check_committed(snap, job, job.task_groups[0].count)
-            for ev in snap.evals_by_job(job.id):
-                if ev.status != structs.EVAL_STATUS_COMPLETE:
-                    raise AssertionError(f"simcluster {name}: eval {ev.id} "
-                                         f"of {job.id} ended {ev.status}")
-                stages.append(eval_stages(ev.id))
+        check_profile(name, art)
+        mirror = art["profile"]["bytes"]["mirror"]
+        log(f"simcluster {name}: byte ledger per_row_bytes="
+            f"{mirror['per_row_bytes']} padded_rows={mirror['padded_rows']} "
+            f"projected_1m_rows={mirror['projected_1m_rows']} "
+            f"projected_1m_bytes={mirror['projected_1m_bytes']} "
+            f"by_bucket_dtype={json.dumps(mirror['by_bucket_dtype'])} "
+            f"cuda_bytes_of_resident_mirrors="
+            f"{GLOBAL_MIRROR_CACHE.device_bytes()} [{card}]")
+        log(f"simcluster {name}: role wall shares " + json.dumps(
+            {r: v["wall_share"]
+             for r, v in art["profile"]["profiler"]["roles"].items()})
+            + f" lock sites timed {len(art['profile']['locks']['contention'])}"
+            " violations 0")
+        if spec.contrast_overrides is not None:
+            off, off_launches, _st, _c = run_checked(
+                name, _contrast_spec(spec), dev, refs)
+            total += off_launches
+            if off["events"]["digest"] != art["events"]["digest"]:
+                raise AssertionError(
+                    f"simcluster {name}: the contrast arm's digest "
+                    f"{off['events']['digest']} is not the main arm's")
+            if off["profile"] != {"enabled": False}:
+                raise AssertionError(f"{name}: the profiler-off arm profiled")
+            log(f"simcluster {name}: profiler-off arm digest equal, "
+                f"waterfill_launches={off_launches}, wall_seconds="
+                f"{off['wall_seconds']}, profiler_overhead "
+                + json.dumps(profiler_overhead(art, off)) + f" [{card}]")
         pl, reg = art["placements"], art["registration"]
         rows = [
             f"registration nodes_per_s={reg['nodes_per_sec']} "
@@ -2493,7 +2585,8 @@ def agent_subprocess(dev, job, path: str, card: str, tmp: str) -> None:
 
 CLIENT_NODES = 8
 CLIENT_BATCH_COUNT = 256
-CLIENT_BATCH_ROUNDS = 3
+# 3 until the operator phase was added; cut to 2 for the same reason.
+CLIENT_BATCH_ROUNDS = 2
 CLIENT_SERVICE_COUNT = 8
 CLIENT_FAIL_COUNT = 2
 CLIENT_FAIL_ATTEMPTS = 2
@@ -3065,6 +3158,420 @@ def phase_client(dev, card: str, tmp: str):
     return wf, gr
 
 
+# -- the agent's operator surface ----------------------------------------------
+
+OPERATOR_ROUNDS = 2
+# Fixed Prometheus histogram bounds (ms) the operator agent is configured
+# with: the sink's bucket exposition must carry exactly these.
+OPERATOR_BUCKETS = (1.0, 10.0, 100.0, 1000.0, 10000.0)
+# Families the main scrape must carry for the subsystems a server-mode
+# agent runs under this load: nomad_tpu's family names
+# (tests/test_torch_api.py holds this list to nomad_tpu's own scrape).
+OPERATOR_FAMILIES = (
+    "nomad_mirror_cache_hits_total", "nomad_mirror_cache_delta_rolls_total",
+    "nomad_mirror_cache_roll_ms_total", "nomad_mirror_cache_entries",
+    "nomad_plan_pipeline_plans_total", "nomad_plan_pipeline_max_batch",
+    "nomad_trace_spans_dropped_total", "nomad_trace_retained",
+    "nomad_admission_admitted_total", "nomad_admission_rejected_total",
+    "nomad_express_placed_total", "nomad_express_leases",
+    "nomad_capacity_nodes", "nomad_capacity_utilization",
+    "nomad_capacity_stranded_pct", "nomad_raft_commit_index",
+    "nomad_raft_applied_index", "nomad_raft_write_entries_total",
+    "nomad_raft_write_ms", "nomad_read_requests_total",
+    "nomad_read_latency_ms", "nomad_read_watchers",
+    "nomad_read_applied_index", "nomad_profile_samples_total",
+    "nomad_profile_role_share", "nomad_runtime_rss_bytes",
+    "nomad_runtime_mirror_bytes", "nomad_runtime_mirror_per_row_bytes",
+    "nomad_runtime_mirror_projected_1m_bytes", "nomad_lock_watchdog_installed",
+    "nomad_lock_order_violations", "nomad_lock_acquisitions_total",
+    "nomad_lock_wait_ms", "nomad_lock_hold_ms", "nomad_solver_solves_total",
+    "nomad_solver_placed_total", "nomad_solver_bucket_solves_total",
+    "nomad_solver_batch_dispatches_total",
+)
+RAFT_LOCK = "nomad_tpu_torch.raft.node.RaftNode._lock"
+STORE_LOCK = "nomad_tpu_torch.state.store.StateStore._lock"
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})? (\S+)$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Read a text exposition (version 0.0.4) line by line: every line a
+    ``# TYPE`` declaration (once per family, before its samples) or a
+    sample with a float value. Returns {family: type}; raises on the
+    first line that is neither."""
+    types: dict = {}
+    for i, line in enumerate(text.splitlines(), 1):
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            if (len(parts) != 4 or parts[3] not in
+                    ("counter", "gauge", "summary", "histogram")):
+                raise AssertionError(f"scrape line {i}: {line!r}")
+            if parts[2] in types:
+                raise AssertionError(f"scrape line {i}: family {parts[2]} "
+                                     "declared twice")
+            types[parts[2]] = parts[3]
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"scrape line {i}: {line!r}")
+        float(m.group(3))
+        name = m.group(1)
+        family = next((f for f in (name, re.sub(
+            r"_(bucket|sum|count)$", "", name)) if f in types), None)
+        if family is None:
+            raise AssertionError(f"scrape line {i}: sample {name} before "
+                                 "its family's TYPE line")
+    return types
+
+
+def http_get(addr: str, path: str):
+    """GET ``path`` from the agent: (status, content type, body text, ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(addr + path, timeout=AGENT_WAIT_S) as r:
+            status, ctype, body = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, body = e.code, e.headers["Content-Type"], e.read()
+    return (status, ctype, body.decode(),
+            (time.perf_counter() - t0) * 1000.0)
+
+
+def http_ok(addr: str, path: str) -> str:
+    status, _ctype, body, _ms = http_get(addr, path)
+    if status != 200:
+        raise AssertionError(f"GET {path}: {status} {body[:500]}")
+    return body
+
+
+class StatsdListener:
+    """A UDP socket on 127.0.0.1 that counts the statsd lines it gets."""
+
+    def __init__(self):
+        import socket
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.addr = "127.0.0.1:%d" % self.sock.getsockname()[1]
+        self.lines = 0
+        self.sample = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="statsd-listener")
+        self._thread.start()
+
+    def _run(self) -> None:
+        import socket
+
+        while not self._stop.is_set():
+            try:
+                data = self.sock.recv(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            for line in data.decode(errors="replace").splitlines():
+                self.lines += 1
+                if len(self.sample) < 3:
+                    self.sample.append(line)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self.sock.close()
+
+
+def operator_config_hcl(data_dir: str, device: str, statsd: str) -> str:
+    buckets = ", ".join(str(b) for b in OPERATOR_BUCKETS)
+    return f"""data_dir = "{data_dir}"
+bind_addr = "127.0.0.1"
+device = "{device}"
+enable_debug = true
+
+ports {{
+    http = 0
+    rpc = 0
+}}
+
+server {{
+    enabled = true
+    bootstrap_expect = 1
+    profile {{
+        enabled = true
+    }}
+}}
+
+telemetry {{
+    statsd_address = "{statsd}"
+    lock_watchdog = true
+    histogram_buckets = [{buckets}]
+}}
+"""
+
+
+def phase_operator_agent(dev, tmp: str, statsd: str):
+    """The operator phase's Agent, not started, from its config file (the
+    agent_config parser and AgentConfig.from_file_config): server mode,
+    statsd sink, lock watchdog, histogram buckets, debug routes and the
+    runtime observatory on; node TTLs of at least
+    AGENT_MIN_HEARTBEAT_TTL_S."""
+    from nomad_tpu_torch import agent_config
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
+    path = os.path.join(tmp, "operator.hcl")
+    with open(path, "w") as f:
+        f.write(operator_config_hcl(os.path.join(tmp, "operator"), dev.type,
+                                    statsd))
+    fc = agent_config.default_config().merge(
+        agent_config.load_config_file(path))
+    cfg = AgentConfig.from_file_config(fc)
+    cfg.node_name = "operator-1"
+    agent = Agent(cfg)
+    agent.server.config.min_heartbeat_ttl = AGENT_MIN_HEARTBEAT_TTL_S
+    return agent
+
+
+def lock_rows(wd) -> dict:
+    return {r["lock"]: r for r in wd.stats()["contention"]}
+
+
+def lock_delta(before: dict, after: dict, lock: str) -> dict:
+    """Acquisitions, contended acquisitions and total wait of one lock
+    between two contention tables (these three are additive)."""
+    b, a = before.get(lock, {}), after.get(lock, {})
+    return {k: round(a.get(k, 0) - b.get(k, 0), 3)
+            for k in ("acquisitions", "contended", "wait_total_ms")}
+
+
+def role_shares(before: dict, after: dict) -> dict:
+    """Each role's share of the thread samples taken between two profile
+    views."""
+    delta = {r: after["roles"][r]["samples"]
+             - before["roles"].get(r, {}).get("samples", 0)
+             for r in after["roles"]}
+    total = sum(delta.values()) or 1
+    return {r: round(n / total, 4) for r, n in sorted(delta.items())}
+
+
+def operator_round(client, srv, job, want: int, wd):
+    """Register (SDK) -> complete -> check -> deregister -> complete ->
+    check -> reap. Returns (register ms, deregister ms, the raft and store
+    locks' books over the deregister)."""
+    t0 = time.perf_counter()
+    eid, _ = client.jobs().register(job)
+    reg = (http_wait_complete(client, eid) - t0) * 1000.0
+    check_committed(srv.state_store.snapshot(), job, want)
+    before = lock_rows(wd)
+    t0 = time.perf_counter()
+    did, _ = client.jobs().deregister(job.id)
+    dereg = (http_wait_complete(client, did) - t0) * 1000.0
+    after = lock_rows(wd)
+    snap = srv.state_store.snapshot()
+    check_committed(snap, job, 0)
+    srv.eval_reap([eid, did], [a.id for a in snap.allocs_by_job(job.id)])
+    return reg, dereg, {"raft": lock_delta(before, after, RAFT_LOCK),
+                        "store": lock_delta(before, after, STORE_LOCK)}
+
+
+def check_operator_surface(agent, addr: str, client, statsd,
+                           solver_before: dict) -> None:
+    """Every /v1/agent/* route of the operator surface on the loaded
+    agent: the metrics JSON and its Prometheus scrape (parsed line by
+    line, OPERATOR_FAMILIES and the configured buckets present), the
+    statsd lines, the solver panel's dispatches of both kernels, the
+    runtime and profile routes in each format, the observatories'
+    Prometheus texts, the debug routes and the bundle's sections, and no
+    lock-order violation."""
+    from nomad_tpu_torch.bundle import BUNDLE_SECTIONS
+
+    # The observatories' JSON routes refresh their books first, so the
+    # scrape does not depend on where each poller's 1 s tick fell.
+    for route in ("capacity", "raft", "reads", "runtime"):
+        http_ok(addr, f"/v1/agent/{route}")
+    metrics = client.agent().metrics()
+    if not metrics.get("intervals") or metrics.get("runtime") is None:
+        raise AssertionError(f"/v1/agent/metrics: {list(metrics)}")
+    status, ctype, text, scrape_ms = http_get(
+        addr, "/v1/agent/metrics?format=prometheus")
+    if status != 200 or not ctype.startswith("text/plain"):
+        raise AssertionError(f"scrape: {status} {ctype}")
+    families = parse_prometheus(text)
+    missing = [f for f in OPERATOR_FAMILIES if f not in families]
+    if missing:
+        raise AssertionError(f"the scrape lacks {missing}")
+    hists = [f for f, t in families.items() if t == "histogram"]
+    les = set(re.findall(r'_hist_bucket\{le="([^"]+)"\}', text))
+    want_les = {format(float(b), ".17g") for b in OPERATOR_BUCKETS} | {"+Inf"}
+    if not hists or les != want_les:
+        raise AssertionError(f"histogram buckets {sorted(les)}, want "
+                             f"{sorted(want_les)}")
+    log(f"operator: scrape {len(text)} bytes, {len(text.splitlines())} "
+        f"lines, {len(families)} families in {scrape_ms:.2f} ms")
+    if statsd.lines == 0:
+        raise AssertionError("the statsd sink sent nothing")
+    log(f"operator: statsd lines received {statsd.lines}, e.g. "
+        f"{statsd.sample}")
+    solver = client.agent().solver()
+    panel, panel0 = solver["panel"], solver_before["panel"]
+    exact = (sum(b["solves"] for b in panel["count_buckets"])
+             - sum(b["solves"] for b in panel0["count_buckets"]))
+    solves = panel["solves"] - panel0["solves"]
+    dispatches = (solver["coalescer"]["dispatches"]
+                  - solver_before["coalescer"]["dispatches"])
+    if exact == 0 or solves - exact == 0 or dispatches == 0:
+        raise AssertionError(f"/v1/agent/solver: {solves} solves, {exact} "
+                             f"exact, {dispatches} dispatches")
+    ledger = solver["mirror_cache"]["byte_ledger"]
+    log(f"operator: /v1/agent/solver water-fill solves {solves - exact}, "
+        f"greedy solves {exact}, coalescer dispatches {dispatches}, "
+        f"mirror per_row_bytes {ledger['per_row_bytes']}")
+    runtime = client.agent().runtime()
+    if not runtime["locks"]["installed"] or runtime["locks"]["violations"]:
+        raise AssertionError(f"/v1/agent/runtime locks {runtime['locks']}")
+    parse_prometheus(http_ok(addr, "/v1/agent/runtime?format=prometheus"))
+    prof = client.agent().profile()
+    if not prof["profiler"]["samples"]:
+        raise AssertionError("/v1/agent/profile: no samples")
+    collapsed = http_ok(addr, "/v1/agent/profile?format=collapsed")
+    if not re.match(r"^\S+;.* \d+$", collapsed.splitlines()[0]):
+        raise AssertionError(f"collapsed: {collapsed[:200]!r}")
+    doc = json.loads(http_ok(addr, "/v1/agent/profile?format=speedscope"))
+    if doc["exporter"] != "nomad_tpu_torch.profile_observe" or not doc[
+            "profiles"]:
+        raise AssertionError(f"speedscope: {doc.get('exporter')}")
+    for route in ("capacity", "raft", "reads"):
+        fams = parse_prometheus(
+            http_ok(addr, f"/v1/agent/{route}?format=prometheus"))
+        if not fams:
+            raise AssertionError(f"/v1/agent/{route}: empty exposition")
+    debug = client.agent().debug()
+    if not debug["threads"] or debug["device"]["device"] != str(
+            agent.server.device):
+        raise AssertionError(f"/v1/agent/debug: {list(debug)}")
+    t0 = time.perf_counter()
+    bundle = client.agent().debug_bundle()
+    bundle_ms = (time.perf_counter() - t0) * 1000.0
+    lacks = [k for k in BUNDLE_SECTIONS if k not in bundle]
+    errors = [k for k in BUNDLE_SECTIONS
+              if isinstance(bundle.get(k), dict) and set(bundle[k]) == {
+                  "error"}]
+    if lacks or errors or bundle["breaker"]["device"] != str(
+            agent.server.device):
+        raise AssertionError(f"bundle lacks {lacks}, errors in {errors}")
+    log(f"operator: bundle {len(json.dumps(bundle))} bytes, "
+        f"{len(BUNDLE_SECTIONS)} sections in {bundle_ms:.1f} ms")
+
+
+def phase_operator(dev, card: str, tmp: str):
+    """The agent's operator surface on the card: one port Agent in server
+    mode built from its config file (statsd sink on a local UDP port this
+    script binds, lock watchdog, histogram buckets, enable_debug, the
+    runtime observatory), the 10,000 nodes over RPC from a beating
+    SimFleet, and the headline and the count-100 service job through the
+    SDK, each 1 warm-up and OPERATOR_ROUNDS timed rounds of register ->
+    complete -> deregister -> complete (check_committed each). Then every
+    operator route (check_operator_surface). Logs the ten lock sites with
+    the most wait, the raft and store locks over the headline
+    deregisters, the profiler's role shares under the headline, and the
+    scrape's size and time. The watchdog is uninstalled and the global
+    metrics registry restored before it returns. Returns (water-fill
+    launches, greedy launches)."""
+    from nomad_tpu_torch import structs, telemetry
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.simcluster.simnode import SimFleet
+
+    if threading.current_thread() is not threading.main_thread():
+        raise AssertionError("the operator agent must be built on the main "
+                             "thread (its SIGUSR1 dump)")
+    metrics_was = telemetry.get_global()
+    statsd = StatsdListener()
+    agent = phase_operator_agent(dev, tmp, statsd.addr)
+    fleet = None
+    waterfill.LAUNCHES = 0
+    greedy.LAUNCHES = 0
+    try:
+        wd = agent.lock_watchdog
+        if wd is None:
+            raise AssertionError("the operator agent installed no watchdog")
+        agent.start()
+        srv = agent.server
+        deadline = time.perf_counter() + AGENT_WAIT_S
+        while not srv.raft.is_leader:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the operator agent never led")
+            time.sleep(0.01)
+        addr = f"http://127.0.0.1:{agent.http.port}"
+        client = ApiClient(address=addr)
+        fleet = SimFleet(srv.rpc_addr)
+        reg = fleet.register(cluster_nodes())
+        fleet.start_heartbeats()
+        log(f"operator: {N_NODES} nodes over RPC in {reg['seconds']} s "
+            f"[{card}]")
+        solver_before = client.agent().solver()
+        jobs = [
+            make_job("operator-headline", structs.JOB_TYPE_BATCH, N_TASKS,
+                     ["dc1"], job_id="operator-headline"),
+            make_job("operator-service", structs.JOB_TYPE_SERVICE,
+                     SERVICE_COUNT, ["dc1", "dc2"], job_id="operator-service"),
+        ]
+        for job in jobs:
+            want = job.task_groups[0].count
+            prof0 = client.agent().profile()["profiler"]
+            rows = []
+            for i in range(1 + OPERATOR_ROUNDS):
+                row = operator_round(client, srv, job, want, wd)
+                if i:
+                    rows.append(row)
+                log(f"operator {job.id} round {i}"
+                    f"{' (warm-up)' if i == 0 else ''}: "
+                    f"register_complete_ms={row[0]:.2f} "
+                    f"deregister_complete_ms={row[1]:.2f} locks over the "
+                    f"deregister {json.dumps(row[2])}")
+            prof1 = client.agent().profile()["profiler"]
+            log(f"operator {job.id}: register_complete_p50_ms="
+                f"{p50([r[0] for r in rows]):.3f} "
+                f"deregister_complete_p50_ms={p50([r[1] for r in rows]):.3f}"
+                f" role shares over its rounds "
+                f"{json.dumps(role_shares(prof0, prof1))} [{card}]")
+        wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+        if wf == 0 or gr == 0:
+            raise AssertionError(f"the operator phase launched water-fill "
+                                 f"{wf} and greedy {gr} times; both must "
+                                 "rise")
+        check_operator_surface(agent, addr, client, statsd, solver_before)
+        stats = wd.stats()
+        if wd.violations:
+            raise AssertionError(f"lock-order violations: {wd.violations}")
+        log(f"operator: watchdog {stats['locks_tracked']} lock sites "
+            f"acquired, violations {stats['violations']}; the ten with the "
+            "most wait:")
+        for row in stats["contention"][:10]:
+            log(f"operator lock {row['lock']}: wait_total_ms="
+                f"{row['wait_total_ms']} contended={row['contended']}/"
+                f"{row['acquisitions']} wait_p50_ms={row['wait_ms']['p50']} "
+                f"wait_p95_ms={row['wait_ms']['p95']} hold_p95_ms="
+                f"{row['hold_ms']['p95']} [{card}]")
+        for lock in (RAFT_LOCK, STORE_LOCK):
+            row = next((r for r in stats["contention"] if r["lock"] == lock),
+                       None)
+            log(f"operator lock {lock} over the phase: {json.dumps(row)}")
+        log(f"operator: waterfill_launches={wf} greedy_launches={gr}")
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        agent.shutdown()
+        statsd.stop()
+        telemetry.set_global(metrics_was)
+    if telemetry.active_lock_watchdog() is not None:
+        raise AssertionError("the watchdog is still installed")
+    return wf, gr
+
+
 def main() -> int:
     import torch
 
@@ -3156,6 +3663,15 @@ def main() -> int:
 
     # 13. recovery and chaos
     wf, gr = phase_recovery(dev, card)
+    wf_launches += wf
+    gr_launches += gr
+
+    # 14. the agent's operator surface
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        wf, gr = phase_operator(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     wf_launches += wf
     gr_launches += gr
 

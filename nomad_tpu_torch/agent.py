@@ -9,9 +9,16 @@ to ``client_servers`` over RPC on a client-only agent; then the
 ``HTTPServer``. The server solves on ``device`` (default: the CUDA card;
 raises without one unless the caller asks for the CPU).
 
+``lock_watchdog`` installs :func:`telemetry.port_lock_watchdog` (the
+lock-order analysis of the port's own sources) before any server lock is
+built. ``setup_telemetry`` builds the metrics sinks (in-memory, plus
+statsd/statsite when configured), sets the global ``Metrics`` and arms
+the SIGUSR1 dump when called on the main thread. The debug surface
+(``debug_info``, ``debug_bundle``) is served behind ``enable_debug``.
+
 What needs a module the port does not have yet raises
 :class:`nomad_tpu_torch.NotPortedError` naming it (``NOT_PORTED``): the
-lock watchdog's analysis, the Atlas/SCADA uplink, and the debug bundle.
+Atlas/SCADA uplink.
 """
 
 from __future__ import annotations
@@ -32,8 +39,6 @@ from nomad_tpu_torch.server.server import Server, ServerConfig
 # yet, with the module each needs. Setting one raises at Agent
 # construction: it is never ignored.
 NOT_PORTED = {
-    "lock_watchdog": "the lock watchdog's lock-order analysis "
-                     "(tools/nomadlint)",
     "atlas_endpoint": "the Atlas/SCADA uplink (scada.py)",
 }
 
@@ -42,10 +47,9 @@ NOT_PORTED = {
 class AgentConfig:
     """Agent-level configuration (reference: command/agent/config.go).
 
-    nomad_tpu's keys for the runtime observatory, the solver mesh, TLS
-    and the metrics sinks have no field here: their modules are not
-    ported (``agent_config`` raises on them in a config
-    file)."""
+    nomad_tpu's keys for the solver mesh and TLS have no field here:
+    their modules are not ported (``agent_config`` raises on them in a
+    config file)."""
 
     region: str = "global"
     datacenter: str = "dc1"
@@ -86,14 +90,26 @@ class AgentConfig:
     # Follower read plane spec (server/read_path.py): None = defaults
     # (enabled); {"enabled": False} serves every read locally.
     read_path: Optional[Dict] = None
+    # Runtime self-observatory spec (profile_observe.py): sampling
+    # profiler + byte ledger. None = defaults (enabled).
+    profile: Optional[Dict] = None
     # Declarative latency SLOs (slo.py): objective name -> threshold ms.
     # None = the default objectives; {} disables the monitor.
     slo_objectives: Optional[Dict[str, float]] = None
     enable_debug: bool = False
+    statsite_addr: str = ""
+    statsd_addr: str = ""
+    disable_hostname_metrics: bool = False
+    # Prometheus histogram bucket bounds in ms (empty = the
+    # telemetry.DEFAULT_HISTOGRAM_BUCKETS_MS set).
+    histogram_buckets: List[float] = field(default_factory=list)
     # Eval-lifecycle tracing (nomad_tpu_torch.trace): ring size of
     # retained traces (0 = default 256) and the master enable.
     trace_buffer_size: int = 0
     disable_tracing: bool = False
+    # Lock-order and contention watchdog (telemetry.LockWatchdog over
+    # the port's own lock analysis), installed at agent CONSTRUCTION:
+    # locks are wrapped as they are built. Default off.
     lock_watchdog: bool = False
     # Cluster event stream ring (0 = default 2048): the
     # /v1/event/stream resume window.
@@ -164,8 +180,14 @@ class AgentConfig:
             raft_observe=fc.server.raft_observe,
             reads=fc.server.reads,
             read_path=fc.server.read_path,
+            profile=(dict(fc.server.profile)
+                     if fc.server.profile is not None else None),
             slo_objectives=fc.telemetry.slo,
             enable_debug=fc.enable_debug,
+            statsite_addr=fc.telemetry.statsite_address,
+            statsd_addr=fc.telemetry.statsd_address,
+            disable_hostname_metrics=fc.telemetry.disable_hostname,
+            histogram_buckets=list(fc.telemetry.histogram_buckets),
             trace_buffer_size=fc.telemetry.trace_buffer_size,
             disable_tracing=fc.telemetry.disable_tracing,
             lock_watchdog=fc.telemetry.lock_watchdog,
@@ -199,12 +221,41 @@ class Agent:
         self.client: Optional[Client] = None
         self.http: Optional[object] = None
         self.client_config: Optional[ClientConfig] = None
-        if config.server_enabled:
-            self._setup_server()
-        if config.client_enabled:
-            self._setup_client()
-        if self.server is None and self.client_config is None:
-            raise ValueError("must have at least client or server mode enabled")
+        self.inmem_sink = None
+        self.lock_watchdog = None
+        if config.lock_watchdog:
+            # Before _setup_server(): only locks CONSTRUCTED after
+            # install() are wrapped, and the server builds its locks in
+            # __init__.
+            self._install_lock_watchdog()
+        try:
+            if config.server_enabled:
+                self._setup_server()
+            if config.client_enabled:
+                self._setup_client()
+            if self.server is None and self.client_config is None:
+                raise ValueError(
+                    "must have at least client or server mode enabled")
+        except BaseException:
+            # No agent, so no shutdown() will restore the lock factories.
+            if self.lock_watchdog is not None:
+                self.lock_watchdog.uninstall()
+                self.lock_watchdog = None
+            raise
+
+    def _install_lock_watchdog(self) -> None:
+        """telemetry{lock_watchdog = true}: wrap lock construction so every
+        lock the analysis knows checks acquisition order and times its
+        contention. The analysis reads the repo's ``tools/nomadlint``; in
+        a deployment without it the knob degrades to a warning."""
+        from nomad_tpu_torch import telemetry
+
+        try:
+            self.lock_watchdog = telemetry.port_lock_watchdog().install()
+        except Exception as e:
+            self.logger.warning(
+                "lock_watchdog requested but unavailable "
+                "(the lock-order analysis failed): %s", e)
 
     def _setup_server(self) -> None:
         """agent.go:153-173. Dev mode runs the in-process server (the
@@ -223,7 +274,8 @@ class Agent:
                 name: (dict(getattr(self.config, name))
                        if getattr(self.config, name) is not None else None)
                 for name in ("admission", "express", "capacity",
-                             "raft_observe", "reads", "read_path")
+                             "raft_observe", "reads", "read_path",
+                             "profile")
             },
         )
         if self.config.event_buffer_size:
@@ -297,15 +349,32 @@ class Agent:
         )
 
     def setup_telemetry(self) -> None:
-        """The eval tracer (nomad_tpu_torch.trace, served at the trace
-        endpoints). nomad_tpu's metrics sinks and SIGUSR1 dump are not
-        ported: /v1/agent/metrics answers 501."""
-        from nomad_tpu_torch import trace
+        """Metrics sinks + SIGUSR1 dump (upstream
+        command/agent/command.go:486-520) + the eval tracer, served at
+        /v1/agent/metrics and the trace endpoints."""
+        import threading
 
+        from nomad_tpu_torch import telemetry, trace
+
+        inmem, sink = telemetry.build_sink(
+            statsite_addr=self.config.statsite_addr,
+            statsd_addr=self.config.statsd_addr,
+            histogram_buckets=self.config.histogram_buckets or None,
+        )
+        self.inmem_sink = inmem
+        telemetry.set_global(
+            telemetry.Metrics(
+                sink,
+                service="nomad",
+                enable_hostname=not self.config.disable_hostname_metrics,
+            )
+        )
         self.tracer = trace.configure(
             max_traces=self.config.trace_buffer_size or 256,
             enabled=not self.config.disable_tracing,
         )
+        if threading.current_thread() is threading.main_thread():
+            telemetry.setup_signal_dump(inmem)
 
     def setup_logging(self) -> None:
         """Level gate + circular stream buffer + optional syslog."""
@@ -321,7 +390,7 @@ class Agent:
 
         if getattr(self, "log_writer", None) is None:
             self.setup_logging()
-        if getattr(self, "tracer", None) is None:
+        if self.inmem_sink is None:
             self.setup_telemetry()
         if self.config.faults:
             # Arm the configured fault plan BEFORE any subsystem starts so
@@ -354,17 +423,79 @@ class Agent:
             self.client.shutdown(destroy_allocs=self.config.dev_mode)
         if self.server is not None:
             self.server.shutdown()
+        if self.lock_watchdog is not None:
+            # Restore the real lock constructors; locks wrapped during
+            # this agent's lifetime keep their (harmless) proxies.
+            self.lock_watchdog.uninstall()
+            self.lock_watchdog = None
 
     # -- info for the agent HTTP endpoints -----------------------------------
 
     def debug_enabled(self) -> bool:
         return self.config.enable_debug
 
+    def debug_info(self, query: Optional[Dict] = None) -> Dict:
+        """Runtime introspection for /v1/agent/debug (the pprof analog,
+        upstream command/agent/http.go:115-119): thread stacks, gc stats,
+        tracemalloc's top allocations (only while tracing), the server's
+        device and the kernels' build info (in place of nomad_tpu's device
+        probe and Pallas state), the coalescer and the mirror cache."""
+        import gc
+        import tracemalloc
+
+        from nomad_tpu_torch.bundle import thread_stacks
+
+        query = query or {}
+        out: Dict = {"threads": thread_stacks(depth=8)}
+        # The full-heap walk is expensive: only on an explicit truthy
+        # flag, never '?objects=false'.
+        want_objects = str(query.get("objects", "")).lower() in ("1", "true")
+        out["gc"] = {
+            "counts": list(gc.get_count()),
+            "thresholds": list(gc.get_threshold()),
+            "objects": len(gc.get_objects()) if want_objects else None,
+        }
+        if tracemalloc.is_tracing():
+            snap = tracemalloc.take_snapshot()
+            out["tracemalloc_top"] = [
+                str(stat) for stat in snap.statistics("lineno")[:15]
+            ]
+        else:
+            out["tracemalloc_top"] = None  # start tracing to populate
+        try:
+            out["device"] = (self._device_info() if self.server is not None
+                             else None)
+        except Exception as e:
+            out["device"] = {"error": str(e)}
+        try:
+            from nomad_tpu_torch.ops.coalesce import GLOBAL_SOLVER
+
+            out["coalescer"] = {
+                "dispatches": GLOBAL_SOLVER.dispatches,
+                "coalesced": GLOBAL_SOLVER.coalesced,
+            }
+        except Exception as e:
+            out["coalescer"] = {"error": str(e)}
+        try:
+            from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
+
+            out["mirror_cache"] = GLOBAL_MIRROR_CACHE.stats()
+        except Exception as e:
+            out["mirror_cache"] = {"error": str(e)}
+        return out
+
     def debug_bundle(self, query: Optional[Dict] = None) -> Dict:
-        raise NotPortedError(
-            "the debug bundle needs bundle.py, which nomad_tpu_torch does "
-            "not have yet"
-        )
+        """One-shot flight recorder (/v1/agent/debug/bundle): metrics,
+        traces, events, redacted config, fault plan, device statement and
+        thread stacks in a single JSON artifact (nomad_tpu_torch.bundle)."""
+        from nomad_tpu_torch.bundle import collect
+
+        query = query or {}
+        try:
+            last_events = int(query.get("events", "0"))
+        except ValueError:
+            last_events = 0
+        return collect(agent=self, last_events=last_events or 512)
 
     def self_info(self) -> Dict:
         """/v1/agent/self: nomad_tpu's keys, with the server's device (name

@@ -10,8 +10,7 @@ The HCL dialect is the same one job specs use, so this reuses
 ``nomad_tpu_torch.jobspec.hcl``; ``.json`` files parse with the stdlib.
 
 A key whose module the port does not have yet (``NOT_PORTED_KEYS``: the
-runtime observatory, the solver mesh, the metrics sinks, TLS, Atlas)
-raises
+solver mesh, TLS, Atlas) raises
 :class:`nomad_tpu_torch.NotPortedError` naming that module: it is never
 ignored. The port adds ``device`` (default ``cuda``): where the agent's
 server solves.
@@ -27,6 +26,7 @@ from typing import Dict, List, Optional
 from nomad_tpu_torch import NotPortedError
 from nomad_tpu_torch.capacity import CapacityConfig
 from nomad_tpu_torch.jobspec.hcl import Block, Body, parse as parse_hcl
+from nomad_tpu_torch.profile_observe import ProfileObserveConfig
 from nomad_tpu_torch.raft_observe import RaftObserveConfig
 from nomad_tpu_torch.read_observe import ReadObserveConfig
 from nomad_tpu_torch.server.admission import AdmissionConfig
@@ -37,13 +37,7 @@ from nomad_tpu_torch.slo import Objective
 # Config keys of nomad_tpu whose modules the port does not have yet, with
 # the module each needs.
 NOT_PORTED_KEYS = {
-    "server.profile": "the runtime observatory (profile_observe.py)",
     "server.solver_mesh": "the solver mesh (parallel/mesh.py)",
-    "telemetry.statsite_address": "the statsite sink (telemetry.py's sinks)",
-    "telemetry.statsd_address": "the statsd sink (telemetry.py's sinks)",
-    "telemetry.disable_hostname": "the metrics sinks (telemetry.py's sinks)",
-    "telemetry.histogram_buckets": "the Prometheus exposition "
-                                   "(telemetry.py's sinks)",
     "tls": "TLS on the RPC tier (tlsutil.py)",
     "atlas": "the Atlas/SCADA uplink (scada.py)",
 }
@@ -106,7 +100,7 @@ class ServerBlock:
     legacy alias; 0 = server default), ``eval_pending_cap``,
     ``plan_queue_cap`` and ``max_blocking_watchers`` (0 = unbounded), and
     the ``admission``, ``express``, ``capacity``, ``raft_observe``,
-    ``reads`` and ``read_path`` sub-blocks (each validated at parse time
+    ``reads``, ``read_path`` and ``profile`` sub-blocks (each validated at parse time
     by its module's ``Config.parse``; None = that module's defaults)::
 
         server {
@@ -131,6 +125,7 @@ class ServerBlock:
     raft_observe: Optional[Dict[str, object]] = None
     reads: Optional[Dict[str, object]] = None
     read_path: Optional[Dict[str, object]] = None
+    profile: Optional[Dict[str, object]] = None
     enabled_schedulers: List[str] = field(default_factory=list)
     start_join: List[str] = field(default_factory=list)
 
@@ -138,18 +133,25 @@ class ServerBlock:
 @dataclass
 class Telemetry:
     """config.go Telemetry block with the eval-trace knobs:
-    ``trace_buffer_size`` bounds the retained-trace ring (0 = 256),
+    ``statsite_address``/``statsd_address`` add push sinks beside the
+    in-memory one, ``disable_hostname`` drops the hostname from metric
+    keys, ``trace_buffer_size`` bounds the retained-trace ring (0 = 256),
     ``disable_tracing`` turns span recording off, ``event_buffer_size``
-    bounds the event stream ring (0 = 2048). The ``slo { }`` sub-block
+    bounds the event stream ring (0 = 2048), ``histogram_buckets``
+    overrides the Prometheus histogram bounds in ms (empty =
+    telemetry.DEFAULT_HISTOGRAM_BUCKETS_MS). The ``slo { }`` sub-block
     declares latency objectives (``submit_to_placed_p95_ms = 250``,
     nomad_tpu_torch.slo): no block (None) means the default objectives, an
-    empty ``slo { }`` disables the monitor. ``lock_watchdog`` parses as
-    in nomad_tpu; an agent with the watchdog on raises until the
-    lock-order analysis has a port."""
+    empty ``slo { }`` disables the monitor. ``lock_watchdog`` installs
+    the telemetry.LockWatchdog at agent construction."""
 
+    statsite_address: str = ""
+    statsd_address: str = ""
+    disable_hostname: bool = False
     trace_buffer_size: int = 0
     disable_tracing: bool = False
     event_buffer_size: int = 0
+    histogram_buckets: List[float] = field(default_factory=list)
     slo: Optional[Dict[str, float]] = None
     lock_watchdog: bool = False
 
@@ -284,6 +286,18 @@ class FileConfig:
             ],
         )
         out.telemetry = Telemetry(
+            statsite_address=(
+                other.telemetry.statsite_address
+                or self.telemetry.statsite_address
+            ),
+            statsd_address=(
+                other.telemetry.statsd_address
+                or self.telemetry.statsd_address
+            ),
+            disable_hostname=(
+                other.telemetry.disable_hostname
+                or self.telemetry.disable_hostname
+            ),
             trace_buffer_size=(
                 other.telemetry.trace_buffer_size
                 or self.telemetry.trace_buffer_size
@@ -295,6 +309,10 @@ class FileConfig:
             event_buffer_size=(
                 other.telemetry.event_buffer_size
                 or self.telemetry.event_buffer_size
+            ),
+            histogram_buckets=(
+                list(other.telemetry.histogram_buckets)
+                or list(self.telemetry.histogram_buckets)
             ),
             # Objectives merge key-by-key; an explicit empty block anywhere
             # in the chain disables, so a later `slo {}` must override.
@@ -336,6 +354,7 @@ _SERVER_BLOCKS = {
     "raft_observe": RaftObserveConfig.parse,
     "reads": ReadObserveConfig.parse,
     "read_path": ReadPathConfig.parse,
+    "profile": ProfileObserveConfig.parse,
 }
 
 
@@ -448,6 +467,16 @@ def _from_mapping(data: dict) -> FileConfig:
                     raise ValueError(f"unknown telemetry config key {k!r}")
                 if k in ("trace_buffer_size", "event_buffer_size"):
                     v = int(v)
+                elif k == "histogram_buckets":
+                    if (not isinstance(v, (list, tuple))
+                            or not all(isinstance(b, (int, float))
+                                       and not isinstance(b, bool)
+                                       and b > 0 for b in v)):
+                        raise ValueError(
+                            "telemetry.histogram_buckets must be a list "
+                            "of positive numbers (bucket bounds in ms)"
+                        )
+                    v = sorted(float(b) for b in v)
                 elif k == "slo":
                     if not isinstance(v, dict):
                         raise ValueError("telemetry.slo must be a mapping")

@@ -6,9 +6,10 @@ parsing (``index``/``wait``) at :228-250, and the X-Nomad-Index /
 X-Nomad-KnownLeader / X-Nomad-LastContact response headers. Endpoint
 behaviors mirror command/agent/{job,node,eval,alloc,agent}_endpoint.go.
 
-The routes whose handler needs a module the port does not have yet
-answer 501 with a body naming the module (``NOT_PORTED_ROUTES``). Every
-GET resolves its consistency lane through the server's follower read
+Every route of nomad_tpu's agent answers, the Prometheus exposition
+(``?format=prometheus`` on /v1/agent/metrics, /runtime, /capacity,
+/raft and /reads) included, with nomad_tpu's family names. Every GET
+resolves its consistency lane through the server's follower read
 plane (``server/read_path.py``) before its handler runs, and each
 finished GET is folded into the read observatory's books
 (``read_observe.py``), keyed by route template.
@@ -23,11 +24,11 @@ import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from nomad_tpu_torch import events as events_mod
-from nomad_tpu_torch import lifecycle, trace
+from nomad_tpu_torch import lifecycle, telemetry, trace
 from nomad_tpu_torch.api.codec import from_dict, to_dict
 from nomad_tpu_torch.jobspec import parse_duration
 from nomad_tpu_torch.server.blocking import blocking_query
@@ -48,23 +49,6 @@ from nomad_tpu_torch.server.read_path import (
     LANE_LINEARIZABLE,
     LANE_STALE,
 )
-
-# Routes of nomad_tpu whose handlers need a module the port does not have
-# yet: route pattern -> the module. Each answers 501 naming it.
-NOT_PORTED_ROUTES = {
-    r"^/v1/agent/profile$": "the runtime observatory (profile_observe.py)",
-    r"^/v1/agent/runtime$": "the runtime observatory (profile_observe.py)",
-    r"^/v1/agent/solver$":
-        "the solver panel on /v1/agent/* (the telemetry sinks)",
-    r"^/v1/agent/metrics$": "the telemetry sinks (telemetry.py's sinks)",
-    r"^/v1/agent/debug$": "the debug surface (bundle.py)",
-    r"^/v1/agent/debug/bundle$": "the debug bundle (bundle.py)",
-}
-
-
-# The Prometheus exposition a few ported routes offer as ?format=prometheus.
-PROMETHEUS_NEEDS = "the Prometheus exposition (telemetry.py's sinks)"
-
 
 def _route_template(pattern: str) -> str:
     """Stable attribution key for a route regex: named groups become
@@ -90,6 +74,135 @@ class HTTPCodedError(Exception):
     def __init__(self, code: int, message: str):
         super().__init__(message)
         self.code = code
+
+
+def _mirror_cache_stats() -> Dict[str, Any]:
+    """The process-wide device-mirror cache's stats — hits/misses plus
+    the delta-roll economy (delta_rolls vs full_rebuilds, rows_restaged).
+    Late import: the metrics endpoint must answer even if the solver
+    stack never initialized."""
+    try:
+        from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
+
+        return GLOBAL_MIRROR_CACHE.stats()
+    except Exception as e:  # pragma: no cover - import-time breakage only
+        return {"error": str(e)}
+
+
+def _mirror_prometheus(b: "telemetry.PromText") -> None:
+    """Mirror-cache stats on the shared line-builder: monotonic counters
+    for the roll economy (counts AND wall cost), a gauge for residency."""
+    stats = _mirror_cache_stats()
+    if "error" in stats:
+        return
+    for k in ("hits", "misses", "delta_rolls", "full_rebuilds",
+              "rows_restaged"):
+        b.counter(f"nomad_mirror_cache_{k}_total", stats[k])
+    b.counter("nomad_mirror_cache_roll_ms_total", stats["roll_ms"])
+    b.counter("nomad_mirror_cache_rebuild_ms_total", stats["rebuild_ms"])
+    b.gauge("nomad_mirror_cache_entries", stats["entries"])
+
+
+def _plan_pipeline_stats() -> Dict[str, Any]:
+    """Process-wide optimistic plan-pipeline totals (plan_pipeline.py):
+    batches/plans drained, commit vs conflict split, fused-vs-scalar
+    verification economy. Late import like the mirror stats."""
+    try:
+        from nomad_tpu_torch.server.plan_pipeline import PIPELINE_TOTALS
+
+        return PIPELINE_TOTALS.stats()
+    except Exception as e:  # pragma: no cover - import-time breakage only
+        return {"error": str(e)}
+
+
+def _plan_pipeline_prometheus(b: "telemetry.PromText") -> None:
+    """Pipeline totals: everything monotonic is a counter;
+    max_batch_seen is a high-watermark gauge."""
+    stats = _plan_pipeline_stats()
+    if "error" in stats:
+        return
+    for k in ("batches", "plans", "committed", "noops", "rejected",
+              "conflicts", "refreshes", "fused_plans", "scalar_plans"):
+        b.counter(f"nomad_plan_pipeline_{k}_total", stats[k])
+    b.gauge("nomad_plan_pipeline_max_batch", stats["max_batch_seen"])
+
+
+def _trace_prometheus(b: "telemetry.PromText") -> None:
+    """Tracer loss accounting: without the aggregate counters, silent
+    span/trace loss under 10k-node load is invisible until someone opens
+    the one clipped trace."""
+    stats = trace.get_tracer().stats()
+    for k in ("spans_dropped", "traces_evicted"):
+        b.counter(f"nomad_trace_{k}_total", stats[k])
+    b.gauge("nomad_trace_retained", stats["retained"])
+
+
+def _solver_panel_stats() -> Dict[str, Any]:
+    """Process-wide device-solve efficiency panel (tpu/solver.py
+    SOLVER_PANEL). Late import: the metrics endpoint must answer even if
+    the solver stack never initialized."""
+    try:
+        from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
+
+        return SOLVER_PANEL.snapshot()
+    except Exception as e:  # pragma: no cover - import-time breakage only
+        return {"error": str(e)}
+
+
+def _solver_prometheus(b: "telemetry.PromText") -> None:
+    """Solver efficiency panel: padding-waste and per-placement device
+    cost as gauges, solve/compile totals as counters with bucket/trigger
+    labels."""
+    stats = _solver_panel_stats()
+    if "error" in stats:
+        return
+    b.counter("nomad_solver_solves_total", stats["solves"])
+    b.counter("nomad_solver_requested_total", stats["requested"])
+    b.counter("nomad_solver_placed_total", stats["placed"])
+    b.counter("nomad_solver_device_ms_total", stats["device_ms"])
+    b.gauge("nomad_solver_node_padding_waste",
+            stats["node_padding_waste"])
+    b.gauge("nomad_solver_count_padding_waste",
+            stats["count_padding_waste"])
+    b.gauge("nomad_solver_device_ms_per_placement",
+            stats["device_ms_per_placement"])
+    for row in stats["node_buckets"]:
+        b.counter("nomad_solver_bucket_solves_total", row["solves"],
+                  labels={"bucket": row["bucket"]})
+        b.gauge("nomad_solver_bucket_occupancy", row["occupancy"],
+                labels={"bucket": row["bucket"]})
+    # Cross-eval batching economy: dispatch/eval totals per stack width
+    # and the amortized per-eval device wall at that width.
+    for width, row in stats.get("batch_widths", {}).items():
+        b.counter("nomad_solver_batch_dispatches_total",
+                  row["dispatches"], labels={"width": width})
+        b.counter("nomad_solver_batch_evals_total",
+                  row["evals"], labels={"width": width})
+        b.gauge("nomad_solver_batch_device_ms_per_eval",
+                row["device_ms_per_eval"], labels={"width": width})
+    equiv = stats.get("equiv", {})
+    for k in ("classes", "members", "copies", "rows_saved"):
+        if k in equiv:
+            b.counter(f"nomad_solver_equiv_{k}_total", equiv[k])
+    for trigger, n in stats["compiles"]["by_trigger"].items():
+        b.counter("nomad_solver_compiles_total", n,
+                  labels={"trigger": trigger})
+
+
+class RawResponse:
+    """Non-JSON handler result (e.g. Prometheus text exposition): the
+    dispatcher writes the body verbatim with the given content type."""
+
+    __slots__ = ("body", "content_type")
+
+    def __init__(self, body: bytes, content_type: str):
+        self.body = body
+        self.content_type = content_type
+
+
+class _Streamed:
+    """Sentinel handler result: the handler already wrote the response
+    itself (SSE tailing) — the dispatcher must not write anything."""
 
 
 class _Streamed:
@@ -158,7 +271,13 @@ class HTTPServer:
             (r"^/v1/agent/capacity$", self.agent_capacity),
             (r"^/v1/agent/raft$", self.agent_raft),
             (r"^/v1/agent/reads$", self.agent_reads),
+            (r"^/v1/agent/profile$", self.agent_profile),
+            (r"^/v1/agent/runtime$", self.agent_runtime),
+            (r"^/v1/agent/solver$", self.agent_solver),
+            (r"^/v1/agent/metrics$", self.agent_metrics),
             (r"^/v1/agent/traces$", self.agent_traces),
+            (r"^/v1/agent/debug$", self.agent_debug),
+            (r"^/v1/agent/debug/bundle$", self.agent_debug_bundle),
             (r"^/v1/agent/faults$", self.agent_faults),
             (r"^/v1/agent/logs$", self.agent_logs),
             (r"^/v1/agent/members$", self.agent_members),
@@ -168,8 +287,6 @@ class HTTPServer:
             (r"^/v1/status/leader$", self.status_leader),
             (r"^/v1/status/peers$", self.status_peers),
         ]
-        self.routes += [(p, self._not_ported(needs))
-                        for p, needs in NOT_PORTED_ROUTES.items()]
         # Each route's read-attribution key, by pattern.
         self._templates = {p: _route_template(p) for p, _h in self.routes}
         self.routes = [(re.compile(p), h) for p, h in self.routes]
@@ -224,7 +341,11 @@ class HTTPServer:
                     self.logger.exception("http: request failed")
                     self._respond_error(req, 500, str(e))
                 else:
-                    if out is not STREAMED:  # SSE wrote its own body
+                    if out is STREAMED:
+                        pass  # SSE wrote its own body
+                    elif isinstance(out, RawResponse):
+                        self._respond_raw(req, out)
+                    else:
                         self._respond_json(req, out, index)
             finally:
                 self._local.ctx = None
@@ -257,14 +378,6 @@ class HTTPServer:
         if obs is None or not obs.config.enabled:
             return None
         return obs
-
-    @staticmethod
-    def _not_ported(needs: str) -> Callable:
-        def handler(req, query, **_ids):
-            raise HTTPCodedError(
-                501, f"not implemented: this endpoint needs {needs}, which "
-                     "nomad_tpu_torch does not have yet")
-        return handler
 
     def _enter_read_lane(self, req, query: Dict[str, str],
                          ctx: Dict[str, Any]) -> None:
@@ -364,6 +477,15 @@ class HTTPServer:
         self._freshness_headers(req)
         req.end_headers()
         req.wfile.write(body)
+
+    def _respond_raw(self, req, out: RawResponse) -> None:
+        self._note_response(200, len(out.body))
+        req.send_response(200)
+        req.send_header("Content-Type", out.content_type)
+        req.send_header("Content-Length", str(len(out.body)))
+        self._freshness_headers(req)
+        req.end_headers()
+        req.wfile.write(out.body)
 
     def _note_response(self, status: int, nbytes: int) -> None:
         """Stamp the request's read context with what went out."""
@@ -884,15 +1006,15 @@ class HTTPServer:
         bin-pack density, per-lane usage, fragmentation histograms and
         stranded-capacity % against the reference shapes. The accountant
         is rolled forward first, so the body reflects the store now.
-        ``?format=prometheus`` answers 501: the exposition is not
-        ported."""
+        ``?format=prometheus`` serves just the capacity families."""
         acct = self._observer("capacity_accountant")
         if acct is None:
             raise HTTPCodedError(404, "capacity observatory not running "
                                       "(no server, or capacity "
                                       "{ enabled = false })")
-        self._no_prometheus(query)
         acct.refresh()
+        if query.get("format") == "prometheus":
+            return self._prometheus(self._capacity_prometheus), None
         return acct.snapshot(), None
 
     def agent_raft(self, req, query) -> Tuple[Any, Optional[int]]:
@@ -900,24 +1022,29 @@ class HTTPServer:
         stage attribution per msg_type, per-follower lag, commit-advance
         rate, the log/snapshot economy and the restart-replay recovery
         timeline. The node's books are drained first.
-        ``?format=prometheus`` answers 501: the exposition is not
-        ported."""
+        ``?format=prometheus`` serves just the raft families."""
         obs = self._observer("raft_observatory")
         if obs is None:
             raise HTTPCodedError(404, "raft observatory not running "
                                       "(no server, or raft_observe "
                                       "{ enabled = false })")
-        self._no_prometheus(query)
         obs.refresh()
+        if query.get("format") == "prometheus":
+            return self._prometheus(self._raft_prometheus), None
         return obs.snapshot(), None
 
     @staticmethod
-    def _no_prometheus(query) -> None:
-        if query.get("format") == "prometheus":
-            raise HTTPCodedError(
-                501, f"not implemented: ?format=prometheus needs "
-                     f"{PROMETHEUS_NEEDS}, which nomad_tpu_torch does not "
-                     "have yet")
+    def _prometheus(*appenders) -> "RawResponse":
+        """One text exposition from the given family appenders, over one
+        shared ``telemetry.PromText``."""
+        b = telemetry.PromText()
+        for append in appenders:
+            append(b)
+        return RawResponse(b.text().encode(), "text/plain; version=0.0.4")
+
+    def _summary(self, attr: str) -> Optional[Dict[str, Any]]:
+        obs = self._observer(attr)
+        return obs.summary() if obs is not None else None
 
     def agent_reads(self, req, query) -> Tuple[Any, Optional[int]]:
         """Read-path books (read_observe.py): per-route-template serving
@@ -925,19 +1052,483 @@ class HTTPServer:
         watch registries' wake economy and the response staleness, with
         the read plane's per-(role, lane) books under ``read_path``. The
         watch sample is refreshed before answering. ``?format=prometheus``
-        answers 501: the exposition is not ported."""
+        serves just the read families."""
         obs = self._observer("read_observatory")
         if obs is None:
             raise HTTPCodedError(404, "read observatory not running "
                                       "(no server, or reads "
                                       "{ enabled = false })")
-        self._no_prometheus(query)
         obs.refresh()
+        if query.get("format") == "prometheus":
+            return self._prometheus(self._read_prometheus), None
         body = obs.snapshot()
         rp = getattr(getattr(self.agent, "server", None), "read_path", None)
         if rp is not None:
             body["read_path"] = rp.snapshot()
         return body, None
+
+    def _raft_prometheus(self, b: "telemetry.PromText") -> None:
+        """Raft observatory: replication-state and log-economy gauges,
+        append/compaction counters, per-follower lag, and the write-path
+        quantiles per msg_type (submit→applied total + per-stage p95)."""
+        obs = self._observer("raft_observatory")
+        if obs is None:
+            return
+        snap = obs.snapshot()
+        core = snap["raft"]
+        for k in ("commit_index", "applied_index", "last_log_index",
+                  "inflight_writes"):
+            if k in core:
+                b.gauge(f"nomad_raft_{k}", core[k])
+        for k in ("commit_advances",):
+            if k in core:
+                b.counter(f"nomad_raft_{k}_total", core[k])
+        log = snap["log"]
+        if log:
+            b.gauge("nomad_raft_log_entries", log["entries"])
+            b.gauge("nomad_raft_log_bytes", log["bytes"])
+            b.counter("nomad_raft_entries_appended_total",
+                      log["appended_entries"])
+            b.counter("nomad_raft_bytes_appended_total",
+                      log["appended_bytes"])
+            b.counter("nomad_raft_entries_truncated_total",
+                      log["truncated_entries"])
+        snapshot = snap["snapshot"]
+        if snapshot:
+            b.gauge("nomad_raft_snapshot_index", snapshot["index"])
+            b.gauge("nomad_raft_snapshot_bytes", snapshot["last_bytes"])
+            b.gauge("nomad_raft_snapshot_disk_bytes",
+                    snapshot["disk_bytes"])
+            b.counter("nomad_raft_compactions_total",
+                      snapshot["compactions"])
+            b.counter("nomad_raft_compaction_wall_ms_total",
+                      snapshot["compaction_wall_ms"])
+            b.counter("nomad_raft_snapshot_installs_total",
+                      snapshot["installs_received"])
+        b.gauge("nomad_raft_commit_advance_entries_per_s",
+                snap["replication"]["commit_advance"]["entries_per_s"])
+        for pid, peer in snap["replication"]["peers"].items():
+            b.gauge("nomad_raft_peer_lag_entries", peer["lag_entries"],
+                    labels={"peer": pid})
+            if peer.get("last_ack_age_s") is not None:
+                b.gauge("nomad_raft_peer_ack_age_seconds",
+                        peer["last_ack_age_s"], labels={"peer": pid})
+        for msg_type, books in snap["write_path"].items():
+            b.counter("nomad_raft_write_entries_total", books["count"],
+                      labels={"msg_type": msg_type})
+            b.counter("nomad_raft_write_bytes_total",
+                      books["bytes_total"], labels={"msg_type": msg_type})
+            for q in ("p50", "p95", "p99"):
+                b.gauge("nomad_raft_write_ms", books["total_ms"][q],
+                        labels={"msg_type": msg_type, "quantile": q})
+            for stage, agg in books["stages_ms"].items():
+                b.gauge("nomad_raft_write_stage_p95_ms", agg["p95"],
+                        labels={"msg_type": msg_type, "stage": stage})
+        recovery = snap["recovery"]
+        if recovery.get("cold_start"):
+            b.gauge("nomad_raft_recovery_entries_replayed",
+                    recovery.get("entries_replayed", 0))
+            for k in ("snapshot_restore_ms", "replay_wall_ms",
+                      "time_to_leader_ms", "time_to_serving_ms"):
+                if recovery.get(k) is not None:
+                    b.gauge(f"nomad_raft_recovery_{k}", recovery[k])
+
+
+    def _read_prometheus(self, b: "telemetry.PromText") -> None:
+        """Read observatory: per-route request/byte counters + latency
+        quantile gauges, the blocking hold/serve stage partition, SSE
+        session books, the watch-registry wake economy, and the
+        response-staleness distribution."""
+        obs = self._observer("read_observatory")
+        if obs is None:
+            return
+        snap = obs.snapshot()
+        for route, books in snap["endpoints"].items():
+            for lane, n in books["lanes"].items():
+                if n:
+                    b.counter("nomad_read_requests_total", n,
+                              labels={"route": route, "lane": lane})
+            b.counter("nomad_read_errors_total", books["errors"],
+                      labels={"route": route})
+            b.counter("nomad_read_bytes_total", books["bytes_total"],
+                      labels={"route": route})
+            for q in ("p50", "p95", "p99"):
+                b.gauge("nomad_read_latency_ms", books["latency_ms"][q],
+                        labels={"route": route, "quantile": q})
+        for route, books in snap["blocking"].items():
+            b.counter("nomad_read_blocking_wakes_total", books["wakes"],
+                      labels={"route": route})
+            b.counter("nomad_read_blocking_timeouts_total",
+                      books["timeouts"], labels={"route": route})
+            for stage in ("hold", "serve"):
+                b.gauge("nomad_read_blocking_stage_p95_ms",
+                        books[stage + "_ms"]["p95"],
+                        labels={"route": route, "stage": stage})
+        sse = snap["sse"]
+        b.gauge("nomad_read_sse_active", sse["active"])
+        b.counter("nomad_read_sse_sessions_total", sse["started"])
+        b.counter("nomad_read_sse_frames_total", sse["frames"])
+        b.counter("nomad_read_sse_truncations_total", sse["truncations"])
+        b.counter("nomad_read_sse_heartbeats_total", sse["heartbeats"])
+        for q in ("p50", "p95", "p99"):
+            b.gauge("nomad_read_sse_lag_entries", sse["lag_entries"][q],
+                    labels={"quantile": q})
+        for registry, w in snap["watch"].items():
+            labels = {"registry": registry}
+            b.gauge("nomad_read_watchers", w["watchers"], labels=labels)
+            b.gauge("nomad_read_watchers_peak", w["peak_watchers"],
+                    labels=labels)
+            b.gauge("nomad_read_watch_bucket_max",
+                    w["bucket_max_watchers"], labels=labels)
+            b.counter("nomad_read_watch_notifies_total", w["notifies"],
+                      labels=labels)
+            b.counter("nomad_read_watch_wakes_total",
+                      w["wakes_delivered"], labels=labels)
+            b.counter("nomad_read_watch_spurious_total",
+                      w["spurious_wakes"], labels=labels)
+            b.gauge("nomad_read_watch_park_depth", w["multi_waiters"],
+                    labels=labels)
+        fresh = snap["freshness"]
+        b.gauge("nomad_read_applied_index", fresh["applied_index"])
+        b.gauge("nomad_read_commit_index", fresh["commit_index"])
+        b.counter("nomad_read_responses_stamped_total",
+                  fresh["responses_stamped"])
+        for q in ("p50", "p95", "p99"):
+            b.gauge("nomad_read_staleness_entries",
+                    fresh["staleness_entries"][q],
+                    labels={"quantile": q})
+        for role, lanes in fresh.get("by_role", {}).items():
+            for lane, split in lanes.items():
+                b.counter("nomad_read_lane_responses_total",
+                          split["count"],
+                          labels={"role": role, "lane": lane})
+                for q in ("p50", "p95", "p99"):
+                    b.gauge("nomad_read_lane_staleness_entries",
+                            split["staleness_entries"][q],
+                            labels={"role": role, "lane": lane,
+                                    "quantile": q})
+        rp = getattr(getattr(self.agent, "server", None),
+                     "read_path", None)
+        if rp is not None:
+            rps = rp.snapshot()
+            for role, lanes in rps["served"].items():
+                for lane, n in lanes.items():
+                    if n:
+                        b.counter("nomad_read_path_served_total", n,
+                                  labels={"role": role, "lane": lane})
+            b.counter("nomad_read_path_stale_refused_total",
+                      rps["stale"]["refused"])
+            b.counter("nomad_read_path_linear_refused_total",
+                      rps["linearizable"]["refused"])
+            b.gauge("nomad_read_path_follower_serve_share",
+                    rps["follower_serve_share"])
+            for q in ("p50", "p95", "p99"):
+                b.gauge("nomad_read_path_stale_age_ms",
+                        rps["stale"]["age_ms"][q],
+                        labels={"quantile": q})
+            ri = rps["linearizable"]["read_index"]
+            for k in ("calls", "lease_hits", "quorum_confirms",
+                      "refused"):
+                b.counter(f"nomad_read_index_{k}_total", ri[k])
+
+    def agent_profile(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Continuous sampling profiler (profile_observe.py):
+        collapsed-stack aggregates per thread role, per-subsystem wall
+        shares, and the sampling schedule. Formats: default JSON
+        (profiler view), ``?format=collapsed`` is flamegraph.pl /
+        inferno collapsed-stack text, ``?format=speedscope`` is a
+        https://speedscope.app sampled-profile document — both render
+        the live agent's profile with zero external tooling in the
+        loop."""
+        obs = self._observer("runtime_observatory")
+        if obs is None:
+            raise HTTPCodedError(404, "runtime observatory not running "
+                                      "(no server, or profile "
+                                      "{ enabled = false })")
+        fmt = query.get("format")
+        if fmt == "collapsed":
+            return RawResponse(
+                obs.collapsed().encode(), "text/plain; charset=utf-8"
+            ), None
+        if fmt == "speedscope":
+            return RawResponse(
+                json.dumps(obs.speedscope(), indent=2).encode(),
+                "application/json",
+            ), None
+        return obs.profile_view(), None
+
+    def agent_runtime(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Runtime economy ledgers (profile_observe.py): the
+        lock-contention table (when telemetry{lock_watchdog} is on),
+        and the byte-economy ledger — mirror device buffers by
+        bucket x dtype with the measured-per-row 1M-node projection,
+        every bounded ring, state-store footprint, observatory tables,
+        and RSS. The handler refreshes the ledger before answering so
+        the body reflects the process NOW, not the last poll tick.
+        ``?format=prometheus`` serves just the runtime + lock families
+        as text exposition."""
+        obs = self._observer("runtime_observatory")
+        if obs is None:
+            raise HTTPCodedError(404, "runtime observatory not running "
+                                      "(no server, or profile "
+                                      "{ enabled = false })")
+        obs.refresh()
+        if query.get("format") == "prometheus":
+            return self._prometheus(self._profile_prometheus,
+                                    self._lock_prometheus), None
+        return obs.runtime_view(), None
+
+    def _lock_stats(self) -> Optional[Dict[str, Any]]:
+        """Live lock watchdog books, or None when the
+        telemetry{lock_watchdog} knob is off — installation is
+        process-global, so this reads the module registry rather than
+        any agent field."""
+        wd = telemetry.active_lock_watchdog()
+        return wd.stats() if wd is not None else None
+
+    def _profile_prometheus(self, b: "telemetry.PromText") -> None:
+        """Profiler + byte-economy families: per-role wall shares and
+        sample counts, RSS, tracked bytes, and the mirror ledger with
+        its projected million-row footprint."""
+        obs = self._observer("runtime_observatory")
+        if obs is None:
+            return
+        view = obs.runtime_view()
+        prof = obs.profile_view()["profiler"]
+        b.counter("nomad_profile_samples_total", prof["samples"])
+        b.counter("nomad_profile_stack_overflow_total",
+                  prof["stack_overflow"])
+        for role, books in prof["roles"].items():
+            b.gauge("nomad_profile_role_share", books["wall_share"],
+                    labels={"role": role})
+            b.counter("nomad_profile_role_samples_total",
+                      books["samples"], labels={"role": role})
+        ledger = view["bytes"]
+        rss = ledger.get("rss") or {}
+        if rss.get("current_bytes") is not None:
+            b.gauge("nomad_runtime_rss_bytes", rss["current_bytes"])
+        if rss.get("peak_bytes") is not None:
+            b.gauge("nomad_runtime_rss_peak_bytes", rss["peak_bytes"])
+        b.gauge("nomad_runtime_tracked_bytes",
+                ledger.get("tracked_bytes", 0))
+        mirror = ledger.get("mirror") or {}
+        if "total_bytes" in mirror:
+            b.gauge("nomad_runtime_mirror_bytes", mirror["total_bytes"])
+            b.gauge("nomad_runtime_mirror_rows", mirror.get("rows", 0))
+        if mirror.get("per_row_bytes") is not None:
+            b.gauge("nomad_runtime_mirror_per_row_bytes",
+                    mirror["per_row_bytes"])
+        if mirror.get("projected_1m_bytes") is not None:
+            b.gauge("nomad_runtime_mirror_projected_1m_bytes",
+                    mirror["projected_1m_bytes"])
+        for ring, books in (ledger.get("rings") or {}).items():
+            b.gauge("nomad_runtime_ring_bytes",
+                    books.get("approx_bytes", 0), labels={"ring": ring})
+
+    def _lock_prometheus(self, b: "telemetry.PromText") -> None:
+        """Lock watchdog contention table: acquisition/contention
+        counters, total + quantile wait, and hold p95 per lock id."""
+        stats = self._lock_stats()
+        if not stats:
+            return
+        b.gauge("nomad_lock_watchdog_installed",
+                1 if stats["installed"] else 0)
+        b.gauge("nomad_lock_order_violations", stats["violations"])
+        for row in stats["contention"]:
+            labels = {"lock": row["lock"]}
+            b.counter("nomad_lock_acquisitions_total",
+                      row["acquisitions"], labels=labels)
+            b.counter("nomad_lock_contended_total", row["contended"],
+                      labels=labels)
+            b.counter("nomad_lock_wait_ms_total", row["wait_total_ms"],
+                      labels=labels)
+            for q in ("p50", "p95", "p99"):
+                b.gauge("nomad_lock_wait_ms", row["wait_ms"][q],
+                        labels={"lock": row["lock"], "quantile": q})
+            b.gauge("nomad_lock_hold_ms", row["hold_ms"]["p95"],
+                    labels={"lock": row["lock"], "quantile": "p95"})
+
+    def agent_solver(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Device-solve efficiency panel (tpu/solver.py SOLVER_PANEL):
+        per-solve padding economy, bucket-occupancy histograms,
+        first-dispatch attribution (shape key + trigger + wall),
+        device-time-per-placement — next to the mirror cache's
+        delta-roll-vs-full-rebuild economy with wall costs, and the
+        coalescer's dispatch stacking. The panel zeroes honestly when no
+        solve ever dispatched. The port adds the mirror cache's byte
+        ledger under ``mirror_cache.byte_ledger``; its ``jit_trace`` is
+        empty (nothing is jit-traced)."""
+        out: Dict[str, Any] = {
+            "panel": _solver_panel_stats(),
+            "mirror_cache": _mirror_cache_stats(),
+        }
+        if "error" not in out["mirror_cache"]:
+            from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
+
+            out["mirror_cache"]["byte_ledger"] = \
+                GLOBAL_MIRROR_CACHE.byte_ledger()
+        try:
+            from nomad_tpu_torch.ops.coalesce import GLOBAL_SOLVER
+
+            out["coalescer"] = {
+                "dispatches": GLOBAL_SOLVER.dispatches,
+                "coalesced": GLOBAL_SOLVER.coalesced,
+            }
+        except Exception as e:  # pragma: no cover - import breakage only
+            out["coalescer"] = {"error": str(e)}
+        # nomad_tpu's jit retrace counters (its ops/fit.py emits
+        # solver.jit_trace.*); the port traces nothing, so this is empty.
+        sink = getattr(self.agent, "inmem_sink", None)
+        if sink is not None:
+            counters, _samples = sink.cumulative()
+            out["jit_trace"] = {
+                name: int(v[0]) for name, v in sorted(counters.items())
+                if "jit_trace" in name
+            }
+        else:
+            out["jit_trace"] = None
+        return out, None
+
+    def agent_metrics(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Live InmemSink aggregates. Default JSON (all retained
+        intervals, plus the device-mirror cache's delta economy);
+        ``?format=prometheus`` serves text exposition for a Prometheus
+        scrape (pull model — the reference only had the SIGUSR1 dump and
+        push sinks). Every subsystem appender rides ONE shared
+        telemetry.PromText builder, so names/labels sanitize in one
+        place and duplicate/conflicting TYPE lines are structurally
+        impossible."""
+        sink = getattr(self.agent, "inmem_sink", None)
+        if sink is None:
+            raise HTTPCodedError(404, "telemetry sink not initialized")
+        if query.get("format") == "prometheus":
+            subsystems = self._prometheus(
+                _mirror_prometheus, _plan_pipeline_prometheus,
+                _trace_prometheus, self._admission_prometheus,
+                self._express_prometheus, self._capacity_prometheus,
+                self._raft_prometheus, self._read_prometheus,
+                self._profile_prometheus, self._lock_prometheus,
+                _solver_prometheus)
+            return RawResponse(
+                telemetry.prometheus_text(sink).encode() + subsystems.body,
+                subsystems.content_type), None
+        return {"timestamp": trace.now(), "intervals": sink.data(),
+                "mirror_cache": _mirror_cache_stats(),
+                "plan_pipeline": _plan_pipeline_stats(),
+                "admission": self._admission_stats(),
+                "express": self._express_stats(),
+                "capacity": self._summary("capacity_accountant"),
+                "raft": self._summary("raft_observatory"),
+                "reads": self._summary("read_observatory"),
+                "runtime": self._summary("runtime_observatory"),
+                "locks": self._lock_stats(),
+                "solver_panel": _solver_panel_stats(),
+                "trace": trace.get_tracer().stats()}, None
+
+    def _admission_stats(self) -> Optional[Dict[str, Any]]:
+        """Admission decision totals for the metrics JSON body (None when
+        no server / controller runs — the metrics endpoint must answer on
+        a client-only agent too)."""
+        server = getattr(self.agent, "server", None)
+        admission = getattr(server, "admission", None)
+        return admission.summary() if admission is not None else None
+
+    def _admission_prometheus(self, b: "telemetry.PromText") -> None:
+        """Admission counters: admitted/rejected totals plus the
+        typed-rejection split."""
+        stats = self._admission_stats()
+        if not stats:
+            return
+        for k in ("admitted", "rejected"):
+            b.counter(f"nomad_admission_{k}_total", stats[k])
+        for reason, n in sorted(stats.get("by_reason", {}).items()):
+            b.counter("nomad_admission_rejected_reason_total", n,
+                      labels={"reason": reason})
+
+    def _express_stats(self) -> Optional[Dict[str, Any]]:
+        """Express-lane totals for the metrics JSON body (None when no
+        server runs — the endpoint must answer on a client-only agent)."""
+        server = getattr(self.agent, "server", None)
+        express = getattr(server, "express_lane", None)
+        return express.summary() if express is not None else None
+
+    def _express_prometheus(self, b: "telemetry.PromText") -> None:
+        """Express-lane counters: placement/commit/bounce totals plus
+        outstanding-lease and backlog gauges."""
+        stats = self._express_stats()
+        if not stats:
+            return
+        for k in ("placed", "tasks_placed", "committed", "bounces",
+                  "conflicts", "reconciled"):
+            b.counter(f"nomad_express_{k}_total", stats[k])
+        for why, n in sorted(stats.get("fallbacks", {}).items()):
+            b.counter("nomad_express_fallback_total", n,
+                      labels={"reason": why})
+        b.gauge("nomad_express_leases", stats["leases"])
+        b.gauge("nomad_express_backlog", stats["backlog"])
+
+    def _capacity_prometheus(self, b: "telemetry.PromText") -> None:
+        """Capacity observatory: per-dim utilization/density gauges,
+        per-lane usage, fragmentation deciles, per-shape stranded %.
+        The accountant's own roll/rebuild counters ride the ordinary
+        sink (nomad.capacity.*); the ``nomad_capacity_*`` families here
+        are the labeled aggregates."""
+        acct = self._observer("capacity_accountant")
+        if acct is None:
+            return
+        snap = acct.snapshot()
+        for state in ("total", "schedulable", "occupied"):
+            b.gauge("nomad_capacity_nodes", snap["nodes"][state],
+                    labels={"state": state})
+        for dim in snap["dims"]:
+            b.gauge("nomad_capacity_total", snap["total"][dim],
+                    labels={"dim": dim})
+            b.gauge("nomad_capacity_used", snap["used"][dim],
+                    labels={"dim": dim})
+            b.gauge("nomad_capacity_free", snap["free"][dim],
+                    labels={"dim": dim})
+            b.gauge("nomad_capacity_utilization",
+                    snap["utilization"][dim], labels={"dim": dim})
+            b.gauge("nomad_capacity_binpack_density",
+                    snap["binpack_density"][dim], labels={"dim": dim})
+            for i, n in enumerate(
+                    snap["fragmentation"]["free_fraction"][dim]):
+                b.gauge("nomad_capacity_frag_nodes", n,
+                        labels={"dim": dim, "decile": i})
+        for lane, row in snap["lanes"].items():
+            b.gauge("nomad_capacity_lane_allocs", row["allocs"],
+                    labels={"lane": lane})
+            for dim, v in row["used"].items():
+                b.gauge("nomad_capacity_lane_used", v,
+                        labels={"lane": lane, "dim": dim})
+        for s in snap["stranded"]:
+            b.gauge("nomad_capacity_stranded_pct", s["stranded_pct"],
+                    labels={"shape": s["shape"]})
+            b.gauge("nomad_capacity_placeable", s["placeable_count"],
+                    labels={"shape": s["shape"]})
+
+
+    def agent_debug(self, req, query) -> Tuple[Any, Optional[int]]:
+        """Runtime introspection, gated by enable_debug — the pprof-analog
+        surface (upstream gates pprof handlers the same way,
+        command/agent/http.go:115-119). Thread stacks, gc and allocation
+        stats, the server's device, the coalescer and the mirror cache:
+        the first things needed when an agent wedges."""
+        if not getattr(self.agent, "debug_enabled", lambda: False)():
+            raise HTTPCodedError(404, "debug endpoints disabled "
+                                      "(set enable_debug)")
+        return self.agent.debug_info(query), None
+
+    def agent_debug_bundle(self, req, query) -> Tuple[Any, Optional[int]]:
+        """One-shot flight recorder (bundle.py): metrics + traces +
+        events + redacted config + fault plan + the device statement +
+        thread stacks in a single JSON artifact — what an operator
+        attaches when a run goes sideways. Debug-gated like the rest of
+        the introspection surface."""
+        if not getattr(self.agent, "debug_enabled", lambda: False)():
+            raise HTTPCodedError(404, "debug endpoints disabled "
+                                      "(set enable_debug)")
+        return self.agent.debug_bundle(query), None
 
     def agent_traces(self, req, query) -> Tuple[Any, Optional[int]]:
         """Summaries of the tracer's retained traces, newest first

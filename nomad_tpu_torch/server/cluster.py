@@ -15,8 +15,7 @@ before checking anything), the express lane (placing only on the leader;
 leadership loss demotes it) and the read plane (a follower's linearizable
 lane confirms its read index over ``Raft.ReadIndex``). Left out until
 their modules are ported: TLS (``ServerConfig.tls`` stays in
-NOT_PORTED) and the capacity, raft and runtime observatories. Like
-nomad_tpu's, ``start`` runs no shape warmer.
+NOT_PORTED). Like nomad_tpu's, ``start`` runs no shape warmer.
 """
 
 from __future__ import annotations
@@ -205,6 +204,7 @@ class ClusterServer(Server):
         self.capacity_accountant.start()
         self.raft_observatory.start()
         self.read_observatory.start()
+        self.runtime_observatory.start()
         for i in range(self.config.scheduler_workers):
             worker = Worker(self, i)
             worker.start()

@@ -20,6 +20,7 @@ import logging
 import pickle
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, Optional, TYPE_CHECKING
 
@@ -346,6 +347,12 @@ class InProcRaft:
         self.fsm = fsm
         self._lock = threading.Lock()
         self._index = 0
+        # Write-path anchor records (the RaftNode book surface that
+        # raft_observe.py drains): no persistence or replication, so those
+        # stages are zero wide and fsm_apply dominates. Entry bytes stay
+        # 0: payloads are live objects, never serialized here.
+        self._wp_done: "deque" = deque(maxlen=1024)
+        self._wp_seq = 0
         # Read-index books (server/read_path.py): a quorum of one is
         # always itself, so every linearizable read confirms trivially,
         # counted as a lease hit.
@@ -377,6 +384,17 @@ class InProcRaft:
         """The single member is its own leader: contact age is zero."""
         return 0.0
 
+    def write_path_records(self, since: int):
+        """(sequence, finalized records newer than ``since``): the raft
+        observatory's drain, RaftNode's contract."""
+        with self._lock:
+            seq = self._wp_seq
+            n = seq - int(since)
+            if n <= 0:
+                return seq, []
+            n = min(n, len(self._wp_done))
+            return seq, list(self._wp_done)[-n:]
+
     def apply(self, msg_type: str, payload: dict) -> Future:
         """Apply under the lock, publishing the index only after the FSM has
         executed the entry — readers of applied_index (worker wait_for_index)
@@ -387,14 +405,26 @@ class InProcRaft:
         the FSM error is deterministic, matching replicated-raft semantics.
         """
         future: Future = Future()
+        t_submit = time.monotonic()
         with self._lock:
             index = self._index + 1
+            # Synchronous quorum of one: append, persist, replicate and
+            # commit all collapse to the lock acquisition.
+            anchors = {"submit": t_submit}
+            anchors["persisted"] = anchors["committed"] = time.monotonic()
+            anchors["fsm_start"] = time.monotonic()
             try:
                 self.fsm.apply(index, msg_type, payload)
             except Exception as e:
                 self._index = index
+                anchors["fsm_end"] = time.monotonic()
                 future.set_exception(e)
             else:
                 self._index = index
+                anchors["fsm_end"] = time.monotonic()
                 future.set_result(index)
+            anchors["resolved"] = time.monotonic()
+            self._wp_done.append({"index": index, "msg_type": msg_type,
+                                  "bytes": 0, "anchors": anchors})
+            self._wp_seq += 1
         return future

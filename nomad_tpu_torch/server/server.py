@@ -21,7 +21,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from nomad_tpu_torch import structs, telemetry
+from nomad_tpu_torch import structs, telemetry, trace
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.events import EventBroker
 from nomad_tpu_torch.ops.binpack import bucket
@@ -55,6 +55,10 @@ from nomad_tpu_torch.structs import (
     generate_uuid,
 )
 from nomad_tpu_torch.capacity import CapacityAccountant, CapacityConfig
+from nomad_tpu_torch.profile_observe import (
+    ProfileObserveConfig,
+    RuntimeObservatory,
+)
 from nomad_tpu_torch.raft_observe import RaftObservatory, RaftObserveConfig
 from nomad_tpu_torch.read_observe import ReadObservatory, ReadObserveConfig
 from nomad_tpu_torch.server.admission import (
@@ -74,7 +78,6 @@ from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 # with the module each needs. Setting one raises: it is never ignored.
 NOT_PORTED = {
     "tls": "TLS on the RPC tier (tlsutil.py)",
-    "profile": "the runtime observatory (profile_observe.py)",
     "solver_mesh": "the solver mesh (parallel/mesh.py)",
 }
 
@@ -85,7 +88,7 @@ class ServerConfig:
 
     The keys of nomad_tpu's ServerConfig that belong to modules the port
     does not have yet are listed in ``NOT_PORTED`` and must stay None: the
-    runtime observatory, the solver mesh and TLS.
+    solver mesh and TLS.
     ``Server.stats()`` reports the server's device in place of nomad_tpu's
     device-probe and breaker state.
     """
@@ -184,6 +187,11 @@ class ServerConfig:
     # data).
     raft_observe: Optional[Dict] = None
     tls: object = None
+    # Runtime self-observatory spec (ProfileObserveConfig.parse mapping):
+    # the read-only observer behind /v1/agent/profile and
+    # /v1/agent/runtime (stack sampler, byte ledger, the lock watchdog's
+    # table). None = defaults (enabled); {"enabled": False} is
+    # steady-10k's profiler-off contrast arm.
     profile: Optional[Dict] = None
     solver_mesh: Optional[Dict] = None
 
@@ -229,6 +237,7 @@ class ServerConfig:
         self.raft_observe_config = RaftObserveConfig.parse(self.raft_observe)
         self.reads_config = ReadObserveConfig.parse(self.reads)
         self.read_path_config = ReadPathConfig.parse(self.read_path)
+        self.profile_config = ProfileObserveConfig.parse(self.profile)
 
     def scheduler_factory(self, eval_type: str) -> str:
         if self.scheduler_backend == "tpu" and eval_type in (
@@ -338,9 +347,46 @@ class Server:
         # The follower read plane: consistency-lane resolution for every
         # HTTP read. It re-reads self.raft per request.
         self.read_path = ReadPath(self, self.config.read_path_config)
+        # The runtime self-observatory: stack sampler, the lock
+        # watchdog's contention table and the byte ledger. The getters
+        # re-read the live handles per poll.
+        self.runtime_observatory = RuntimeObservatory(
+            self.config.profile_config,
+            events=self.fsm.events,
+            store_getter=lambda: self.fsm.state,
+            rings_getter=self._runtime_rings,
+            tables_getter=self._runtime_tables,
+        )
         # Solve dispatches the start-time warmer has issued (0 until its
         # first pass over registered nodes completes).
         self.warm_dispatches = 0
+
+    def _runtime_rings(self) -> Dict:
+        """The bounded rings the byte ledger accounts: event broker, trace
+        ring, admission decisions, express pending and outcomes, the plan
+        pipeline's commit log."""
+        return {
+            "events": getattr(self.fsm.events, "_events", None),
+            "traces": getattr(trace.get_tracer(), "_traces", None),
+            "admission_decisions": getattr(
+                self.admission, "_decisions", None),
+            "express_pending": getattr(self.express_lane, "_pending", None),
+            "express_outcomes": getattr(
+                self.express_lane, "_outcomes", None),
+            "plan_commit_log": getattr(
+                self.plan_applier, "_commit_log", None),
+        }
+
+    def _runtime_tables(self) -> Dict:
+        """The sibling observatories' books, through their snapshots."""
+        out = {}
+        if self.config.capacity_config.enabled:
+            out["capacity"] = self.capacity_accountant.snapshot()
+        if self.config.raft_observe_config.enabled:
+            out["raft_observe"] = self.raft_observatory.snapshot()
+        if self.config.reads_config.enabled:
+            out["read_observe"] = self.read_observatory.snapshot()
+        return out
 
     @property
     def plan_pipeline(self) -> PlanPipeline:
@@ -384,6 +430,7 @@ class Server:
         self.capacity_accountant.start()
         self.raft_observatory.start()
         self.read_observatory.start()
+        self.runtime_observatory.start()
         emitter = threading.Thread(
             target=self._emit_stats, daemon=True, name="stats-emitter",
         )
@@ -453,6 +500,7 @@ class Server:
         self.capacity_accountant.stop()
         self.raft_observatory.stop()
         self.read_observatory.stop()
+        self.runtime_observatory.stop()
         if self.slo_monitor is not None:
             self.slo_monitor.stop()
         self.plan_applier.stop()
@@ -1108,6 +1156,8 @@ class Server:
             "reads": (self.read_observatory.summary()
                       if self.config.reads_config.enabled else None),
             "read_path": self.read_path.summary(),
+            "runtime": (self.runtime_observatory.summary()
+                        if self.config.profile_config.enabled else None),
             "telemetry": telemetry.snapshot(),
         }
 

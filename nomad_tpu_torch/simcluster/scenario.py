@@ -25,21 +25,19 @@ to the injector's experience of the door), express, capacity (the
 accountant's 2 Hz trajectory and final snapshot), raft (the write-path
 partition, log economy and, after a leader restart, the recovery
 timeline with the placements-survived verdict), reads (with the
-consistency lanes' verdict block), ``latency_attribution`` and ``slo``
+consistency lanes' verdict block), profile (the runtime observatory's
+role wall shares, the lock watchdog's contention table and the byte
+ledger with its 1M-row projection), ``latency_attribution`` and ``slo``
 sections, and for the chaos families (``simcluster/chaos.py``) the armed
 storm's ``faults`` books and the ``chaos`` verdict.
 ``attribution_layer=False`` runs the tracer off and the SLO monitor
 unbuilt; those two sections are then None.
 
-Left out until their modules are ported, each named in the artifact's
-``not_ported`` list (``NOT_PORTED_SECTIONS``); a section is absent, never
-reported as zero:
-
-- the lock watchdog (``telemetry.LockWatchdog`` with ``tools/nomadlint``'s
-  analysis of nomad_tpu's own sources);
-- the profile section;
-- a spec's contrast arm where its overrides need one of those modules:
-  ``steady-10k``'s profiler-off arm is recorded as not run, with why.
+An attributed run with the profiler on installs
+``telemetry.port_lock_watchdog()`` (the lock-order analysis of the port's
+own sources) for its span, and uninstalls it after; the contrast arms
+run without it. steady-10k's profiler-off contrast arm carries the
+``profiler_overhead`` verdict.
 
 A scenario whose server overrides name a key of ``server.NOT_PORTED``
 (``unported_needs``) raises :class:`NotPortedError` naming the modules
@@ -70,7 +68,14 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from nomad_tpu_torch import NotPortedError, faults, lifecycle, slo, structs
+from nomad_tpu_torch import (
+    NotPortedError,
+    faults,
+    lifecycle,
+    slo,
+    structs,
+    telemetry,
+)
 from nomad_tpu_torch.api.codec import to_dict
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.rpc import RemoteError
@@ -98,15 +103,6 @@ from nomad_tpu_torch.simcluster.workload import (
 )
 
 SCHEMA_VERSION = 1
-
-# Sections of nomad_tpu's artifact whose modules the port does not have
-# yet, with what each needs (the artifact's "not_ported" list).
-NOT_PORTED_SECTIONS = {
-    "lock_watchdog": "the lock watchdog (telemetry.LockWatchdog, "
-                     "tools/nomadlint)",
-    "profile": NOT_PORTED["profile"],
-}
-
 
 @dataclass
 class ScenarioSpec:
@@ -182,8 +178,8 @@ def _spec_registry() -> Dict[str, ScenarioSpec]:
                 ),
             ],
             quiesce_timeout=300.0, ack_cap=300,
-            # Profiler-off contrast arm (needs profile_observe.py: the
-            # port records it as not run).
+            # Profiler-off contrast arm: the runtime self-observatory on
+            # vs off must leave the canonical digest byte-identical.
             contrast_overrides={"profile": {"enabled": False}},
             contrast_digest_invariant=True,
             description="the north-star control-plane scale: 10k live "
@@ -1435,11 +1431,32 @@ class ScenarioRunner:
             cfg_kwargs["slo_objectives"] = {}
         # Kept for the members a restart action builds anew.
         self._cfg_kwargs = cfg_kwargs
+        # Lock-contention attribution for the run: the watchdog over the
+        # port's lock analysis, installed before any member builds a lock
+        # so the profile section carries the contention table. Timing
+        # only; no decision observes it. Not in the profiler-off contrast
+        # arm or the attribution-off arm.
+        self._watchdog = None
+        prof_enabled = (cfg_kwargs.get("profile") or {}).get("enabled", True)
+        if self.attribution_layer and prof_enabled:
+            try:
+                self._watchdog = telemetry.port_lock_watchdog().install()
+            except Exception as e:
+                self.logger.warning(
+                    "simcluster: lock watchdog unavailable (the lock-order "
+                    "analysis failed): %s", e)
         if spec.durable_raft and self._data_dir is None:
             self._data_dir = tempfile.mkdtemp(prefix="nomad-sim-raft-")
-        members = self._build_cluster(cfg_kwargs)
-        srv = self._srv = members[0]
-        fleet = SimFleet(srv.rpc_addr, logger=self.logger)
+        try:
+            members = self._build_cluster(cfg_kwargs)
+            srv = self._srv = members[0]
+            fleet = SimFleet(srv.rpc_addr, logger=self.logger)
+        except BaseException:
+            # The run never starts: no lock of a later run is wrapped.
+            if self._watchdog is not None:
+                self._watchdog.uninstall()
+                self._watchdog = None
+            raise
         tracer = trace_mod.get_tracer()
         tracing_was = tracer.enabled
         if not self.attribution_layer:
@@ -1721,6 +1738,9 @@ class ScenarioRunner:
             self._stop.set()
             self._stop_watcher()
             tracer.enabled = tracing_was
+            if self._watchdog is not None:
+                self._watchdog.uninstall()
+                self._watchdog = None
             if spec.faults_spec is not None:
                 faults.get_registry().clear()
             for h in [self._http, *self._follower_https]:
@@ -1871,13 +1891,6 @@ class ScenarioRunner:
         t_last = max(plan_at.values()) if plan_at else t_first
         window = max(t_last - t_first, 1e-9)
         renewals = hb1["renewals"] - hb0["renewals"]
-        not_ported = [{"section": k, "needs": v}
-                      for k, v in sorted(NOT_PORTED_SECTIONS.items())]
-        if self.spec.contrast_overrides is not None:
-            needs = unported_needs(_contrast_spec(self.spec))
-            if needs:
-                not_ported.append({"section": "contrast",
-                                   "needs": "; ".join(needs)})
 
         caps = {
             "eval_pending_cap": srv.config.eval_pending_cap,
@@ -1970,8 +1983,8 @@ class ScenarioRunner:
             "capacity": self._capacity_section(srv),
             "raft": self._raft_section(srv),
             "reads": self._reads_section(srv),
+            "profile": self._profile_section(srv),
             "solver_panel": self._solver_panel_section(),
-            "not_ported": not_ported,
         }
         if srv.config.express_config.enabled:
             # The lane's own books and ledger beside the event-derived
@@ -2088,6 +2101,18 @@ class ScenarioRunner:
                     f"{len(pre)} survived the replay"
                 )
         return out
+
+    def _profile_section(self, srv) -> Dict:
+        """The runtime observatory's run report (profile_observe.py):
+        per-role wall shares from the stack sampler, the lock-contention
+        table while the watchdog is installed, and the byte ledger with
+        the measured-per-row 1M-node projection. {"enabled": False} in the
+        profiler-off contrast arm (presence keeps the schema stable)."""
+        obs = srv.runtime_observatory
+        if not srv.config.profile_config.enabled:
+            return {"enabled": False}
+        obs.refresh()
+        return {"enabled": True, **obs.snapshot()}
 
     def _reads_section(self, srv) -> Dict:
         """The read books' run report (read_observe.py): per-route serving
@@ -2268,6 +2293,20 @@ def _contrast_spec(spec: ScenarioSpec) -> ScenarioSpec:
         spec, server_overrides=overrides, contrast_overrides=None)
 
 
+def profiler_overhead(profiled: Dict, disabled: Dict) -> Optional[Dict]:
+    """The profiled arm's plan p50 against the profiler-off arm's (None
+    when either arm planned nothing)."""
+    p_on = (profiled.get("plan_latency_ms") or {}).get("p50_ms")
+    p_off = (disabled.get("plan_latency_ms") or {}).get("p50_ms")
+    if not (p_on and p_off):
+        return None
+    return {
+        "plan_p50_ms_profiled": p_on,
+        "plan_p50_ms_disabled": p_off,
+        "overhead_fraction": round(p_on / p_off - 1.0, 4),
+    }
+
+
 def _equilibrium_rate(srv, fleet) -> float:
     from nomad_tpu_torch.server.heartbeat import rate_scaled_interval
 
@@ -2297,10 +2336,9 @@ def run_scenario(name: str, seed: int = 42, out_path: Optional[str] = None,
     """Run one named scenario on ``device`` (default the CUDA card);
     optionally write the JSON artifact. When the spec declares a
     contrast arm it runs after the main arm and a trimmed summary lands
-    in ``artifact["contrast"]``; an arm whose overrides need a module the
-    port does not have yet is not run, and the section says so and why.
-    ``contrast=False`` skips it (determinism re-verification compares main
-    arms only)."""
+    in ``artifact["contrast"]``; a profiler-off arm adds the
+    ``profiler_overhead`` verdict. ``contrast=False`` skips it
+    (determinism re-verification compares main arms only)."""
     spec = SCENARIOS.get(name)
     if spec is None:
         raise KeyError(
@@ -2313,41 +2351,39 @@ def run_scenario(name: str, seed: int = 42, out_path: Optional[str] = None,
     if contrast and spec.contrast_overrides is not None:
         contrast_spec = _contrast_spec(spec)
         overrides = contrast_spec.server_overrides
-        needs = unported_needs(contrast_spec)
-        if needs:
-            artifact["contrast"] = {
-                "run": False,
-                "server_overrides": overrides,
-                "reason": _not_ported_message("the contrast arm", needs),
-            }
-        else:
-            full = ScenarioRunner(
-                contrast_spec, seed=seed, n_nodes=n_nodes, logger=logger,
-                attribution_layer=attribution_layer, device=device,
-            ).run()
-            att = full.get("latency_attribution") or {}
-            artifact["contrast"] = {
-                "run": True,
-                "server_overrides": overrides,
-                "placements": full["placements"],
-                "peaks": full["peaks"],
-                "plan_latency_ms": full["plan_latency_ms"],
-                "submit_to_placed_ms": att.get("submit_to_placed_ms"),
-                "slo_check": att.get("slo_check"),
-                "admission": full["admission"],
-                "events": {"observed": full["events"]["observed"],
-                           "truncated": full["events"]["truncated"]},
-            }
-            if spec.contrast_digest_invariant:
-                # The off arm's decision-invariance verdict.
-                artifact["contrast"]["events"]["digest"] = \
-                    full["events"]["digest"]
-                artifact["contrast"]["digest_matches"] = (
-                    full["events"]["digest"]
-                    == artifact["events"]["digest"]
-                )
-                artifact["contrast"]["capacity"] = full.get("capacity")
-                artifact["contrast"]["reads"] = full.get("reads")
+        full = ScenarioRunner(
+            contrast_spec, seed=seed, n_nodes=n_nodes, logger=logger,
+            attribution_layer=attribution_layer, device=device,
+        ).run()
+        att = full.get("latency_attribution") or {}
+        artifact["contrast"] = {
+            "run": True,
+            "server_overrides": overrides,
+            "placements": full["placements"],
+            "peaks": full["peaks"],
+            "plan_latency_ms": full["plan_latency_ms"],
+            "submit_to_placed_ms": att.get("submit_to_placed_ms"),
+            "slo_check": att.get("slo_check"),
+            "admission": full["admission"],
+            "events": {"observed": full["events"]["observed"],
+                       "truncated": full["events"]["truncated"]},
+        }
+        if spec.contrast_digest_invariant:
+            # The off arm's decision-invariance verdict.
+            artifact["contrast"]["events"]["digest"] = \
+                full["events"]["digest"]
+            artifact["contrast"]["digest_matches"] = (
+                full["events"]["digest"] == artifact["events"]["digest"]
+            )
+            artifact["contrast"]["capacity"] = full.get("capacity")
+            artifact["contrast"]["reads"] = full.get("reads")
+            artifact["contrast"]["profile"] = full.get("profile")
+        if ((spec.contrast_overrides.get("profile") or {})
+                .get("enabled") is False):
+            # Profiler-overhead verdict: same-seed arms do identical
+            # plan work, so the plan p50 delta is the profiler's cost.
+            artifact["contrast"]["profiler_overhead"] = profiler_overhead(
+                artifact, full)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(artifact, f, indent=2, sort_keys=True)

@@ -8,7 +8,10 @@ on the device and write its artifact.
     python -m nomad_tpu_torch.simcluster.simload --list
 
 Writes ``SIMLOAD_<scenario>_s<seed>.json`` in the working directory
-(override with --out) and prints one JSON summary line. ``--device``
+(override with --out) and prints one JSON summary line. The artifact
+carries nomad_tpu's sections, ``profile`` among them (the runtime
+observatory's role shares, the lock watchdog's table and the byte
+ledger), and steady-10k's ``contrast.profiler_overhead``. ``--device``
 defaults to the CUDA card; without one the run raises (pass ``cpu`` to
 run the plain PyTorch path).
 

@@ -212,6 +212,41 @@ class NodeMirror:
         self._express_usage: Optional[Tuple] = None
         self._express_roll_lock = threading.Lock()
 
+    # -- byte economy ------------------------------------------------------
+
+    def byte_ledger(self) -> dict:
+        """Per-buffer byte accounting of this mirror (the runtime
+        observatory's mirror ledger): the named device and host buffers
+        with dtype and bytes, plus the mask and usage caches summed.
+        Reads metadata only (``numel() * element_size()`` for a tensor):
+        no device sync, no copy."""
+        buffers = {}
+        for name in ("total", "totals_np", "reserved_np", "sched_cap",
+                     "bw_avail", "bw_reserved", "base_mask"):
+            arr = getattr(self, name, None)
+            if arr is None:
+                continue
+            buffers[name] = {"dtype": _dtype_name(arr),
+                             "nbytes": _arr_bytes(arr)}
+        cache_bytes = 0
+        for cache_name in ("_driver_mask_cache", "_constraint_mask_cache",
+                           "_target_col_cache", "_target_code_cache",
+                           "_device_mask_cache"):
+            cache = getattr(self, cache_name, None) or {}
+            cache_bytes += sum(_arr_bytes(v) for v in list(cache.values()))
+        for extra in ("_clean_usage_dev", "_base_usage", "_express_usage",
+                      "_id_array"):
+            cache_bytes += _arr_bytes(getattr(self, extra, None))
+        buffer_bytes = sum(b["nbytes"] for b in buffers.values())
+        return {
+            "rows": self.n,
+            "padded": self.padded,
+            "buffers": buffers,
+            "buffer_bytes": buffer_bytes,
+            "cache_bytes": cache_bytes,
+            "total_bytes": buffer_bytes + cache_bytes,
+        }
+
     # -- delta maintenance -------------------------------------------------
 
     def apply_delta(self, changes, state, datacenters: List[str]):
@@ -1221,6 +1256,86 @@ class MirrorCache:
                     m.padded for _n, m in self._entries.values()
                 }),
             }
+
+
+    def byte_ledger(self) -> dict:
+        """The cache-wide byte economy: the resident mirrors' buffers
+        grouped by padding bucket x dtype, the MEASURED per-padded-row
+        cost, and the projected 1M-node footprint, per_row_bytes x
+        bucket(1_000_000) rows. The projection is None until a mirror is
+        resident (no rows, no measurement)."""
+        with self._lock:
+            mirrors = [m for _n, m in self._entries.values()]
+        by_bucket: dict = {}
+        buffer_bytes = 0
+        cache_bytes = 0
+        padded_rows = 0
+        live_rows = 0
+        for m in mirrors:
+            ledger = m.byte_ledger()
+            buffer_bytes += ledger["buffer_bytes"]
+            cache_bytes += ledger["cache_bytes"]
+            padded_rows += ledger["padded"]
+            live_rows += ledger["rows"]
+            row = by_bucket.setdefault(ledger["padded"], {})
+            for buf in ledger["buffers"].values():
+                row[buf["dtype"]] = row.get(buf["dtype"], 0) + buf["nbytes"]
+        total = buffer_bytes + cache_bytes
+        per_row = (total / padded_rows) if padded_rows else None
+        return {
+            "mirrors": len(mirrors),
+            "rows": live_rows,
+            "padded_rows": padded_rows,
+            "by_bucket_dtype": {
+                str(b): dict(sorted(row.items()))
+                for b, row in sorted(by_bucket.items())
+            },
+            "buffer_bytes": buffer_bytes,
+            "cache_bytes": cache_bytes,
+            "total_bytes": total,
+            "per_row_bytes": round(per_row, 2) if per_row else None,
+            "projected_1m_rows": bucket(1_000_000) if per_row else None,
+            "projected_1m_bytes": (
+                int(per_row * bucket(1_000_000)) if per_row else None
+            ),
+        }
+
+    def device_bytes(self) -> int:
+        """Bytes of the resident mirrors' tensors that live on a CUDA
+        device (metadata only)."""
+        with self._lock:
+            mirrors = [m for _n, m in self._entries.values()]
+        return sum(_arr_bytes(v, cuda_only=True) for m in mirrors
+                   for v in _mirror_arrays(m))
+
+
+def _dtype_name(arr) -> str:
+    """numpy's spelling of an array's or tensor's dtype ("int32", never
+    "torch.int32"), so the ledger's keys equal nomad_tpu's."""
+    if isinstance(arr, torch.Tensor):
+        return str(arr.dtype).replace("torch.", "")
+    return str(arr.dtype)
+
+
+def _arr_bytes(v, cuda_only: bool = False) -> int:
+    """Bytes of a tensor or array, or of the ones inside a tuple or list,
+    from metadata alone."""
+    if isinstance(v, torch.Tensor):
+        if cuda_only and v.device.type != "cuda":
+            return 0
+        return v.numel() * v.element_size()
+    if isinstance(v, np.ndarray):
+        return 0 if cuda_only else int(v.nbytes)
+    if isinstance(v, (tuple, list)):
+        return sum(_arr_bytes(x, cuda_only) for x in v)
+    return 0
+
+
+def _mirror_arrays(m):
+    """Every buffer and cache entry a mirror holds (for device_bytes)."""
+    for name in ("total", "sched_cap", "bw_avail", "_clean_usage_dev"):
+        yield getattr(m, name, None)
+    yield from list((getattr(m, "_device_mask_cache", None) or {}).values())
 
 
 # Process-wide cache shared by every device scheduler instance (the workers

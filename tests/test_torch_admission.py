@@ -314,6 +314,6 @@ def test_overdrive_1k_attribution_and_slo(overdrive_1k):
     assert overdrive_1k["slo"]["resets"] == 1
     names = {o["name"] for o in overdrive_1k["slo"]["objectives"]}
     assert names == set(psc.slo.DEFAULT_OBJECTIVES)
-    assert not any(r["section"] in ("admission.controller", "slo",
-                                    "latency_attribution")
-                   for r in overdrive_1k["not_ported"])
+    assert "not_ported" not in overdrive_1k
+    for section in ("admission", "slo", "latency_attribution"):
+        assert overdrive_1k[section] is not None, section

@@ -9,12 +9,20 @@ once server-made ids (eval and alloc uuids), raft indexes and timestamps
 are masked; node and job ids are the seeded ones and are not masked, so
 the alloc-to-node mapping is compared as it stands. A blocking query
 wakes on a write, the event stream gives the same event types on the same
-keys, every ``NOT_PORTED_ROUTES`` entry answers 501 naming its module,
-the capacity and raft observatories answer ``/v1/agent/capacity`` and
+keys, the capacity and raft observatories answer ``/v1/agent/capacity`` and
 ``/v1/agent/raft`` with nomad_tpu's keys (the capacity books equal, as the
-committed allocs are), their ``?format=prometheus`` answers 501 naming the
-telemetry sinks, and a subprocess with ``jax`` and ``nomad_tpu`` blocked drives every
-route of the port's table and the CLI.
+committed allocs are). The operator surface answers as nomad_tpu's:
+``/v1/agent/metrics`` (JSON, and the main Prometheus scrape with
+nomad_tpu's subsystem families, the lock families over a watched lock in
+each), ``/solver``, ``/runtime``, ``/profile`` in each format, ``/debug``
+and ``/debug/bundle``, with nomad_tpu's JSON key sets (the port adds
+``mirror_cache.byte_ledger`` to ``/solver`` and reports its device in
+``/debug`` where nomad_tpu reports its device probe and Pallas state);
+``?format=prometheus`` on capacity, raft and reads gives nomad_tpu's
+families; the SDK's accessors answer; the ``telemetry`` keys,
+``server.profile`` and ``lock_watchdog`` parse as nomad_tpu's and take
+effect. A subprocess with ``jax`` and ``nomad_tpu`` blocked drives every
+route of the port's table and the CLI under the port's lock watchdog.
 
 Tolerance: exact. The cluster is ``mock.node()`` copies (one shape), so
 scores tie exactly and no decision falls in the pow contract's band
@@ -44,7 +52,6 @@ from nomad_tpu.api.codec import to_dict
 from nomad_tpu.scheduler import wait_for_device
 from nomad_tpu_torch.agent import Agent, AgentConfig
 from nomad_tpu_torch.api import ApiClient
-from nomad_tpu_torch.api.http import NOT_PORTED_ROUTES
 from nomad_tpu_torch.convert import structs_from_reference
 
 torch.set_num_threads(2)
@@ -448,11 +455,30 @@ def test_raft_route_keeps_nomad_tpus_keys(sides):
     assert bodies[1]["raft"]["state"] == bodies[0]["raft"]["state"]
 
 
-@pytest.mark.parametrize("route", ["capacity", "raft"])
-def test_observatory_prometheus_answers_501(sides, route):
-    code, text = sides[1].get(f"/v1/agent/{route}?format=prometheus")
-    assert code == 501
-    assert "telemetry.py's sinks" in text
+def prom(text):
+    """(family -> type, the set of series name{labels}) of a text
+    exposition; every line must be a TYPE line or a sample."""
+    types, series = {}, set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _h, _t, name, mtype = line.split()
+            assert name not in types, name
+            types[name] = mtype
+        else:
+            key, value = line.rsplit(" ", 1)
+            float(value)
+            series.add(key)
+    return types, series
+
+
+@pytest.mark.parametrize("route", ["capacity", "raft", "reads"])
+def test_observatory_prometheus_answers_as_nomad_tpu(sides, route):
+    got = []
+    for side in sides:
+        code, text = side.get(f"/v1/agent/{route}?format=prometheus")
+        assert code == 200, (side.name, text)
+        got.append(prom(text)[0])
+    assert got[1] == got[0] and got[1]
 
 
 @pytest.mark.parametrize("route", ["capacity", "raft"])
@@ -462,13 +488,189 @@ def test_sdk_reads_the_observatory(sides, route):
     assert isinstance(got, dict) and set(got) == set(ref)
 
 
-@pytest.mark.parametrize("pattern", sorted(NOT_PORTED_ROUTES))
-def test_not_ported_route_answers_501(sides, pattern):
-    path = re.sub(r"\(\?P<[^>]+>[^)]+\)", "x", pattern).strip("^$")
-    code, text = sides[1].get(path)
-    assert code == 501
-    assert NOT_PORTED_ROUTES[pattern] in text
-    assert sides[0].get(path)[0] != 501
+def _sink_prefix():
+    import socket
+
+    from nomad_tpu_torch.telemetry import _sanitize
+
+    return _sanitize(f"nomad.{socket.gethostname()}.")
+
+
+def test_main_scrape_carries_nomad_tpus_families(sides):
+    """The subsystem families of /v1/agent/metrics?format=prometheus
+    (every family but the sink's own, whose names carry this host) are
+    nomad_tpu's, types and all, with a watchdog installed in each package
+    and one watched lock acquired; the sink's part parses too."""
+    import chip_smoke
+    from nomad_tpu import telemetry as jt
+    from nomad_tpu_torch import telemetry as pt
+
+    got = []
+    wds = [jt.LockWatchdog(order=["x"], sites={}),
+           pt.LockWatchdog(order=["x"], sites={})]
+    for wd in wds:
+        wd.install()
+    try:
+        for side, wd in zip(sides, wds):
+            with wd.watch(threading.Lock(), "x"):
+                pass
+            # The observatories' JSON routes refresh their books, so the
+            # scrape does not depend on where each poller's tick fell.
+            for route in ("capacity", "raft", "reads", "runtime"):
+                assert side.get(f"/v1/agent/{route}")[0] == 200
+            code, text = side.get("/v1/agent/metrics?format=prometheus")
+            assert code == 200
+            types, _series = prom(text)
+            got.append({f: t for f, t in types.items()
+                        if not f.startswith(_sink_prefix())})
+            assert len(types) > len(got[-1])
+    finally:
+        for wd in reversed(wds):
+            wd.uninstall()
+    assert got[1] == got[0]
+    assert {"nomad_lock_wait_ms", "nomad_profile_role_share",
+            "nomad_solver_solves_total"} <= set(got[1])
+    # The chip script's list of families is nomad_tpu's (less the raft
+    # commit index, which a dev agent's in-process raft does not report
+    # and the chip script's one-member cluster agent does).
+    missing = set(chip_smoke.OPERATOR_FAMILIES) - set(got[0])
+    assert missing <= {"nomad_raft_commit_index"}, missing
+
+
+def test_metrics_json_keeps_nomad_tpus_keys(sides):
+    bodies = [json.loads(side.get("/v1/agent/metrics")[1])
+              for side in sides]
+    assert set(bodies[1]) == set(bodies[0])
+    for key in ("mirror_cache", "plan_pipeline", "admission", "express",
+                "capacity", "reads", "runtime", "solver_panel", "trace"):
+        assert set(bodies[1][key]) == set(bodies[0][key]), key
+    assert bodies[1]["locks"] is None and bodies[0]["locks"] is None
+    assert bodies[1]["intervals"]
+
+
+def test_solver_route_keeps_nomad_tpus_keys(sides):
+    ref, got = (json.loads(side.get("/v1/agent/solver")[1])
+                for side in sides)
+    assert set(got) == set(ref)
+    assert set(got["panel"]) == set(ref["panel"])
+    assert set(got["mirror_cache"]) == set(ref["mirror_cache"]) | {
+        "byte_ledger"}
+    # The panels are process-wide: other tests' solves count too.
+    assert got["panel"]["solves"] > 0 and ref["panel"]["solves"] > 0
+    assert got["jit_trace"] == {}
+    ledger = got["mirror_cache"]["byte_ledger"]
+    assert ledger["projected_1m_rows"] == 1_048_576
+
+
+@pytest.mark.parametrize("path", ["/v1/agent/runtime", "/v1/agent/profile"])
+def test_observatory_route_keeps_nomad_tpus_keys(sides, path):
+    ref, got = (json.loads(side.get(path)[1]) for side in sides)
+    assert set(got) == set(ref)
+    for key in got:
+        if isinstance(got[key], dict) and key != "locks":
+            assert set(got[key]) == set(ref[key]), key
+
+
+@pytest.mark.parametrize("fmt, ctype", [
+    ("collapsed", "text/plain; charset=utf-8"),
+    ("speedscope", "application/json")])
+def test_profile_formats_answer_as_nomad_tpu(sides, fmt, ctype):
+    for side in sides:
+        req = urllib.request.Request(
+            side.addr + f"/v1/agent/profile?format={fmt}")
+        with urllib.request.urlopen(req, timeout=WAIT_S) as resp:
+            assert resp.status == 200
+            assert resp.headers["Content-Type"] == ctype
+
+
+def test_debug_routes_keep_nomad_tpus_keys(sides):
+    from nomad_tpu.bundle import BUNDLE_SECTIONS
+
+    bundles = [json.loads(side.get("/v1/agent/debug/bundle")[1])
+               for side in sides]
+    assert set(bundles[1]) == set(bundles[0]) == set(BUNDLE_SECTIONS)
+    debug = [json.loads(side.get("/v1/agent/debug")[1]) for side in sides]
+    assert set(debug[1]) == set(debug[0]) - {"device_probe", "pallas"} | {
+        "device"}
+
+
+@pytest.mark.parametrize("accessor", ["metrics", "solver", "profile",
+                                      "runtime", "debug", "debug_bundle"])
+def test_sdk_operator_accessors_answer(sides, accessor):
+    got = getattr(sides[1].client.agent(), accessor)()
+    ref = getattr(sides[0].client.agent(), accessor)()
+    assert isinstance(got, dict) and got
+    if accessor != "debug":
+        assert set(got) == set(ref)
+
+
+TELEMETRY_HCL = """
+server {
+  enabled = true
+  profile { sample_interval = 0.02  seed = 5 }
+}
+telemetry {
+  statsd_address = "127.0.0.1:{port}"
+  disable_hostname = true
+  histogram_buckets = [50, 5, 0.5]
+  lock_watchdog = true
+}
+"""
+
+
+def test_telemetry_keys_parse_as_nomad_tpus_and_take_effect(tmp_path):
+    """The four telemetry keys, server.profile and lock_watchdog parse to
+    nomad_tpu's values, and a port agent built from them sends statsd
+    lines without the hostname, exposes the configured buckets, runs the
+    profiler at the configured seed and installs (then uninstalls) the
+    lock watchdog."""
+    import socket
+
+    from nomad_tpu import agent_config as jac
+    from nomad_tpu.agent import AgentConfig as JaxConfig
+    from nomad_tpu_torch import agent_config as pac
+    from nomad_tpu_torch import telemetry as pt
+
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    rx.settimeout(10.0)
+    path = tmp_path / "agent.hcl"
+    path.write_text(TELEMETRY_HCL.replace(
+        "{port}", str(rx.getsockname()[1])))
+    fc, jfc = pac.load_config_file(str(path)), jac.load_config_file(
+        str(path))
+    assert vars(fc.telemetry) == vars(jfc.telemetry)
+    assert fc.server.profile == jfc.server.profile
+    cfg = AgentConfig.from_file_config(fc)
+    jcfg = JaxConfig.from_file_config(jfc)
+    for key in ("statsd_addr", "statsite_addr", "disable_hostname_metrics",
+                "histogram_buckets", "lock_watchdog", "profile"):
+        assert getattr(cfg, key) == getattr(jcfg, key), key
+    cfg.dev_mode, cfg.device, cfg.http_port = True, "cpu", 0
+    cfg.data_dir = str(tmp_path / "data")
+    was = pt.get_global()
+    agent = Agent(cfg)
+    try:
+        assert pt.active_lock_watchdog() is agent.lock_watchdog is not None
+        agent.server.config.min_heartbeat_ttl = 3600.0
+        agent.start()
+        assert agent.inmem_sink.buckets == (0.5, 5.0, 50.0)
+        assert agent.server.config.profile_config.seed == 5
+        pt.incr_counter(("operator", "probe"))
+        pt.add_sample(("operator", "probe_ms"), 1.0)
+        lines = rx.recv(4096).decode().splitlines()
+        assert lines and all(ln.startswith("nomad.") for ln in lines)
+        assert not any(socket.gethostname() in ln for ln in lines)
+        text = urllib.request.urlopen(
+            agent.http.addr + "/v1/agent/metrics?format=prometheus",
+            timeout=WAIT_S).read().decode()
+        assert 'le="0.5"' in text and 'le="2.5"' not in text
+        assert "nomad_lock_watchdog_installed 1" in text
+    finally:
+        agent.shutdown()
+        rx.close()
+        pt.set_global(was)
+    assert pt.active_lock_watchdog() is None
 
 
 def test_every_route_answers_without_jax_or_nomad_tpu():
@@ -488,6 +690,7 @@ from nomad_tpu_torch.api import ApiClient
 
 agent = Agent(AgentConfig(server_enabled=True, dev_mode=True, http_port=0,
                           num_schedulers=1, enable_debug=True,
+                          lock_watchdog=True,
                           device="cpu", express={"enabled": True},
                           admission={"client_rate": 0.001,
                                      "client_burst": 4}))
@@ -548,7 +751,12 @@ for argv in (["status"], ["status", job.id], ["node-status"],
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert cli.main(["--address", addr] + argv) == 0, argv
+wd = agent.lock_watchdog
+assert wd is not None and wd.stats()["locks_tracked"] > 0
 agent.shutdown()
+assert wd.violations == [], wd.violations
+from nomad_tpu_torch import telemetry
+assert telemetry.active_lock_watchdog() is None
 
 # A client-only agent against a one-member cluster agent: the routes that
 # read the server answer nomad_tpu's "no server running", the agent's own
@@ -597,7 +805,8 @@ import nomad_tpu_torch.simcluster.scenario
 import nomad_tpu_torch.simcluster.chaos
 for name in ("slo", "lifecycle", "read_observe", "server.admission",
              "server.express", "server.read_path", "simcluster.scenario",
-             "capacity", "raft_observe", "simcluster.chaos"):
+             "capacity", "raft_observe", "simcluster.chaos", "telemetry",
+             "profile_observe", "bundle"):
     assert "nomad_tpu_torch." + name in sys.modules, name
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "nomad_tpu")]

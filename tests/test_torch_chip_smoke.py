@@ -6,7 +6,10 @@ the simcluster phase's reading of the committed reference digests and
 its check of a run's artifact against them (the slow test recomputes
 those digests with nomad_tpu); the client phase at a small size; and the
 planes phase's checks of the front door and the fast lanes, and the
-phase itself on the CPU at a small size."""
+phase itself on the CPU at a small size; the simcluster phase's
+profiler-off arm and its check of the profiled arm's profile section;
+and the operator phase's Prometheus reader, lock and role deltas, config
+file, and the phase itself on the CPU at a small size."""
 
 import json
 
@@ -586,3 +589,146 @@ def test_recovery_phase_at_a_small_size(counted_plain, capsys):
     assert "recovery churn-frag-200: stranded_pct/placeable before" in out
     assert "recovery restart-800: recovery {" in out
     assert "recovery restart-800: write_path alloc_update" in out
+
+
+# -- the operator phase and steady-10k's profiled arm ---------------------------
+
+
+GOOD_SCRAPE = """# TYPE nomad_a_total counter
+nomad_a_total 3
+# TYPE nomad_b gauge
+nomad_b{dim="cpu",lane="x\\"y"} 0.5
+nomad_b{dim="mem"} +Inf
+# TYPE s_ms summary
+s_ms{quantile="0.5"} 1.5
+s_ms_sum 3
+s_ms_count 2
+# TYPE s_ms_hist histogram
+s_ms_hist_bucket{le="1"} 1
+s_ms_hist_bucket{le="+Inf"} 2
+s_ms_hist_sum 3
+s_ms_hist_count 2
+"""
+
+
+def test_parse_prometheus_reads_every_line():
+    assert cs.parse_prometheus(GOOD_SCRAPE) == {
+        "nomad_a_total": "counter", "nomad_b": "gauge", "s_ms": "summary",
+        "s_ms_hist": "histogram"}
+
+
+@pytest.mark.parametrize("text, error", [
+    ("nomad_a_total 3\n", "before its family"),
+    ("# TYPE x gauge\n# TYPE x gauge\n", "declared twice"),
+    ("# TYPE x gauge\nx abc\n", "could not convert"),
+    ("# TYPE x meter\n", "scrape line 1"),
+    ("# TYPE x gauge\nx{bad-label=\"1\"} 1\n", "scrape line 2"),
+    ("# TYPE x gauge\nx  1\n", "scrape line 2"),
+])
+def test_parse_prometheus_refuses_bad_lines(text, error):
+    with pytest.raises((AssertionError, ValueError), match=error):
+        cs.parse_prometheus(text)
+
+
+def profiled_artifact(enabled=True, roles=True, contention=True,
+                      violations=0, projected=1000):
+    return {"profile": {
+        "enabled": enabled,
+        "profiler": {"roles": {"worker": {"samples": 3, "wall_share": 1.0}}
+                     if roles else {}},
+        "locks": {"installed": True, "violations": violations,
+                  "contention": [{"lock": "a"}] if contention else []},
+        "bytes": {"mirror": {"projected_1m_bytes": projected}},
+    }}
+
+
+@pytest.mark.parametrize("art, error", [
+    (profiled_artifact(), None),
+    (profiled_artifact(enabled=False), "not enabled"),
+    (profiled_artifact(roles=False), "no role wall shares"),
+    (profiled_artifact(contention=False), "no lock-contention table"),
+    (profiled_artifact(violations=2), "2 lock-order violations"),
+    (profiled_artifact(projected=None), "no 1M-row projection"),
+])
+def test_check_profile(art, error):
+    if error is None:
+        cs.check_profile("s", art)
+        return
+    with pytest.raises(AssertionError, match=error):
+        cs.check_profile("s", art)
+
+
+def test_lock_delta_and_role_shares():
+    before = {"L": {"acquisitions": 3, "contended": 1,
+                    "wait_total_ms": 2.5}}
+    after = {"L": {"acquisitions": 10, "contended": 4,
+                   "wait_total_ms": 12.5}}
+    assert cs.lock_delta(before, after, "L") == {
+        "acquisitions": 7, "contended": 3, "wait_total_ms": 10.0}
+    assert cs.lock_delta({}, after, "M") == {
+        "acquisitions": 0, "contended": 0, "wait_total_ms": 0}
+    p0 = {"roles": {"worker": {"samples": 2}}}
+    p1 = {"roles": {"worker": {"samples": 5}, "raft": {"samples": 1}}}
+    assert cs.role_shares(p0, p1) == {"raft": 0.25, "worker": 0.75}
+
+
+def test_operator_config_file_parses_to_the_phase_agent(tmp_path):
+    from nomad_tpu_torch import agent_config
+    from nomad_tpu_torch.agent import AgentConfig
+
+    path = tmp_path / "op.hcl"
+    path.write_text(cs.operator_config_hcl(str(tmp_path), "cpu",
+                                           "127.0.0.1:9"))
+    cfg = AgentConfig.from_file_config(agent_config.default_config().merge(
+        agent_config.load_config_file(str(path))))
+    assert (cfg.server_enabled, cfg.enable_debug, cfg.lock_watchdog,
+            cfg.statsd_addr, cfg.profile, cfg.device, cfg.http_port,
+            cfg.rpc_port) == (True, True, True, "127.0.0.1:9",
+                              {"enabled": True}, "cpu", 0, 0)
+    assert cfg.histogram_buckets == list(cs.OPERATOR_BUCKETS)
+
+
+def test_operator_phase_at_a_small_size(counted_plain, monkeypatch, tmp_path,
+                                        capsys):
+    """phase_operator on the CPU: 300 nodes, a 1,000-task headline and a
+    count-20 service job through a port agent built from its config file,
+    every operator route checked, the watchdog clean and uninstalled,
+    the global metrics registry restored."""
+    from nomad_tpu_torch import telemetry
+
+    for name, value in (("N_NODES", 300), ("N_TASKS", 1000),
+                        ("SERVICE_COUNT", 20)):
+        monkeypatch.setattr(cs, name, value)
+    was = telemetry.get_global()
+    wf, gr = cs.phase_operator(torch.device("cpu"), "cpu", str(tmp_path))
+    assert wf >= 1 + cs.OPERATOR_ROUNDS and gr >= 1 + cs.OPERATOR_ROUNDS
+    assert telemetry.get_global() is was
+    assert telemetry.active_lock_watchdog() is None
+    out = capsys.readouterr().out
+    assert "operator: scrape " in out and "statsd lines received" in out
+    assert "violations 0; the ten with the most wait:" in out
+    assert out.count("operator lock ") >= 3
+    assert "operator operator-headline: register_complete_p50_ms=" in out
+    assert "role shares over its rounds" in out
+
+
+def test_simcluster_phase_runs_the_profiler_off_arm(counted_plain,
+                                                   monkeypatch, capsys):
+    """phase_simcluster on the CPU with steady-1k given steady-10k's
+    profiler-off contrast arm: both arms held to nomad_tpu's digest, the
+    profiled arm to check_profile, the overhead and the ledger logged."""
+    import dataclasses
+
+    from nomad_tpu_torch.simcluster import scenario as psc
+
+    spec = dataclasses.replace(
+        psc.SCENARIOS["steady-1k"],
+        contrast_overrides=psc.SCENARIOS["steady-10k"].contrast_overrides)
+    monkeypatch.setitem(psc.SCENARIOS, "steady-1k", spec)
+    assert cs.phase_simcluster(torch.device("cpu"), "cpu",
+                               names=("steady-1k",)) >= 2
+    out = capsys.readouterr().out
+    assert "simcluster steady-1k: profiler-off arm digest equal" in out
+    assert '"overhead_fraction"' in out
+    assert "simcluster steady-1k: byte ledger per_row_bytes=" in out
+    assert "projected_1m_rows=1048576" in out

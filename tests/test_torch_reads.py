@@ -341,8 +341,24 @@ def test_read_books_equal_reference(cells):
     for role, lanes in ref["freshness"]["by_role"].items():
         assert {k: v["count"] for k, v in got["freshness"]["by_role"][
             role].items()} == {k: v["count"] for k, v in lanes.items()}
-    status, _h, _b = cells[1].get("/v1/agent/reads?format=prometheus")
-    assert status == 501
+    # The read families as Prometheus text: nomad_tpu's families and
+    # series (names and labels; the values are timings and counts).
+    texts = []
+    for side in cells:
+        status, headers, body = side.get("/v1/agent/reads?format=prometheus")
+        assert status == 200
+        assert headers["Content-Type"] == "text/plain; version=0.0.4"
+        texts.append(body.decode())
+    ref_text, got_text = texts
+
+    def families(text):
+        lines = text.splitlines()
+        return ({ln for ln in lines if ln.startswith("# TYPE ")},
+                {ln.rsplit(" ", 1)[0] for ln in lines
+                 if not ln.startswith("#")})
+
+    assert families(got_text) == families(ref_text)
+    assert "# TYPE nomad_read_requests_total counter" in got_text
 
 
 def test_agent_routes_of_the_slice_answer(cells):

@@ -284,7 +284,8 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.client.driver.raw_exec",
     "nomad_tpu_torch.client.driver.docker",
     "nomad_tpu_torch.capacity", "nomad_tpu_torch.raft_observe",
-    "nomad_tpu_torch.simcluster.chaos",
+    "nomad_tpu_torch.simcluster.chaos", "nomad_tpu_torch.telemetry",
+    "nomad_tpu_torch.profile_observe", "nomad_tpu_torch.bundle",
 ]
 
 
@@ -299,6 +300,9 @@ def test_port_imports_without_jax_or_nomad_tpu():
         "for m in pkgutil.walk_packages(nomad_tpu_torch.__path__,"
         " 'nomad_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from nomad_tpu_torch import telemetry\n"
+        "with telemetry.port_lock_watchdog() as wd:\n"
+        "    assert telemetry.active_lock_watchdog() is wd\n"
         "assert not [m for m, v in sys.modules.items() if v is not None"
         " and m.split('.')[0] in ('jax', 'nomad_tpu')]\n"
         "print('ok')\n"

@@ -20,8 +20,10 @@
   candidate scores sit inside the pow contract's band (ROADMAP Queue 3).
 - A same-seed replay of the reference's ``steady-mini`` spec reproduces
   the port's own digest; a scenario that needs an unported module raises
-  an error that names it; a contrast arm runs when its modules are
-  ported and is recorded as not run, with the reason, when they are not.
+  an error that names it; a contrast arm runs, and steady-10k's
+  profiler-off arm (on a small spec) keeps the digest and gives the
+  ``profiler_overhead`` verdict, the profiled arm carrying the profile
+  section with the lock watchdog's table.
 - The capacity and raft observatories' smokes: ``churn-frag-200`` (both
   arms: the capacity-off contrast arm must reproduce the main arm's
   digest) and ``restart-800`` (the leader killed at t=2 s and restarted
@@ -82,7 +84,7 @@ RUNNABLE = ["burst-100k", "churn", "churn-frag-200", "churn-fragmentation",
 # Specs that would wait for a module the port does not have (none of the
 # registry's does), each with a word its error must name.
 WAITING = {
-    "needs-profile": ({"profile": {"enabled": True}}, "profile_observe"),
+    "needs-tls": ({"tls": {"ca_file": "ca.pem"}}, "tlsutil"),
     "needs-mesh": ({"solver_mesh": {"axis": 1}}, "parallel/mesh"),
 }
 
@@ -255,13 +257,21 @@ def test_steady_1k_sections_equal_reference(steady_1k):
 
 
 def test_steady_1k_absent_sections_are_listed(steady_1k):
+    """No section is left out any more: the artifact has nomad_tpu's
+    sections, the profile section among them (the attribution layer is
+    off, so no watchdog ran)."""
     art = steady_1k["port"]
-    listed = {row["section"] for row in art["not_ported"]}
-    assert listed == set(psc.NOT_PORTED_SECTIONS) == {"lock_watchdog",
-                                                       "profile"}
-    assert "profile" not in art
-    # The capacity and raft sections stand as in nomad_tpu's artifact.
     ref = steady_1k["nomad_tpu"]
+    assert "not_ported" not in art
+    assert set(art) == set(ref)
+    assert art["profile"]["enabled"] is True
+    assert set(art["profile"]) == set(ref["profile"])
+    assert set(art["profile"]["bytes"]) == set(ref["profile"]["bytes"])
+    assert art["profile"]["locks"] == ref["profile"]["locks"] == {
+        "installed": False}
+    assert art["profile"]["bytes"]["mirror"]["projected_1m_rows"] == \
+        ref["profile"]["bytes"]["mirror"]["projected_1m_rows"] == 1_048_576
+    # The capacity and raft sections stand as in nomad_tpu's artifact.
     for section in ("capacity", "raft"):
         assert art[section]["enabled"] is True
         assert set(art[section]) == set(ref[section]), section
@@ -371,20 +381,44 @@ def test_contrast_arm_runs_when_its_modules_are_ported(monkeypatch):
     assert art["contrast"]["run"] is True
     assert art["contrast"]["digest_matches"] is True
     assert art["contrast"]["placements"]["placed"] == 300
-    assert "contrast" not in {r["section"] for r in art["not_ported"]}
 
 
-def test_contrast_arm_that_waits_is_recorded_not_run(monkeypatch):
-    """steady-10k's profiler-off arm, on a small spec: not run, and both
-    the contrast section and the not_ported list say why."""
+def test_profiler_off_arm_keeps_the_digest_and_gives_the_overhead(
+        monkeypatch):
+    """steady-10k's profiler-off contrast arm, on a small spec: it runs,
+    reproduces the main arm's digest, profiles nothing, and the artifact
+    carries the profiler_overhead verdict (the profiled arm's plan p50
+    over the off arm's). The profiled arm ran under the port's lock
+    watchdog, uninstalled after: its table is non-empty, with no
+    violation."""
+    from nomad_tpu_torch import telemetry
+
     monkeypatch.setitem(psc.SCENARIOS, "tiny", tiny(
         psc.SCENARIOS["steady-10k"].contrast_overrides))
     art = psc.run_scenario("tiny", seed=3, device="cpu")
-    assert art["contrast"]["run"] is False
-    assert "profile_observe.py" in art["contrast"]["reason"]
-    rows = [r for r in art["not_ported"] if r["section"] == "contrast"]
-    assert rows and "profile_observe.py" in rows[0]["needs"]
-    assert art["placements"]["placed"] == 300
+    assert telemetry.active_lock_watchdog() is None
+    contrast = art["contrast"]
+    assert contrast["run"] is True and contrast["digest_matches"] is True
+    assert contrast["profile"] == {"enabled": False}
+    over = contrast["profiler_overhead"]
+    assert over["overhead_fraction"] == round(
+        over["plan_p50_ms_profiled"] / over["plan_p50_ms_disabled"] - 1, 4)
+    assert over["plan_p50_ms_profiled"] == art["plan_latency_ms"]["p50_ms"]
+    assert over["plan_p50_ms_disabled"] == \
+        contrast["plan_latency_ms"]["p50_ms"]
+    prof = art["profile"]
+    assert prof["enabled"] is True and prof["profiler"]["samples"] > 0
+    assert prof["locks"]["installed"] is True
+    assert prof["locks"]["contention"] and prof["locks"]["violations"] == 0
+    assert prof["bytes"]["mirror"]["projected_1m_bytes"] > 0
+
+
+def test_profiler_overhead_needs_both_arms_planned():
+    on = {"plan_latency_ms": {"p50_ms": 12.0}}
+    assert psc.profiler_overhead(on, {"plan_latency_ms": {}}) is None
+    assert psc.profiler_overhead(on, {"plan_latency_ms": {"p50_ms": 10.0}}) \
+        == {"plan_p50_ms_profiled": 12.0, "plan_p50_ms_disabled": 10.0,
+            "overhead_fraction": 0.2}
 
 
 # -- the capacity and raft observatories' smokes ------------------------------
@@ -541,13 +575,13 @@ def test_simload_lists_what_runs_and_what_waits(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("args, word", [
-    (["--scenario", "needs-profile"], "profile"),
+    (["--scenario", "needs-tls"], "tlsutil"),
     (["--scenario", "churn", "--verify-determinism"], "deterministic"),
     (["--scenario", "no-such"], "unknown scenario"),
 ])
 def test_simload_refuses(args, word, capsys, monkeypatch):
-    monkeypatch.setitem(psc.SCENARIOS, "needs-profile",
-                        waiting_spec("needs-profile"))
+    monkeypatch.setitem(psc.SCENARIOS, "needs-tls",
+                        waiting_spec("needs-tls"))
     assert simload.main(args + ["--device", "cpu"]) == 2
     assert word in capsys.readouterr().err
 
@@ -563,3 +597,5 @@ def test_simload_runs_and_verifies_determinism(tmp_path, capsys):
     assert line["determinism_verified"] is True
     assert art["determinism"]["digests"][0] == art["determinism"]["digests"][1]
     assert line["backend"] == "cpu"
+    assert art["profile"]["enabled"] is True
+    assert art["profile"]["locks"]["installed"] is True
