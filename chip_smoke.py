@@ -153,6 +153,25 @@ Phases, each printing its own lines:
    lock-order violation. Logs the ten lock sites with the most wait, the
    raft and store locks over each headline deregister, the profiler's
    role shares over each job's rounds and the scrape's size and time.
+15. mesh: the solver mesh (nomad_tpu_torch.parallel). (a) The node-shard
+   water-fill (csrc/waterfill_shard.cu) and the greedy merge
+   (csrc/greedy.cu) against their plain versions on CUDA tensors, and
+   each sharded solve against the unsharded kernel, exactly, at S = 1, 2,
+   4 and 8 shards on the card (each shard its own tensor), at the
+   headline bucket (16384 rows) and the 131072-row one, B in {1, 8}, and
+   the edge cases (MESH_WF_SHAPES, MESH_GREEDY_SHAPES); logs the sharded
+   and unsharded solve ms per S, the rounds a solve and the merge ms.
+   (b) configure_node_sharding(4, devices=[cuda:0] * 4), then the
+   headline, the count-100 service job and config 4 through
+   new_scheduler(..., device="cuda"), 1 warm-up and 2 timed evals each:
+   every plan checked, the per-node counts equal to the unsharded run's,
+   no node tensor resharded on the evals after the warm-up, the shard
+   kernels launched and the unsharded water-fill not; then a Server with
+   solver_mesh { node_shards = 4 } on the one card logs the too-few-cards
+   warning and places the service job single-device on the card. (c) Two
+   DCN ranks on the one card over gloo (spawn_dcn_workers), 256 and
+   16,384 nodes: both ranks ok, their counts equal to the unsharded
+   kernel's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -165,6 +184,7 @@ nothing of jax or nomad_tpu.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import shutil
@@ -3572,6 +3592,454 @@ def phase_operator(dev, card: str, tmp: str):
     return wf, gr
 
 
+# -- 15. the solver mesh: node shards on the one card, and DCN --------------
+
+# Shard counts of (a), each shard its own tensor on the card.
+MESH_SHARDS = (1, 2, 4, 8)
+# (b)'s mesh: 4 node shards on the card (configure_node_sharding with
+# devices=[cuda:0] * 4).
+MESH_NODE_SHARDS = 4
+MESH_TIMED_EVALS = 2
+# Water-fill rows of (a), as WF_SHAPES: the headline bucket (16384 rows,
+# ~10,000 live in "random"; the headline's 5,000 nodes and 100,000 tasks)
+# and the 131072-row bucket at B in {1, 8}, then the edge cases: "ties"
+# (the boundary cut crosses shards), "saturated" (count above every cap:
+# no candidate), "count0" (remaining 0), "ineligible", "bigcaps" (4 level
+# passes).
+MESH_WF_SHAPES = [(16384, 1, False, False, "random"),
+                  (16384, 8, False, False, "random"),
+                  (16384, 1, False, False, "headline"),
+                  (16384, 8, True, True, "random"),
+                  (131072, 1, False, False, "random"),
+                  (131072, 8, False, False, "random"),
+                  (16384, 2, False, False, "ties"),
+                  (131072, 1, False, False, "ties"),
+                  (16384, 2, False, False, "saturated"),
+                  (16384, 2, False, False, "count0"),
+                  (16384, 2, False, False, "ineligible"),
+                  (16384, 2, False, False, "bigcaps")]
+# Greedy rows of (a), as GREEDY_SHAPES ("random" evals have padding steps
+# after their count; "infeasible" is an all -inf step every step).
+MESH_GREEDY_SHAPES = [(16384, 1, 128, "random"), (16384, 8, 128, "random"),
+                      (131072, 1, 128, "random"), (131072, 8, 128, "random"),
+                      (16384, 2, 128, "ties"), (16384, 1, 128, "infeasible")]
+# The main path's shapes, for the kernels line: the headline eval on (b)'s
+# mesh (8192-row bucket, 5,000 live, 100,000 tasks: one shard of 2,048
+# rows) and the service eval's merge (16384 rows, k = 128, 4 shards).
+MESH_MAIN_WF_ROWS = 8192
+MESH_MAIN_GREEDY_SHAPE = (16384, 1, 128, "random")
+# DCN rows (nodes, count): test_dcn.py's, and 16,384 nodes at level 6
+# whose tie fill (10,000 of 16,384) crosses from rank 0 into rank 1.
+DCN_CASES = [(256, 180), (16384, 16384 * 6 + 10_000)]
+
+
+def shard_wf_args(args, s: int):
+    """Batched water-fill args as S shards, each its own tensor."""
+    n = args[0].shape[1]
+    ns = n // s
+    shards = [tuple(x[:, i * ns:(i + 1) * ns].contiguous()
+                    for x in args[:8]) for i in range(s)]
+    return shards, [tuple(args[8:12])] * s
+
+
+def shard_greedy_args(args, s: int):
+    """Batched exact-scan args as S shards, each its own tensor."""
+    n = args[0].shape[0]
+    ns = n // s
+    out = []
+    for i in range(s):
+        rows = slice(i * ns, (i + 1) * ns)
+        out.append((tuple(args[j][rows].contiguous() for j in (0, 1, 5)),
+                    tuple(args[j][:, rows].contiguous()
+                          for j in (2, 3, 4, 6, 7)),
+                    (args[8], args[9], args[11])))
+    return out
+
+
+def phase_mesh_kernels(dev, rng):
+    """(a): each shard kernel against its plain version on CUDA tensors and
+    the sharded solves against the unsharded kernels, exactly, at S in
+    MESH_SHARDS; the sharded against the unsharded solve ms per S, the
+    rounds per solve and the merge ms."""
+    import torch
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.parallel.mesh import MeshReduce
+
+    wf_err = 0
+    for row in MESH_WF_SHAPES:
+        n, b, jd, td, mode = row
+        args = waterfill_case(rng, n, b, jd, td, mode, dev)
+        want_c, want_r = waterfill.solve_waterfill_batched(*args)
+        maxc = int(args[10].max())
+        u_ms = cuda_ms(lambda: waterfill.solve_waterfill_batched(*args), 5)
+        times = {}
+        for s in MESH_SHARDS:
+            shards, small = shard_wf_args(args, s)
+            parts, rem = waterfill.solve_waterfill_sharded(
+                shards, small, maxc, jd, td, MeshReduce())
+            p_parts, p_rem = waterfill.solve_waterfill_sharded_plain(
+                shards, small, maxc, jd, td, MeshReduce())
+            got = torch.cat(parts, 1)
+            plain = torch.cat(p_parts, 1)
+            torch.cuda.synchronize()
+            err = max(int((got - plain).abs().max()),
+                      int((got - want_c).abs().max()),
+                      int((rem - want_r).abs().max()),
+                      int((rem - p_rem).abs().max()))
+            wf_err = max(wf_err, err)
+            if not (torch.equal(got, plain) and torch.equal(rem, p_rem)):
+                raise AssertionError(f"waterfill_shard kernel != plain at "
+                                     f"{row} S={s}: max abs err {err}")
+            if not (torch.equal(got, want_c) and torch.equal(rem, want_r)):
+                raise AssertionError(f"sharded water-fill != unsharded "
+                                     f"kernel at {row} S={s}")
+            times[s] = cuda_ms(lambda: waterfill.solve_waterfill_sharded(
+                shards, small, maxc, jd, td, MeshReduce()), 5)
+        check_wf_mode(mode, want_c, want_r, args[10], n)
+        log(f"mesh waterfill N={n} B={b} jd={jd} td={td} {mode}: equal at "
+            f"S={list(MESH_SHARDS)}, rounds={waterfill.shard_rounds(maxc)} "
+            f"unsharded_ms={u_ms:.4f} sharded_ms="
+            + json.dumps({s: round(t, 4) for s, t in times.items()}))
+
+    merge_err = 0
+    for row in MESH_GREEDY_SHAPES:
+        n, b, k, mode = row
+        args = greedy_case(rng, n, b, k, dev, mode=mode)
+        want = greedy.solve_greedy_batched_shared(*args)
+        u_ms = cuda_ms(lambda: greedy.solve_greedy_batched_shared(*args), 3)
+        times, merge_ms = {}, {}
+        for s in MESH_SHARDS:
+            shards = shard_greedy_args(args, s)
+            got = greedy.solve_greedy_sharded(shards, args[10], k, False,
+                                              False)
+            seq = gathered_sequences(shards, args[10], k)
+            m_k = greedy.merge_greedy(*seq, args[10], n // s)
+            m_p = greedy.merge_greedy_plain(*seq, args[10], n // s)
+            torch.cuda.synchronize()
+            err = max(int((m_k[0] - m_p[0]).abs().max()),
+                      int((m_k[1] != m_p[1]).sum()),
+                      int((got[0] - want[0]).abs().max()))
+            merge_err = max(merge_err, err)
+            if not all(torch.equal(x, y) for x, y in zip(m_k, m_p)):
+                raise AssertionError(f"greedy_merge kernel != plain at "
+                                     f"{row} S={s}: max abs err {err}")
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"sharded scan != unsharded kernel at "
+                                     f"{row} S={s}")
+            if mode == "infeasible" and (bool(got[1].any())
+                                         or bool(got[0].any())):
+                raise AssertionError("an all-infeasible sharded scan must "
+                                     "give idx 0 and ok false")
+            times[s] = cuda_ms(lambda: greedy.solve_greedy_sharded(
+                shards, args[10], k, False, False), 3)
+            merge_ms[s] = graph_ms(lambda: greedy.merge_kernel_only(
+                *seq, args[10], n // s), 20)
+        log(f"mesh greedy N={n} B={b} k={k} {mode}: equal at "
+            f"S={list(MESH_SHARDS)}, unsharded_ms={u_ms:.4f} sharded_ms="
+            + json.dumps({s: round(t, 4) for s, t in times.items()})
+            + " merge_kernel_ms="
+            + json.dumps({s: round(t, 5) for s, t in merge_ms.items()}))
+    return {"wf_err": wf_err, "merge_err": merge_err}
+
+
+def gathered_sequences(shards, active, k: int):
+    """The [S, B, k] (local idx, score) sequences the sharded scan merges:
+    each shard's scan over all k steps, as solve_greedy_sharded runs it."""
+    import torch
+    from nomad_tpu_torch.ops import greedy
+
+    idxs, scores = [], []
+    for (total, sched_cap, bw_avail), per, (ask, bw_ask, penalty) in shards:
+        every = torch.ones_like(active)
+        idx, _ok, score = greedy.solve_greedy_batched_shared(
+            total, sched_cap, *per[:3], bw_avail, *per[3:], ask, bw_ask,
+            every, penalty, k, False, False)
+        idxs.append(idx)
+        scores.append(score)
+    return torch.stack(idxs), torch.stack(scores)
+
+
+def mesh_kernel_numbers(dev):
+    """The kernels line's numbers for the two new kernels at the main
+    path's shapes: ms (CUDA graph of the kernel alone), plain ms and the
+    bound."""
+    import torch
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.parallel.mesh import MeshReduce
+
+    n_s = MESH_MAIN_WF_ROWS // MESH_NODE_SHARDS
+    rows = headline_arrays(MESH_MAIN_WF_ROWS, N_NODES // 2)
+    dt = [torch.int32, torch.float32, torch.int32, torch.int32, torch.int32,
+          torch.int32, torch.int32, torch.bool]
+    shard = tuple(torch.tensor(np.asarray(a)[None, :n_s], dtype=t,
+                               device=dev) for a, t in zip(rows[:8], dt))
+    small = (torch.tensor(rows[8][None], device=dev),
+             torch.tensor([int(rows[9])], dtype=torch.int32, device=dev),
+             torch.tensor([N_TASKS], dtype=torch.int32, device=dev),
+             torch.tensor([10.0], dtype=torch.float32, device=dev))
+    wf_ms = graph_ms(lambda: waterfill.shard_kernel_only(
+        shard, small, N_TASKS, False, False), 20)
+    wf_plain = host_ms(lambda: waterfill.solve_waterfill_sharded_plain(
+        [shard], [small], N_TASKS, False, False, MeshReduce()), 1)
+    wf_bound, wf_by = bound_ms(*waterfill_work(*shard, *small, False, False))
+
+    rng = np.random.default_rng(SEED + 15)
+    n, b, k, mode = MESH_MAIN_GREEDY_SHAPE
+    args = greedy_case(rng, n, b, k, dev, mode=mode)
+    seq = gathered_sequences(shard_greedy_args(args, MESH_NODE_SHARDS),
+                             args[10], k)
+    ns = n // MESH_NODE_SHARDS
+    mg_ms = graph_ms(lambda: greedy.merge_kernel_only(*seq, args[10], ns), 20)
+    mg_plain = host_ms(lambda: greedy.merge_greedy_plain(*seq, args[10], ns),
+                       1)
+    # Bytes: the [S, B, k] idx and score read once, active read, the three
+    # [B, k] outputs written once; operations: one compare a shard a step.
+    mg_bytes = bytes_of(*seq, args[10]) + b * k * (4 + 1 + 4)
+    mg_bound, mg_by = bound_ms(mg_bytes, MESH_NODE_SHARDS * b * k)
+    log(f"mesh kernels: waterfill_shard ms={wf_ms:.4f} "
+        f"({waterfill.shard_rounds(N_TASKS) + 1} passes of one {n_s}-row "
+        f"shard of the headline) plain_ms={wf_plain:.2f} "
+        f"bound_ms={wf_bound:.6f} ({wf_by}); greedy_merge ms={mg_ms:.5f} "
+        f"(S={MESH_NODE_SHARDS} B={b} k={k}) plain_ms={mg_plain:.2f} "
+        f"bound_ms={mg_bound:.6f} ({mg_by})")
+    return ({"ms": wf_ms, "plain_ms": wf_plain, "bound_ms": wf_bound,
+             "bound_by": wf_by},
+            {"ms": mg_ms, "plain_ms": mg_plain, "bound_ms": mg_bound,
+             "bound_by": mg_by})
+
+
+def plan_node_counts(plan):
+    """Sorted multiset of a plan's per-node placement counts."""
+    per_node = {}
+    for b in plan.alloc_batches:
+        for nid, cnt in zip(b.node_ids, b.node_counts):
+            per_node[nid] = per_node.get(nid, 0) + int(cnt)
+    for nid, allocs in plan.node_allocation.items():
+        per_node[nid] = per_node.get(nid, 0) + len(allocs)
+    return sorted(per_node.values())
+
+
+def mesh_evals(h, dev, job, factory: str, label: str, want):
+    """1 warm-up and MESH_TIMED_EVALS timed evals of ``job`` on the
+    configured mesh: each plan checked (check_plan: all placed, capacity)
+    with the unsharded run's per-node count multiset, and no node tensor
+    resharded at dispatch on the evals after the warm-up. Returns the
+    timed e2e ms."""
+    import torch
+    from nomad_tpu_torch.parallel import mesh as mesh_lib
+
+    e2e = []
+    for i in range(1 + MESH_TIMED_EVALS):
+        ev = register_eval(h, job)
+        mesh_lib.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.process(factory, ev, device=dev)
+        wall = (time.perf_counter() - t0) * 1000.0
+        check_plan(h.state, h.plans[-1], job, job.task_groups[0].count)
+        if plan_node_counts(h.plans[-1]) != want:
+            raise AssertionError(f"mesh {label}: the per-node counts differ "
+                                 "from the unsharded run's")
+        stats = dict(mesh_lib.STATS)
+        if i and stats["node_reshards"]:
+            raise AssertionError(f"mesh {label}: a warm eval resharded a "
+                                 f"node tensor at dispatch: {stats}")
+        if i:
+            e2e.append(wall)
+        log(f"mesh {label} eval {i}{' (warm-up)' if i == 0 else ''}: "
+            f"e2e_ms={wall:.2f} stats={json.dumps(stats)}")
+    return e2e
+
+
+def mesh_system_eval(dev, job):
+    """One config-4 eval (a fresh alloc-free store, verified and committed
+    as phase_system does); returns its committed per-node multiset and
+    e2e ms."""
+    import logging
+
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.structs import Evaluation, generate_uuid
+
+    state = system_store(job)
+    planner = VerifyingPlanner(state, 3)
+    ev = Evaluation(id=generate_uuid(), priority=job.priority, type=job.type,
+                    triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+                    job_id=job.id)
+    t0 = time.perf_counter()
+    new_scheduler("tpu-system", state.snapshot(), planner,
+                  logging.getLogger("chip_smoke.mesh"), device=dev).process(ev)
+    e2e = (time.perf_counter() - t0) * 1000.0
+    if planner.status != structs.EVAL_STATUS_COMPLETE:
+        raise AssertionError(f"mesh system eval ended {planner.status}")
+    check_committed(state.snapshot(), job, system_placed(), per_node=1)
+    counts = {}
+    for blk in state.snapshot().alloc_blocks():
+        if blk.job_id == job.id:
+            for nid, cnt in blk.live_node_counts():
+                counts[nid] = counts.get(nid, 0) + int(cnt)
+    return sorted(counts.values()), e2e
+
+
+def phase_mesh_scheduler(dev):
+    """(b): the headline, the count-100 service job and config 4 through
+    new_scheduler(..., device="cuda") on a 4-shard mesh of the one card,
+    against the same evals unsharded. Returns the new kernels' launches
+    (set to 0 just before the sharded evals, read just after) and the
+    earlier kernels' launches there."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.parallel import mesh as mesh_lib
+
+    jobs = [("headline", make_job("mesh-batch", structs.JOB_TYPE_BATCH,
+                                  N_TASKS, ["dc1"]), "tpu-batch"),
+            ("service", make_job("mesh-svc", structs.JOB_TYPE_SERVICE,
+                                 SERVICE_COUNT, ["dc1", "dc2"]),
+             "tpu-service")]
+    sys_job = system_job("mesh-sys")
+    h = build_cluster()
+    want = {}
+    for label, job, factory in jobs:
+        h.process(factory, register_eval(h, job), device=dev)
+        want[label] = plan_node_counts(h.plans[-1])
+    want_sys, sys_u_ms = mesh_system_eval(dev, sys_job)
+
+    mesh_lib.configure_node_sharding(MESH_NODE_SHARDS,
+                                     devices=[dev] * MESH_NODE_SHARDS)
+    try:
+        h = build_cluster()  # a fresh store: its mirror is born sharded
+        waterfill.SHARD_LAUNCHES = 0
+        greedy.MERGE_LAUNCHES = 0
+        waterfill.LAUNCHES = 0
+        greedy.LAUNCHES = 0
+        e2e = {}
+        for label, job, factory in jobs:
+            e2e[label] = p50(mesh_evals(h, dev, job, factory, label,
+                                        want[label]))
+        sys_ms = []
+        for i in range(1 + MESH_TIMED_EVALS):
+            mesh_lib.reset_stats()
+            got, ms = mesh_system_eval(dev, sys_job)
+            if got != want_sys:
+                raise AssertionError("mesh system: the committed per-node "
+                                     "counts differ from the unsharded run's")
+            if mesh_lib.STATS["node_reshards"]:
+                raise AssertionError(f"mesh system: a node tensor was "
+                                     f"resharded: {mesh_lib.STATS}")
+            if i:
+                sys_ms.append(ms)
+        e2e["system"] = p50(sys_ms)
+        launches = {"waterfill_shard": waterfill.SHARD_LAUNCHES,
+                    "greedy_merge": greedy.MERGE_LAUNCHES,
+                    "waterfill": waterfill.LAUNCHES,
+                    "greedy": greedy.LAUNCHES}
+    finally:
+        mesh_lib.clear_node_sharding()
+    if not (launches["waterfill_shard"] and launches["greedy_merge"]
+            and launches["greedy"]):
+        raise AssertionError(f"the mesh path missed a kernel: {launches}")
+    if launches["waterfill"]:
+        raise AssertionError("the sharded headline launched the unsharded "
+                             "water-fill")
+    log(f"mesh scheduler: {MESH_NODE_SHARDS} shards on one card, per-node "
+        f"counts equal the unsharded runs', e2e_p50_ms="
+        + json.dumps({k: round(v, 3) for k, v in e2e.items()})
+        + f" (system unsharded eval {sys_u_ms:.3f} ms) launches="
+        + json.dumps(launches))
+    return launches
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_mesh_server(dev):
+    """(b), the config face: a Server with solver_mesh { node_shards = 4 }
+    on the one card logs nomad_tpu's too-few-devices warning, configures
+    no mesh, and places the service job single-device on the card."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+    from nomad_tpu_torch.parallel import mesh as mesh_lib
+
+    records = _Records()
+    logging.getLogger().addHandler(records)
+    try:
+        srv = new_server(dev, solver_mesh={"node_shards": MESH_NODE_SHARDS})
+    finally:
+        logging.getLogger().removeHandler(records)
+    try:
+        warned = [m for m in records.messages
+                  if m.startswith(f"solver_mesh wants {MESH_NODE_SHARDS} "
+                                  "device(s)")
+                  and "solves stay single-device" in m]
+        if not warned or mesh_lib.node_sharding_mesh() is not None:
+            raise AssertionError("the server's solver_mesh on one card did "
+                                 "not fall back with its warning")
+        job = make_job("mesh-srv", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+                       ["dc1", "dc2"])
+        greedy.LAUNCHES = 0
+        greedy.MERGE_LAUNCHES = 0
+        reg, _dereg, live, _eid = server_round(srv, job)
+        if not greedy.LAUNCHES or greedy.MERGE_LAUNCHES:
+            raise AssertionError("the fallen-back server did not solve "
+                                 "single-device on the card")
+        log(f"mesh server: {warned[0]!r}; service job committed={live} "
+            f"register_ms={reg:.2f} single-device greedy_launches="
+            f"{greedy.LAUNCHES}")
+        return greedy.LAUNCHES
+    finally:
+        srv.shutdown()
+
+
+def phase_mesh_dcn(dev):
+    """(c): two ranks on the one card over gloo, per DCN_CASES; both
+    DCN_RESULTs ok and their counts equal the unsharded kernel's."""
+    import torch
+    from nomad_tpu_torch.ops import waterfill
+    from nomad_tpu_torch.parallel import dcn
+
+    for n_nodes, count in DCN_CASES:
+        t0 = time.perf_counter()
+        results, _outs = dcn.spawn_dcn_workers(
+            2, n_nodes, count, timeout=300.0, device=f"cuda:{dev.index or 0}")
+        wall = time.perf_counter() - t0
+        case = [torch.tensor(a, device=dev) for a in dcn.dcn_case(n_nodes,
+                                                                  count)]
+        want, rem = waterfill.solve_waterfill_batched(*case, False, False)
+        digest = dcn.counts_digest(want[0].cpu().numpy())
+        for r in results:
+            if not (r["ok"] and r["counts_sha256"] == digest
+                    and r["backend"] == "gloo" and int(rem[0]) == 0):
+                raise AssertionError(f"dcn rank result {r} != the "
+                                     "unsharded kernel's")
+        log(f"mesh dcn: 2 ranks on {results[0]['device']} over gloo, "
+            f"{n_nodes} nodes x {count} tasks: both ok, counts equal the "
+            f"unsharded kernel's, nodes_used={results[0]['nodes_used']}, "
+            f"{wall:.1f} s with the workers' start")
+
+
+def phase_mesh(dev, rng):
+    """Phase 15. Returns (kernel numbers, launches on the main path)."""
+    t0 = time.perf_counter()
+    res = phase_mesh_kernels(dev, rng)
+    numbers = mesh_kernel_numbers(dev)
+    t1 = time.perf_counter()
+    launches = phase_mesh_scheduler(dev)
+    t2 = time.perf_counter()
+    launches["greedy"] += phase_mesh_server(dev)
+    t3 = time.perf_counter()
+    phase_mesh_dcn(dev)
+    log(f"mesh: phase {time.perf_counter() - t0:.1f} s (kernels "
+        f"{t1 - t0:.1f}, scheduler {t2 - t1:.1f}, server {t3 - t2:.1f}, "
+        f"dcn {time.perf_counter() - t3:.1f})")
+    return res, numbers, launches
+
+
 def main() -> int:
     import torch
 
@@ -3588,6 +4056,7 @@ def main() -> int:
         return 2
     from nomad_tpu_torch.ops import kernels
 
+    t_main = time.perf_counter()
     no_outside_network()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -3675,6 +4144,11 @@ def main() -> int:
     wf_launches += wf
     gr_launches += gr
 
+    # 15. the solver mesh: node shards on the one card, and DCN
+    mres, (wf_shard, gr_merge), mlaunch = phase_mesh(dev, rng)
+    wf_launches += mlaunch["waterfill"]
+    gr_launches += mlaunch["greedy"]
+
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]
     kernels_line = {"kernels": [
@@ -3694,8 +4168,23 @@ def main() -> int:
          "profiler_ms": gr["profiler_ms"], "plain_ms": gr["plain_ms"],
          "bound_ms": gr["bound_ms"], "bound_by": gr["bound_by"],
          "library_ms": None},
+        {"name": "waterfill_shard", "route": "cuda",
+         "source": "nomad_tpu_torch/csrc/waterfill_shard.cu",
+         "replaces": "nomad_tpu/ops/binpack.py:269",
+         "launches": mlaunch["waterfill_shard"],
+         "max_abs_err": mres["wf_err"], "ms": wf_shard["ms"],
+         "plain_ms": wf_shard["plain_ms"], "bound_ms": wf_shard["bound_ms"],
+         "bound_by": wf_shard["bound_by"], "library_ms": None},
+        {"name": "greedy_merge", "route": "cuda",
+         "source": "nomad_tpu_torch/csrc/greedy.cu",
+         "replaces": "nomad_tpu/ops/binpack.py:115",
+         "launches": mlaunch["greedy_merge"],
+         "max_abs_err": mres["merge_err"], "ms": gr_merge["ms"],
+         "plain_ms": gr_merge["plain_ms"], "bound_ms": gr_merge["bound_ms"],
+         "bound_by": gr_merge["bound_by"], "library_ms": None},
     ]}
     log(f"card: {card}")
+    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,9 +47,8 @@ NOT_PORTED = {
 class AgentConfig:
     """Agent-level configuration (reference: command/agent/config.go).
 
-    nomad_tpu's keys for the solver mesh and TLS have no field here:
-    their modules are not ported (``agent_config`` raises on them in a
-    config file)."""
+    nomad_tpu's TLS keys have no field here: tlsutil.py is not ported
+    (``agent_config`` raises on them in a config file)."""
 
     region: str = "global"
     datacenter: str = "dc1"
@@ -93,6 +92,9 @@ class AgentConfig:
     # Runtime self-observatory spec (profile_observe.py): sampling
     # profiler + byte ledger. None = defaults (enabled).
     profile: Optional[Dict] = None
+    # Solver device mesh (parallel/mesh.py SolverMeshConfig): shards the
+    # node axis of every device solve. None = single-device solves.
+    solver_mesh: Optional[Dict] = None
     # Declarative latency SLOs (slo.py): objective name -> threshold ms.
     # None = the default objectives; {} disables the monitor.
     slo_objectives: Optional[Dict[str, float]] = None
@@ -182,6 +184,8 @@ class AgentConfig:
             read_path=fc.server.read_path,
             profile=(dict(fc.server.profile)
                      if fc.server.profile is not None else None),
+            solver_mesh=(dict(fc.server.solver_mesh)
+                         if fc.server.solver_mesh is not None else None),
             slo_objectives=fc.telemetry.slo,
             enable_debug=fc.enable_debug,
             statsite_addr=fc.telemetry.statsite_address,
@@ -275,7 +279,7 @@ class Agent:
                        if getattr(self.config, name) is not None else None)
                 for name in ("admission", "express", "capacity",
                              "raft_observe", "reads", "read_path",
-                             "profile")
+                             "profile", "solver_mesh")
             },
         )
         if self.config.event_buffer_size:

@@ -9,8 +9,8 @@ Blocks: ports, addresses, advertise, client, server, telemetry, faults.
 The HCL dialect is the same one job specs use, so this reuses
 ``nomad_tpu_torch.jobspec.hcl``; ``.json`` files parse with the stdlib.
 
-A key whose module the port does not have yet (``NOT_PORTED_KEYS``: the
-solver mesh, TLS, Atlas) raises
+A key whose module the port does not have yet (``NOT_PORTED_KEYS``: TLS,
+Atlas) raises
 :class:`nomad_tpu_torch.NotPortedError` naming that module: it is never
 ignored. The port adds ``device`` (default ``cuda``): where the agent's
 server solves.
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 from nomad_tpu_torch import NotPortedError
 from nomad_tpu_torch.capacity import CapacityConfig
 from nomad_tpu_torch.jobspec.hcl import Block, Body, parse as parse_hcl
+from nomad_tpu_torch.parallel.mesh import SolverMeshConfig
 from nomad_tpu_torch.profile_observe import ProfileObserveConfig
 from nomad_tpu_torch.raft_observe import RaftObserveConfig
 from nomad_tpu_torch.read_observe import ReadObserveConfig
@@ -37,7 +38,6 @@ from nomad_tpu_torch.slo import Objective
 # Config keys of nomad_tpu whose modules the port does not have yet, with
 # the module each needs.
 NOT_PORTED_KEYS = {
-    "server.solver_mesh": "the solver mesh (parallel/mesh.py)",
     "tls": "TLS on the RPC tier (tlsutil.py)",
     "atlas": "the Atlas/SCADA uplink (scada.py)",
 }
@@ -100,8 +100,9 @@ class ServerBlock:
     legacy alias; 0 = server default), ``eval_pending_cap``,
     ``plan_queue_cap`` and ``max_blocking_watchers`` (0 = unbounded), and
     the ``admission``, ``express``, ``capacity``, ``raft_observe``,
-    ``reads``, ``read_path`` and ``profile`` sub-blocks (each validated at parse time
-    by its module's ``Config.parse``; None = that module's defaults)::
+    ``reads``, ``read_path``, ``profile`` and ``solver_mesh`` sub-blocks
+    (each validated at parse time by its module's ``Config.parse``; None =
+    that module's defaults)::
 
         server {
           eval_pending_cap = 4096
@@ -126,6 +127,9 @@ class ServerBlock:
     reads: Optional[Dict[str, object]] = None
     read_path: Optional[Dict[str, object]] = None
     profile: Optional[Dict[str, object]] = None
+    # Solver device mesh (parallel/mesh.py): ``node_shards`` devices per
+    # eval row, ``eval_parallel`` rows. None = single-device solves.
+    solver_mesh: Optional[Dict[str, object]] = None
     enabled_schedulers: List[str] = field(default_factory=list)
     start_join: List[str] = field(default_factory=list)
 
@@ -355,6 +359,7 @@ _SERVER_BLOCKS = {
     "reads": ReadObserveConfig.parse,
     "read_path": ReadPathConfig.parse,
     "profile": ProfileObserveConfig.parse,
+    "solver_mesh": SolverMeshConfig.parse,
 }
 
 

@@ -270,6 +270,61 @@ greedy_kernel(const int4* __restrict__ total, const float2* __restrict__ sched_c
   }
 }
 
+// The merge of node-shard scans (ops/greedy.py solve_greedy_sharded).
+// A node's score depends on its own state alone, so the global scan,
+// restricted to one shard's rows, picks them in the order the shard's own
+// k-step scan does. Each shard scans its rows for all k steps (the kernel
+// above, on the shard's rows alone); this kernel interleaves the S
+// sequences back into the global one: at each step the shard whose next
+// pick has the highest score key, ties to the lower shard (shards are
+// contiguous, so that is the lowest global index, jnp.argmax's rule);
+// an active step that places advances that shard's head. When every head
+// is -inf the step gives index 0, score -inf and ok false, as the
+// unsharded scan does. One warp an eval (lane l holds shards l, l + 32,
+// ...), k dependent steps of one S-way argmax each: it reads
+// S x B x k x 8 bytes at most, a few microseconds of work on one SM.
+constexpr int kMaxShards = 512;  // ops/greedy.py MAX_SHARDS
+
+__global__ void __launch_bounds__(32)
+merge_kernel(const int* __restrict__ idx, const float* __restrict__ score,
+             const unsigned char* __restrict__ active,
+             int* __restrict__ idx_out, unsigned char* __restrict__ ok_out,
+             float* __restrict__ score_out, int n_shards, int batch, int k,
+             int n_s) {
+  __shared__ int head[kMaxShards];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  for (int s = lane; s < n_shards; s += 32) head[s] = 0;
+  __syncwarp();
+  for (int step = 0; step < k; ++step) {
+    unsigned bk = 0;
+    int bs = INT_MAX;
+    for (int s = lane; s < n_shards; s += 32) {
+      const unsigned key =
+          score_key(score[((size_t)s * batch + b) * k + head[s]]);
+      if (key > bk) {  // a lane's shards rise: > keeps the lowest on ties
+        bk = key;
+        bs = s;
+      }
+    }
+    unsigned best_key;
+    const int best_s = warp_best(bk, bs, best_key);
+    const size_t at = ((size_t)best_s * batch + b) * k + head[best_s];
+    const float best_score = score[at];
+    const bool live = best_score > -INFINITY;
+    const bool ok = live && active[(size_t)b * k + step] != 0;
+    if (lane == 0) {
+      const size_t o = (size_t)b * k + step;
+      idx_out[o] = live ? best_s * n_s + idx[at] : 0;
+      ok_out[o] = ok ? 1 : 0;
+      score_out[o] = live ? best_score : -INFINITY;
+    }
+    __syncwarp();  // every lane has read the heads
+    if (ok && lane == (best_s & 31)) head[best_s] += 1;
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 extern "C" int nomad_greedy(
@@ -307,5 +362,22 @@ extern "C" int nomad_greedy(
         (float*)score_out, (int*)placed_scratch, (float*)score_scratch, n, k,
         job_distinct, tg_distinct);
   }
+  return (int)cudaGetLastError();
+}
+
+// idx and score: [S, B, k] shard-local picks of S scans of n_s rows each;
+// active [B, k]; outputs [B, k].
+extern "C" int nomad_greedy_merge(const void* idx, const void* score,
+                                  const void* active, void* idx_out,
+                                  void* ok_out, void* score_out,
+                                  int n_shards, int batch, int k, int n_s,
+                                  void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards || batch <= 0 || k <= 0 ||
+      n_s <= 0)
+    return (int)cudaErrorInvalidValue;
+  merge_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(
+      (const int*)idx, (const float*)score, (const unsigned char*)active,
+      (int*)idx_out, (unsigned char*)ok_out, (float*)score_out, n_shards,
+      batch, k, n_s);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,11 @@ Differences from nomad_tpu, on purpose:
 - no Pallas enablement or fallback: a kernel fault fails the entries of
   its dispatch and reaches each caller's fetch(); there is no per-entry
   retry on another code path;
-- no mesh: one device;
+- a single entry is a stack of one: with a solve mesh configured
+  (parallel/mesh.py), ``_stack_and_solve`` and ``_stack_and_solve_exact``
+  take nomad_tpu's mesh arms (its ``_solve_one`` and both stacks) for
+  every width -- the node shards' passes and the seam between them, the
+  eval axis split over the mesh's eval rows when the width divides;
 - kernels launch on the default CUDA stream; a recorded CUDA event marks
   each dispatch's completion for the fetchers;
 - the warm-ups (``warm_batch_shapes``, ``warm_exact_batch_shapes``) have
@@ -38,6 +42,7 @@ from nomad_tpu_torch import telemetry, trace
 from nomad_tpu_torch.ops.binpack import bucket
 from nomad_tpu_torch.ops.greedy import solve_greedy_batched_shared
 from nomad_tpu_torch.ops.waterfill import solve_waterfill_batched
+from nomad_tpu_torch.parallel import mesh as mesh_lib
 
 # Cap on the eval-axis batch: dispatch in chunks of at most this many
 # entries, padded to the power-of-two widths {1, 2, 4, 8}.
@@ -355,10 +360,17 @@ def _pad_rows(rows, jd: bool, td: bool):
 
 
 def _stack_and_solve(rows, jd: bool, td: bool):
-    """Stack the eval axis and launch the batched water-fill. Returns
-    (counts [B, N], remaining [B]) on the rows' device."""
+    """Stack the eval axis and launch the batched water-fill, node-axis
+    sharded over the configured mesh when one divides the bucket. Returns
+    (counts [B, N], remaining [B]) on the rows' device (the mesh's first
+    device)."""
     rows = _pad_rows(rows, jd, td)
-    dev = rows[0][0].device
+    first = rows[0][0]
+    mesh = mesh_lib.mesh_for_nodes(first.shape[0], first.device)
+    if mesh is not None:
+        return _stack_and_solve_mesh(mesh, rows, jd, td)
+    rows = [tuple(mesh_lib.whole(x) for x in r[:10]) + r[10:] for r in rows]
+    dev = first.device
     if len(rows) == 1:
         stacked = [t.unsqueeze(0) for t in rows[0][:10]]
     else:
@@ -370,18 +382,56 @@ def _stack_and_solve(rows, jd: bool, td: bool):
     return solve_waterfill_batched(*stacked, counts, penalties, jd, td)
 
 
+def _small_cols(rows, dev):
+    """The stacked asks [B, 4] and bandwidth asks [B] of padded rows."""
+    return (torch.stack([r[8] for r in rows]).to(dev),
+            torch.stack([r[9] for r in rows]).to(dev))
+
+
+def _stack_and_solve_mesh(mesh, rows, jd: bool, td: bool):
+    """The water-fill's mesh arm: each node-axis column stacked shard by
+    shard (rows born sharded pass as they are; any other is split and
+    counted in mesh.STATS["node_reshards"]), the small columns replicated,
+    then the sharded solve."""
+    dev = mesh.devices[0][0]
+    stacked = [mesh_lib.stack_sharded(mesh, col)
+               for col in zip(*(r[:8] for r in rows))]
+    counts = torch.tensor([r[10] for r in rows], dtype=torch.int32)
+    penalties = torch.tensor([r[11] for r in rows], dtype=torch.float32)
+    placed, counts, penalties = mesh_lib.shard_waterfill_batch_args(
+        mesh, (*stacked, *_small_cols(rows, dev)), counts, penalties)
+    return mesh_lib.solve_waterfill_on_mesh(
+        mesh, placed, counts, penalties, max(r[10] for r in rows), jd, td)
+
+
 def _stack_and_solve_exact(rows, k: int, jd: bool, td: bool):
     """Stack the per-eval tensors and launch ONE batched exact scan; the
     node tensors (total, sched_cap, bw_avail) ride once, shared — the
     dispatcher's identity grouping guarantees every row reads the same
     mirror. Returns (idxs [B, k], oks [B, k])."""
     rows = _pad_rows(rows, jd, td)
-    dev = rows[0][0].device
+    first = rows[0][0]
+    mesh = mesh_lib.mesh_for_nodes(first.shape[0], first.device)
+    dev = mesh.devices[0][0] if mesh is not None else first.device
     counts = np.asarray([r[10] for r in rows], dtype=np.int32)
     active = torch.tensor(np.arange(k, dtype=np.int32)[None, :]
                           < counts[:, None], device=dev)
     penalties = torch.tensor([r[11] for r in rows], dtype=torch.float32,
                              device=dev)
+    if mesh is not None:
+        # The mesh arm: the shared node tensors and the stacked per-eval
+        # ones node-sharded, the small ones replicated, then each shard's
+        # scan and the merge.
+        per_eval = [mesh_lib.stack_sharded(mesh, [r[i] for r in rows])
+                    for i in (2, 3, 4, 6, 7)]
+        shared, per_eval, active, penalties = (
+            mesh_lib.shard_greedy_batch_args(
+                mesh, (first, rows[0][1], rows[0][5]),
+                (*per_eval, *_small_cols(rows, dev)), active, penalties))
+        idxs, oks, _scores = mesh_lib.solve_greedy_on_mesh(
+            mesh, shared, per_eval, active, penalties, k, jd, td)
+        return idxs, oks
+    rows = [tuple(mesh_lib.whole(x) for x in r[:10]) + r[10:] for r in rows]
     if len(rows) == 1:
         per_eval = {i: rows[0][i].unsqueeze(0) for i in (2, 3, 4, 6, 7, 8, 9)}
     else:
@@ -398,11 +448,14 @@ def _stack_and_solve_exact(rows, k: int, jd: bool, td: bool):
 
 def _noop_row(n_padded: int, device):
     """One no-op solve row at a node bucket: zero capacity, nothing
-    eligible, count 0."""
-    zero4 = torch.zeros((n_padded, 4), dtype=torch.int32, device=device)
-    zcap = torch.zeros((n_padded, 2), dtype=torch.float32, device=device)
-    zvec = torch.zeros((n_padded,), dtype=torch.int32, device=device)
-    elig = torch.zeros((n_padded,), dtype=torch.bool, device=device)
+    eligible, count 0; its node tensors born sharded where a mesh divides
+    the bucket, as the mirror's are, so a warm-up takes the same arm as
+    the dispatches it warms."""
+    put = mesh_lib.put_node_sharded
+    zero4 = put(np.zeros((n_padded, 4), dtype=np.int32), device)
+    zcap = put(np.zeros((n_padded, 2), dtype=np.float32), device)
+    zvec = put(np.zeros(n_padded, dtype=np.int32), device)
+    elig = put(np.zeros(n_padded, dtype=bool), device)
     return (zero4, zcap, zero4, zvec, zvec, zvec, zvec, elig,
             torch.zeros((4,), dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.int32, device=device),

@@ -180,3 +180,156 @@ def kernel_only(*inputs):
         kernels.check_launch(launch(), "greedy")
 
     return run
+
+
+# -- the node-sharded exact scan --------------------------------------------
+#
+# The counterpart of nomad_tpu's solve_greedy / solve_greedy_batched under
+# node-axis shardings (XLA SPMD, an argmax collective every step). A
+# node's score depends on its own state alone, so the global scan,
+# restricted to one shard's rows, picks them in the order the shard's own
+# k-step scan does: each shard runs the kernel above on its rows for all k
+# steps, the [S, B, k] sequences gather on the first shard's device, and
+# one merge (csrc/greedy.cu merge_kernel, a small kernel rather than a
+# host loop: the gathered sequences already sit on the card, and a host
+# loop would copy them down and walk S x B x k heads in Python) picks the
+# global order. One gather a solve in place of one collective a step.
+
+# Launches of the merge kernel (the plain merge never counts).
+MERGE_LAUNCHES = 0
+
+MAX_SHARDS = 512  # kMaxShards in csrc/greedy.cu
+
+
+def solve_greedy_sharded(shards, active, k: int, job_distinct: bool,
+                         tg_distinct: bool):
+    """The batched exact scan over node shards. ``shards[i]`` =
+    ((total, sched_cap, bw_avail): shard i's shared node rows, ``[n_s,
+    ...]``; (used0, job_count0, tg_count0, bw_used0, eligible): its
+    per-eval rows, ``[B, n_s, ...]``; (ask [B, 4], bw_ask [B], penalty
+    [B])), all on shard i's device, every shard n_s rows; ``active``
+    [B, k] on the first shard's device. Returns (idx [B, k] int32 global
+    node index, ok [B, k] bool, score [B, k] float32) there, equal to the
+    unsharded scan's."""
+    return _solve_sharded(shards, active, k, job_distinct, tg_distinct,
+                          solve_greedy_batched_shared, merge_greedy)
+
+
+def solve_greedy_sharded_plain(shards, active, k: int, job_distinct: bool,
+                               tg_distinct: bool):
+    """Plain version of solve_greedy_sharded: each shard's scan and the
+    merge in plain PyTorch, on whatever device the shards are."""
+    return _solve_sharded(
+        shards, active, k, job_distinct, tg_distinct,
+        solve_greedy_batched_shared_plain, merge_greedy_plain)
+
+
+def _solve_sharded(shards, active, k, job_distinct, tg_distinct, scan,
+                   merge):
+    home = shards[0][0][0].device
+    n_s = shards[0][0][0].shape[0]
+    b = active.shape[0]
+    idxs, scores = [], []
+    for (total, sched_cap, bw_avail), per, (ask, bw_ask, penalty) in shards:
+        used0, job_count0, tg_count0, bw_used0, eligible = per
+        every = torch.ones((b, k), dtype=torch.bool, device=total.device)
+        idx, _ok, score = scan(
+            total, sched_cap, used0, job_count0, tg_count0, bw_avail,
+            bw_used0, eligible, ask, bw_ask, every, penalty, k,
+            job_distinct, tg_distinct)
+        idxs.append(idx.to(home))
+        scores.append(score.to(home))
+    return merge(torch.stack(idxs), torch.stack(scores), active, n_s)
+
+
+def merge_greedy_plain(idx, score, active, n_s: int):
+    """Plain version of the merge: k steps, each an argmax over the S
+    shards' next picks (torch.argmax takes the first maximum: the lower
+    shard), vectorized over the evals."""
+    s_count, b, k = score.shape
+    dev = score.device
+    sc = score.permute(1, 0, 2)
+    ix = idx.permute(1, 0, 2)
+    head = torch.zeros((b, s_count), dtype=torch.int64, device=dev)
+    rows = torch.arange(b, device=dev)
+    out_idx, out_ok, out_score = [], [], []
+    for step in range(k):
+        heads = sc.gather(2, head.unsqueeze(2))[:, :, 0]
+        best_s = torch.argmax(heads, dim=1)
+        best = heads[rows, best_s]
+        live = best > NEG_INF
+        ok = live & active[:, step]
+        local = ix[rows, best_s, head[rows, best_s]]
+        out_idx.append(torch.where(live, best_s.to(torch.int32) * n_s + local,
+                                   torch.zeros_like(local)))
+        out_ok.append(ok)
+        out_score.append(torch.where(live, best,
+                                     torch.full_like(best, NEG_INF)))
+        head[rows, best_s] += ok.to(torch.int64)
+    return (torch.stack(out_idx, 1), torch.stack(out_ok, 1),
+            torch.stack(out_score, 1))
+
+
+def _check_merge(idx, score, active):
+    if idx.dim() != 3:
+        raise ValueError(f"idx must be [S, B, k], got {tuple(idx.shape)}")
+    s_count, b, k = idx.shape
+    if not 1 <= s_count <= MAX_SHARDS:
+        raise ValueError(f"{s_count} shards: the merge takes 1 to "
+                         f"{MAX_SHARDS}")
+    dev = idx.device
+    _check("idx", idx, torch.int32, (s_count, b, k), dev)
+    _check("score", score, torch.float32, (s_count, b, k), dev)
+    _check("active", active, torch.bool, (b, k), dev)
+
+
+def merge_greedy(idx, score, active, n_s: int):
+    """Merge S shard-local scans (``idx``, ``score``: [S, B, k], shard i's
+    rows [i n_s, (i+1) n_s)) into the global scan under ``active`` [B, k].
+    CUDA tensors launch the merge kernel; CPU tensors take the plain
+    version."""
+    _check_merge(idx, score, active)
+    if idx.device.type == "cpu":
+        return merge_greedy_plain(idx, score, active, n_s)
+    if idx.device.type != "cuda":
+        raise ValueError(f"unsupported device {idx.device}")
+    global MERGE_LAUNCHES
+    launch, outs = _bind_merge(idx, score, active, n_s)
+    kernels.check_launch(launch(), "greedy_merge")
+    MERGE_LAUNCHES += 1
+    return outs
+
+
+def _bind_merge(idx, score, active, n_s: int):
+    s_count, b, k = idx.shape
+    dev = idx.device
+    fn = kernels.entry("greedy", "nomad_greedy_merge", 6, 4)
+    out_idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    out_ok = torch.empty((b, k), dtype=torch.bool, device=dev)
+    out_score = torch.empty((b, k), dtype=torch.float32, device=dev)
+    args = ([t.data_ptr() for t in (idx, score, active, out_idx, out_ok,
+                                    out_score)]
+            + [s_count, b, k, int(n_s),
+               torch.cuda.current_stream(dev).cuda_stream])
+
+    def launch():
+        with torch.cuda.device(dev):
+            return fn(*args)
+
+    launch.buffers = (out_idx, out_ok, out_score)
+    return launch, (out_idx, out_ok, out_score)
+
+
+def merge_kernel_only(idx, score, active, n_s: int):
+    """For timing the merge kernel apart from its wrapper: checks once,
+    allocates once, and returns a zero-argument call that only launches
+    it (not counted in ``MERGE_LAUNCHES``)."""
+    _check_merge(idx, score, active)
+    if idx.device.type != "cuda":
+        raise ValueError("merge_kernel_only needs CUDA tensors")
+    launch, _outs = _bind_merge(idx, score, active, n_s)
+
+    def run():
+        kernels.check_launch(launch(), "greedy_merge")
+
+    return run

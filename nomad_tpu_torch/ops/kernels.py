@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. All
+shared library (``csrc/*.cuh`` holds device functions that more than one
+source includes) with a plain C interface, loaded with ``ctypes``. All
 sources build at first use, one ``nvcc`` process each, started together,
 into ``nomad_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one is
@@ -55,7 +56,7 @@ def _nvcc() -> str:
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -246,3 +246,367 @@ def kernel_only(*inputs):
         kernels.check_launch(launch(), "waterfill")
 
     return run
+
+
+# -- the node-sharded water-fill --------------------------------------------
+#
+# The counterpart of nomad_tpu's solve_waterfill under node-axis shardings
+# (XLA SPMD over a mesh). One code path drives the rounds for every shard
+# (solve_waterfill_sharded); each pass of a shard is the CUDA kernel
+# csrc/waterfill_shard.cu for CUDA tensors and its plain version
+# (_PlainShard) for CPU tensors; between passes the caller's ``reduce``
+# sums or maxes the shards' partials (parallel/mesh.py MeshReduce,
+# parallel/dcn.py DistReduce). The rounds are the unsharded kernel's sync
+# points: 1 (max cap) + the level passes + 4 (threshold) + 1 (boundary
+# prefix); see csrc/waterfill_shard.cu.
+
+# Launches of the shard kernel, one a pass of a shard (the plain passes
+# never count).
+SHARD_LAUNCHES = 0
+
+PART_WIDTH = 512  # int64 columns of a partial: 256 bin counts, 256 sums
+N_STATE = 16      # int64 slots of an eval's decision state
+_PHASES = {"caps": 0, "level_first": 1, "level": 2, "keys": 3, "radix": 4,
+           "boundary": 5, "counts": 6}
+_RADIX_SHIFTS = (16, 8, 0)
+
+
+def level_shifts(max_count: int) -> list:
+    """The shifts of the level passes for a batch whose largest count is
+    ``max_count``: 8 bits a pass from the top, at least one pass."""
+    bits = max(int(max_count), 0).bit_length()
+    return list(range(8 * (max((bits + 7) // 8, 1) - 1), -1, -8))
+
+
+def _passes(max_count: int) -> list:
+    """(phase, shift, combine op) of each pass of a solve, in order; the
+    counts pass is last and has no combine."""
+    return ([("caps", 0, "max")]
+            + [("level_first" if j == 0 else "level", s, "sum")
+               for j, s in enumerate(level_shifts(max_count))]
+            + [("keys", 0, "sum")]
+            + [("radix", s, "sum") for s in _RADIX_SHIFTS]
+            + [("boundary", 0, "sum"), ("counts", 0, None)])
+
+
+def shard_rounds(max_count: int) -> int:
+    """Combines between the passes of one sharded solve."""
+    return len(_passes(max_count)) - 1
+
+
+def solve_waterfill_sharded(shards, small, max_count: int,
+                            job_distinct: bool, tg_distinct: bool, reduce,
+                            first_index: int = 0, n_shards=None):
+    """The batched water-fill over node shards. ``shards[i]``: the 8
+    node-axis inputs of shard i (total, sched_cap, used0, job_count0,
+    tg_count0, bw_avail, bw_used0, eligible; each ``[B, n_s, ...]`` on the
+    shard's device; every shard holds n_s rows, shard i the global rows
+    from ``(first_index + i) * n_s``); ``small[i]``: (ask [B, 4], bw_ask
+    [B], count [B] int32, penalty [B] float32) on the same device;
+    ``max_count``: the largest count of the batch; ``reduce(parts, op)``:
+    the seam, "sum" or "max" over every shard's partial in the solve
+    (``n_shards`` of them, default ``len(shards)``). Returns (counts per
+    shard, [B, n_s] int32 each, remaining [B] int32 on the first shard's
+    device). CUDA shards launch the shard kernel; CPU shards take the plain
+    passes."""
+    return _solve_sharded(shards, small, max_count, job_distinct,
+                          tg_distinct, reduce, first_index, n_shards, False)
+
+
+def solve_waterfill_sharded_plain(shards, small, max_count: int,
+                                  job_distinct: bool, tg_distinct: bool,
+                                  reduce, first_index: int = 0,
+                                  n_shards=None):
+    """Plain version of solve_waterfill_sharded: the same rounds and seam,
+    every pass plain PyTorch on whatever device the shards are."""
+    return _solve_sharded(shards, small, max_count, job_distinct,
+                          tg_distinct, reduce, first_index, n_shards, True)
+
+
+def _solve_sharded(shards, small, max_count, job_distinct, tg_distinct,
+                   reduce, first_index, n_shards, plain):
+    n_shards = len(shards) if n_shards is None else n_shards
+    passes = [
+        (_PlainShard if plain or s[0].device.type != "cuda"
+         else _KernelShard)(
+            s, sm, first_index + i, n_shards, job_distinct, tg_distinct)
+        for i, (s, sm) in enumerate(zip(shards, small))
+    ]
+    comb = [None] * len(passes)
+    for phase, shift, op in _passes(max_count):
+        parts = [p.run(phase, c, shift) for p, c in zip(passes, comb)]
+        if op is not None:
+            comb = reduce(parts, op)
+    return [p.counts for p in passes], passes[0].remaining
+
+
+class _KernelShard:
+    """One shard's passes as launches of csrc/waterfill_shard.cu, with its
+    scratch (caps, keys, state, two partial buffers used in turn so a
+    pass never writes the row its combine was read from)."""
+
+    def __init__(self, inputs8, small4, index, n_shards, jd, td,
+                 counted=True):
+        check_inputs(*inputs8, *small4)
+        self.counted = counted
+        total = inputs8[0]
+        b, n, _ = total.shape
+        dev = total.device
+        self.fn = kernels.entry("waterfill_shard", "nomad_waterfill_shard",
+                                20, 8)
+        self.dev = dev
+        self.b, self.n = b, n
+        self.index, self.n_shards = index, n_shards
+        self.flags = (int(bool(jd)), int(bool(td)))
+        total, sched_cap, used0, jc, tc, bwa, bwu, elig = inputs8
+        self.inputs = (total, used0, sched_cap, jc, tc, bwa, bwu, elig,
+                       *small4)
+        i32, i64 = torch.int32, torch.int64
+        self.cap = torch.empty((b, n), dtype=i32, device=dev)
+        self.key = torch.empty((b, n), dtype=i32, device=dev)
+        self.state = torch.empty((b, N_STATE), dtype=i64, device=dev)
+        self.parts = [torch.empty((b, PART_WIDTH), dtype=i64, device=dev)
+                      for _ in range(2)]
+        self.turn = 0
+        self.counts = torch.empty((b, n), dtype=i32, device=dev)
+        self.remaining = torch.empty((b,), dtype=i32, device=dev)
+
+    def run(self, phase: str, comb, shift: int):
+        """Launch one pass; returns its partial (None for the counts
+        pass)."""
+        global SHARD_LAUNCHES
+        own_prev = self.parts[self.turn ^ 1]
+        part = self.parts[self.turn]
+        ptrs = [t.data_ptr() for t in self.inputs]
+        ptrs += [self.cap.data_ptr(), self.key.data_ptr(),
+                 self.state.data_ptr(),
+                 None if comb is None else comb.data_ptr(),
+                 own_prev.data_ptr(), part.data_ptr(),
+                 self.counts.data_ptr(), self.remaining.data_ptr()]
+        with torch.cuda.device(self.dev):
+            err = self.fn(*ptrs, _PHASES[phase], shift, self.b, self.n,
+                          self.index, self.n_shards, *self.flags,
+                          torch.cuda.current_stream(self.dev).cuda_stream)
+        kernels.check_launch(err, "waterfill_shard")
+        if self.counted:
+            SHARD_LAUNCHES += 1
+        self.turn ^= 1
+        return None if phase == "counts" else part
+
+
+def shard_kernel_only(inputs8, small4, max_count: int, job_distinct: bool,
+                      tg_distinct: bool):
+    """For timing the shard kernel apart from its wrapper and the seam:
+    checks one shard's inputs and allocates its scratch once, and returns
+    a zero-argument call that launches every pass of a solve over that
+    shard alone (one shard of one, so each combine is the shard's own
+    partial and no other operation runs; not counted in
+    ``SHARD_LAUNCHES``)."""
+    if inputs8[0].device.type != "cuda":
+        raise ValueError("shard_kernel_only needs CUDA tensors")
+    shard = _KernelShard(inputs8, small4, 0, 1, job_distinct, tg_distinct,
+                         counted=False)
+    passes = _passes(max_count)
+
+    def run():
+        comb = None
+        for phase, shift, _op in passes:
+            comb = shard.run(phase, comb, shift)
+
+    return run
+
+
+class _PlainShard:
+    """One shard's passes in plain PyTorch: the same partials, decisions
+    and state as the kernel's passes, over [B, n_s] tensors."""
+
+    def __init__(self, inputs8, small4, index, n_shards, jd, td):
+        check_inputs(*inputs8, *small4)
+        (self.total, self.sched_cap, self.used0, self.job_count0,
+         self.tg_count0, self.bw_avail, self.bw_used0,
+         self.eligible) = inputs8
+        self.ask, self.bw_ask, count, self.penalty = small4
+        self.count = count.to(torch.int64)
+        self.jd, self.td = bool(jd), bool(td)
+        self.index, self.n_shards = index, n_shards
+        b = self.total.shape[0]
+        z = torch.zeros(b, dtype=torch.int64, device=self.total.device)
+        self.st = {k: z.clone() for k in (
+            "hcap", "prefix", "sum_below", "n_above", "base_sum", "level",
+            "remaining", "k_above", "tprefix", "done", "tie", "t_eff",
+            "fill", "nsel", "dstar")}
+        self.cap = None
+        self.key = None
+        self.last_part = None
+        self.counts = None
+        self.remaining = None
+
+    def run(self, phase: str, comb, shift: int):
+        part = getattr(self, "_" + phase)(comb, shift)
+        self.last_part = part
+        return part
+
+    def _new_part(self):
+        return torch.zeros((self.total.shape[0], PART_WIDTH),
+                           dtype=torch.int64, device=self.total.device)
+
+    def _hist(self, bins, mask, values=None):
+        """[B, 512] partial: per-eval counts (and sums of ``values``) of
+        the rows in ``mask`` by ``bins``."""
+        part = self._new_part()
+        bins = torch.where(mask, bins, torch.zeros_like(bins))
+        part[:, :256].scatter_add_(1, bins, mask.to(torch.int64))
+        if values is not None:
+            part[:, 256:].scatter_add_(
+                1, bins, torch.where(mask, values, torch.zeros_like(values)))
+        return part
+
+    def _caps(self, _comb, _shift):
+        ask = self.ask.unsqueeze(1)
+        avail = self.total - self.used0
+        nonneg = (torch.all(avail >= 0, dim=-1)
+                  & (self.bw_used0 <= self.bw_avail))
+        dim_cap = torch.where(
+            ask > 0, torch.div(avail, torch.clamp(ask, min=1),
+                               rounding_mode="floor"),
+            torch.full_like(avail, _BIG))
+        cap = dim_cap.min(dim=-1).values
+        bw_ask = self.bw_ask.unsqueeze(1)
+        bw_cap = torch.div(self.bw_avail - self.bw_used0,
+                           torch.clamp(bw_ask, min=1), rounding_mode="floor")
+        cap = torch.where(bw_ask > 0, torch.minimum(cap, bw_cap), cap)
+        if self.jd:
+            cap = torch.minimum(cap, (self.job_count0 == 0).to(cap.dtype))
+        if self.td:
+            cap = torch.minimum(cap, (self.tg_count0 == 0).to(cap.dtype))
+        cap = torch.minimum(torch.clamp(cap.to(torch.int64), min=0),
+                            self.count.unsqueeze(1))
+        self.cap = torch.where(self.eligible & nonneg, cap,
+                               torch.zeros_like(cap))
+        part = self._new_part()
+        if self.cap.shape[1]:
+            part[:, 0] = self.cap.max(dim=1).values
+        return part
+
+    def _decide_level(self, comb, s):
+        st = self.st
+        cnt, sm = comb[:, :256], comb[:, 256:]
+        below_c = torch.cumsum(cnt, 1) - cnt
+        below_s = torch.cumsum(sm, 1) - sm
+        tot = cnt.sum(1, keepdim=True)
+        d = torch.arange(256, dtype=torch.int64, device=comb.device)
+        lv = st["prefix"][:, None] + (d << s)
+        ge = st["n_above"][:, None] + tot - below_c
+        f = st["sum_below"][:, None] + below_s + lv * ge
+        valid = (lv <= st["hcap"][:, None]) & (f <= self.count[:, None])
+        at = torch.where(valid, d, -1).amax(1, keepdim=True)
+        st["prefix"] = lv.gather(1, at)[:, 0]
+        st["base_sum"] = f.gather(1, at)[:, 0]
+        st["sum_below"] = st["sum_below"] + below_s.gather(1, at)[:, 0]
+        st["n_above"] = (ge - cnt).gather(1, at)[:, 0]
+
+    def _level_first(self, comb, shift):
+        st = self.st
+        st["hcap"] = torch.minimum(self.count, comb[:, 0])
+        for k in ("prefix", "sum_below", "n_above", "base_sum"):
+            st[k] = torch.zeros_like(st[k])
+        return self._level_hist(shift)
+
+    def _level(self, comb, shift):
+        self._decide_level(comb, shift + 8)
+        return self._level_hist(shift)
+
+    def _level_hist(self, s):
+        prefix = self.st["prefix"][:, None]
+        d = (self.cap - prefix) >> s
+        mask = (self.cap >= prefix) & (d < 256)
+        return self._hist(d, mask, self.cap)
+
+    def _keys(self, comb, _shift):
+        st = self.st
+        self._decide_level(comb, 0)
+        st["level"] = st["prefix"].clone()
+        st["remaining"] = self.count - st["base_sum"]
+        for k in ("k_above", "tprefix", "tie", "t_eff", "fill", "nsel",
+                  "dstar"):
+            st[k] = torch.zeros_like(st[k])
+        st["done"] = (st["remaining"] <= 0).to(torch.int64)
+        level = st["level"][:, None]
+        base = torch.minimum(self.cap, level).to(torch.int32)
+        bw_ask = self.bw_ask[:, None]
+        score, fit = _greedy_step_state(
+            self.total, self.sched_cap,
+            self.used0 + base.unsqueeze(-1) * self.ask.unsqueeze(1),
+            self.job_count0 + base, self.tg_count0 + base, self.bw_avail,
+            self.bw_used0 + base * bw_ask, self.eligible, self.ask, bw_ask,
+            self.penalty[:, None], self.jd, self.td,
+        )
+        cand = fit & (self.cap > level) & (st["remaining"] > 0)[:, None]
+        self.key = torch.where(cand, _monotone_u32(score),
+                               torch.zeros_like(score, dtype=torch.int64))
+        return self._hist(self.key >> 24, cand)
+
+    def _decide_radix(self, comb, s):
+        """The radix step for the evals whose threshold is open; returns
+        (open evals, keys at the chosen bin, the bin)."""
+        st = self.st
+        cnt = comb[:, :256]
+        tot = cnt.sum(1)
+        open_ = st["done"] == 0
+        rem = st["remaining"]
+        if s == 24:
+            take_all = open_ & (rem >= tot)
+            st["done"] = torch.where(take_all, 1, st["done"])
+            st["nsel"] = torch.where(take_all, tot, st["nsel"])
+            open_ = open_ & ~take_all
+        d = torch.arange(256, dtype=torch.int64, device=comb.device)
+        gt = st["k_above"][:, None] + tot[:, None] - torch.cumsum(cnt, 1)
+        hit = (gt < rem[:, None]) & (rem[:, None] <= gt + cnt)
+        dstar = torch.where(hit, d, -1).amax(1).clamp(min=0)
+        at = dstar[:, None]
+        st["k_above"] = torch.where(open_, gt.gather(1, at)[:, 0],
+                                    st["k_above"])
+        tp = st["tprefix"] | (dstar << s)
+        return open_, cnt.gather(1, at)[:, 0], dstar, tp
+
+    def _radix(self, comb, shift):
+        st = self.st
+        open_, _n_at, _dstar, tp = self._decide_radix(comb, shift + 8)
+        st["tprefix"] = torch.where(open_, tp, st["tprefix"])
+        hi = shift + 8
+        mask = ((self.key != 0)
+                & ((self.key >> hi) == (st["tprefix"] >> hi)[:, None])
+                & (st["done"] == 0)[:, None])
+        return self._hist((self.key >> shift) & 0xFF, mask)
+
+    def _boundary(self, comb, _shift):
+        st = self.st
+        open_, n_at, dstar, tp = self._decide_radix(comb, 0)
+        f = st["remaining"] - st["k_above"]
+        tie = open_ & (f < n_at)
+        st["tie"] = torch.where(open_, tie.to(torch.int64), st["tie"])
+        st["t_eff"] = torch.where(open_, torch.where(tie, tp, tp - 1),
+                                  st["t_eff"])
+        st["fill"] = torch.where(open_, f, st["fill"])
+        st["nsel"] = torch.where(open_, st["remaining"], st["nsel"])
+        st["dstar"] = torch.where(open_, dstar, st["dstar"])
+        st["done"] = torch.where(open_, 1, st["done"])
+        own = self.last_part.gather(1, st["dstar"][:, None])[:, 0]
+        part = self._new_part()
+        part[:, self.index] = torch.where(st["tie"] != 0, own, 0)
+        return part
+
+    def _counts(self, comb, _shift):
+        st = self.st
+        block_off = comb[:, :self.index].sum(1)
+        rem = st["remaining"][:, None]
+        key = self.key
+        at = (st["tie"] != 0)[:, None] & (key == st["t_eff"][:, None])
+        rank = block_off[:, None] + torch.cumsum(at.to(torch.int64), 1) - 1
+        sel = (rem > 0) & ((key > st["t_eff"][:, None])
+                           | (at & (rank < st["fill"][:, None])))
+        level = st["level"][:, None]
+        self.counts = (torch.minimum(self.cap, level)
+                       + sel.to(torch.int64)).to(torch.int32)
+        self.remaining = (st["remaining"] - st["nsel"]).to(torch.int32)
+        return None

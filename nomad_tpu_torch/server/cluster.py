@@ -175,6 +175,9 @@ class ClusterServer(Server):
         if self._started:
             return
         self._started = True
+        # Same ordering contract as Server.start: the mesh must be
+        # configured before any worker builds a mirror.
+        self._apply_solver_mesh()
         self.rpc.start()
         joined = not self.cluster.start_join
         for addr in self.cluster.start_join:

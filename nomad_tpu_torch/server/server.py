@@ -55,6 +55,8 @@ from nomad_tpu_torch.structs import (
     generate_uuid,
 )
 from nomad_tpu_torch.capacity import CapacityAccountant, CapacityConfig
+from nomad_tpu_torch.parallel import mesh as mesh_lib
+from nomad_tpu_torch.parallel.mesh import SolverMeshConfig
 from nomad_tpu_torch.profile_observe import (
     ProfileObserveConfig,
     RuntimeObservatory,
@@ -78,7 +80,6 @@ from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 # with the module each needs. Setting one raises: it is never ignored.
 NOT_PORTED = {
     "tls": "TLS on the RPC tier (tlsutil.py)",
-    "solver_mesh": "the solver mesh (parallel/mesh.py)",
 }
 
 
@@ -87,8 +88,10 @@ class ServerConfig:
     """Server tunables (reference: nomad/config.go:46-236 defaults).
 
     The keys of nomad_tpu's ServerConfig that belong to modules the port
-    does not have yet are listed in ``NOT_PORTED`` and must stay None: the
-    solver mesh and TLS.
+    does not have yet are listed in ``NOT_PORTED`` and must stay None:
+    TLS. ``solver_mesh`` (parallel/mesh.py SolverMeshConfig) shards the
+    node axis of every solve over the local devices of ``device``'s type;
+    a mesh they can't satisfy leaves solves single-device on ``device``.
     ``Server.stats()`` reports the server's device in place of nomad_tpu's
     device-probe and breaker state.
     """
@@ -238,6 +241,7 @@ class ServerConfig:
         self.reads_config = ReadObserveConfig.parse(self.reads)
         self.read_path_config = ReadPathConfig.parse(self.read_path)
         self.profile_config = ProfileObserveConfig.parse(self.profile)
+        self.solver_mesh_config = SolverMeshConfig.parse(self.solver_mesh)
 
     def scheduler_factory(self, eval_type: str) -> str:
         if self.scheduler_backend == "tpu" and eval_type in (
@@ -404,6 +408,7 @@ class Server:
         if self._started:
             return
         self._started = True
+        self._apply_solver_mesh()
         self.plan_queue.set_enabled(True)
         self.eval_broker.set_enabled(True)
         self.plan_applier.start()
@@ -507,6 +512,20 @@ class Server:
         self.plan_queue.set_enabled(False)
         self.eval_broker.set_enabled(False)
         self.heartbeat.clear_all()
+
+    def _apply_solver_mesh(self) -> None:
+        """Configure the process solve mesh from `server { solver_mesh }`
+        BEFORE any worker can build a mirror: node tensors are born with
+        the configured sharding (mirror put_node_sharded), so ordering is
+        what keeps the warm path reshard-free. Where the local devices
+        can't satisfy the extents, apply_solver_mesh warns and solves stay
+        single-device on the server's device. Shared by Server.start and
+        ClusterServer.start so the gating can never drift."""
+        if (self.config.solver_mesh_config.enabled
+                and self.config.scheduler_backend == "tpu"):
+            mesh_lib.apply_solver_mesh(
+                self.config.solver_mesh_config, self.logger, self.device
+            )
 
     def _drain_device(self, drain_timeout: float) -> bool:
         """Wait for the process-wide device work to drain, at most

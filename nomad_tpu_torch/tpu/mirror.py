@@ -11,13 +11,14 @@ node table (they are string ops; regex/version stay host-side by design,
 reference feasible.go:405-479) and shipped to the device as the ``eligible``
 input of the solve. The node axis is padded to power-of-two buckets, the
 same ``[padded, D]`` int32 layout as nomad_tpu, so both packages hand the
-solve identical shapes. Each mirror lives on one torch device.
+solve identical shapes. Each mirror lives on one torch device, or, when a
+solve mesh is configured and divides the bucket, as ShardedTensors over
+the mesh (parallel/mesh.py put_node_sharded): its node tensors, masks and
+usage are born sharded, and a delta roll restages each dirty row in its
+owning shard only.
 
 ``capacity_view`` (the express lane's pick) reads only the host arrays:
 the lane's in-line placement never touches the device.
-
-Not ported yet: the byte ledgers (their reader, the runtime observatory,
-is a later slice) and mesh sharding (one device).
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ import torch
 from nomad_tpu_torch import telemetry
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.ops.binpack import bucket
+from nomad_tpu_torch.parallel.mesh import (
+    ShardedTensor,
+    put_node_sharded,
+    restage_rows,
+)
 from nomad_tpu_torch.scheduler.feasible import (
     _parse_bool,
     check_constraint,
@@ -76,24 +82,6 @@ def _node_row_vals(node: Node) -> Tuple[Tuple, Tuple, int, int]:
     if node.reserved is not None and node.reserved.networks:
         bw_reserved = sum(net.mbits for net in node.reserved.networks)
     return total, reserved, bw_avail, bw_reserved
-
-
-def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device`` (always a copy: mirror-owned
-    numpy buffers must never alias a tensor). nomad_tpu's
-    put_node_sharded, without a mesh."""
-    return torch.tensor(arr, device=device)
-
-
-def _restage_rows(t: torch.Tensor, rows: torch.Tensor,
-                  vals: torch.Tensor) -> torch.Tensor:
-    """Row-sliced device restage (nomad_tpu's jitted ``.at[rows].set``):
-    a copy of ``t`` with ``rows`` replaced by ``index_copy_``. The ancestor
-    mirror keeps its tensor unchanged — evals still scheduled against it
-    read the old rows."""
-    out = t.clone()
-    out.index_copy_(0, rows, vals)
-    return out
 
 
 def _surface_targets(old: Node, new: Node, out: Set[str]) -> None:
@@ -158,14 +146,18 @@ class NodeMirror:
                     bw_reserved[i] = sum(
                         net.mbits for net in node.reserved.networks)
 
-        self.total = _put(total, self.device)
+        # Node tensors are born with the configured node-axis sharding (one
+        # tensor on the mirror's device when no mesh is set or it does not
+        # divide the bucket), so sharded solves pay no per-dispatch reshard
+        # of the big [N, .] inputs.
+        self.total = put_node_sharded(total, self.device)
         # Host-side copy of the totals, maintained through apply_delta
         # like reserved_np.
         self.totals_np = total
         self.reserved_np = reserved
         sched = (total - reserved)[:, :2].astype(np.float32)
-        self.sched_cap = _put(sched, self.device)
-        self.bw_avail = _put(bw_avail, self.device)
+        self.sched_cap = put_node_sharded(sched, self.device)
+        self.bw_avail = put_node_sharded(bw_avail, self.device)
         self.bw_reserved = bw_reserved
         self.base_mask = np.zeros(self.padded, dtype=bool)
         self.base_mask[: self.n] = True
@@ -370,16 +362,12 @@ class NodeMirror:
             bw_reserved[rows_arr] = bwr_arr
             new.bw_reserved = bw_reserved
             # Row-sliced device update: only the dirty rows travel to the
-            # device. nomad_tpu pads the row batch to a bucket for its jit
-            # cache; eager index_copy_ has none to keep warm.
-            dev = self.device
-            rows_dev = torch.tensor(rows_arr.astype(np.int64), device=dev)
-            new.total = _restage_rows(self.total, rows_dev,
-                                      _put(tot_arr, dev))
-            new.sched_cap = _restage_rows(self.sched_cap, rows_dev,
-                                          _put(sched_arr, dev))
-            new.bw_avail = _restage_rows(self.bw_avail, rows_dev,
-                                         _put(bwa_arr, dev))
+            # device, each into its owning shard on a mesh. nomad_tpu pads
+            # the row batch to a bucket for its jit cache; eager
+            # index_copy_ has none to keep warm.
+            new.total = restage_rows(self.total, rows_arr, tot_arr)
+            new.sched_cap = restage_rows(self.sched_cap, rows_arr, sched_arr)
+            new.bw_avail = restage_rows(self.bw_avail, rows_arr, bwa_arr)
         else:
             new.totals_np = self.totals_np
             new.reserved_np = self.reserved_np
@@ -440,8 +428,8 @@ class NodeMirror:
         elif reserved_changed:
             used_dev, z1, z2, bw_dev = self._clean_usage_dev
             new._clean_usage_dev = (
-                _restage_rows(used_dev, rows_dev, _put(res_arr, dev)), z1, z2,
-                _restage_rows(bw_dev, rows_dev, _put(bwr_arr, dev)),
+                restage_rows(used_dev, rows_arr, res_arr), z1, z2,
+                restage_rows(bw_dev, rows_arr, bwr_arr),
             )
         else:
             new._clean_usage_dev = self._clean_usage_dev
@@ -651,7 +639,7 @@ class NodeMirror:
             mask = mask & self.constraint_mask(ctx, job_constraints)
         if tg_constraints:
             mask = mask & self.constraint_mask(ctx, tg_constraints)
-        entry = (_put(mask, self.device),
+        entry = (put_node_sharded(mask, self.device),
                  int(self.n - mask[: self.n].sum()))
         self._device_mask_cache[key] = entry
         return entry
@@ -664,10 +652,11 @@ class NodeMirror:
         reserved base. The fresh-registration fast path."""
         if self._clean_usage_dev is None:
             dev = self.device
-            zeros = torch.zeros(self.padded, dtype=torch.int32, device=dev)
+            zeros = put_node_sharded(np.zeros(self.padded, dtype=np.int32),
+                                     dev)
             self._clean_usage_dev = (
-                _put(self.reserved_np, dev), zeros, zeros,
-                _put(self.bw_reserved, dev),
+                put_node_sharded(self.reserved_np, dev), zeros, zeros,
+                put_node_sharded(self.bw_reserved, dev),
             )
         return self._clean_usage_dev
 
@@ -766,8 +755,9 @@ class NodeMirror:
         self._plan_batch_usage(plan, job_id, tg_name, used, job_count,
                                tg_count)
         dev = self.device
-        return (_put(used, dev), _put(job_count, dev), _put(tg_count, dev),
-                _put(bw_used, dev))
+        return (put_node_sharded(used, dev), put_node_sharded(job_count, dev),
+                put_node_sharded(tg_count, dev),
+                put_node_sharded(bw_used, dev))
 
     def capacity_view(self, state) -> Tuple[np.ndarray, np.ndarray]:
         """(totals[padded,4] int32, used[padded,4] int32) on the host: the
@@ -1032,8 +1022,9 @@ class NodeMirror:
         self._plan_batch_usage(ctx.plan, job_id, tg_name, used, job_count,
                                tg_count)
         dev = self.device
-        return (_put(used, dev), _put(job_count, dev), _put(tg_count, dev),
-                _put(bw_used, dev))
+        return (put_node_sharded(used, dev), put_node_sharded(job_count, dev),
+                put_node_sharded(tg_count, dev),
+                put_node_sharded(bw_used, dev))
 
     def _plan_batch_usage(self, plan, job_id: str, tg_name: str,
                           used, job_count, tg_count) -> None:
@@ -1312,14 +1303,16 @@ class MirrorCache:
 def _dtype_name(arr) -> str:
     """numpy's spelling of an array's or tensor's dtype ("int32", never
     "torch.int32"), so the ledger's keys equal nomad_tpu's."""
-    if isinstance(arr, torch.Tensor):
+    if isinstance(arr, (torch.Tensor, ShardedTensor)):
         return str(arr.dtype).replace("torch.", "")
     return str(arr.dtype)
 
 
 def _arr_bytes(v, cuda_only: bool = False) -> int:
-    """Bytes of a tensor or array, or of the ones inside a tuple or list,
-    from metadata alone."""
+    """Bytes of a tensor or array (every shard of a ShardedTensor), or of
+    the ones inside a tuple or list, from metadata alone."""
+    if isinstance(v, ShardedTensor):
+        return sum(_arr_bytes(s, cuda_only) for s in v.shards)
     if isinstance(v, torch.Tensor):
         if cuda_only and v.device.type != "cuda":
             return 0

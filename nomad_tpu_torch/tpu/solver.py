@@ -38,6 +38,7 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from nomad_tpu_torch import faults, telemetry, trace
 from nomad_tpu_torch.device import resolve_device
@@ -51,6 +52,7 @@ from nomad_tpu_torch.ops.binpack import (
     solve_many_async,
 )
 from nomad_tpu_torch.ops.coalesce import device_activity
+from nomad_tpu_torch.parallel import mesh as mesh_lib
 from nomad_tpu_torch.scheduler.context import EvalContext
 from nomad_tpu_torch.scheduler.feasible import _has_distinct_hosts
 from nomad_tpu_torch.scheduler import SchedulerError
@@ -1841,21 +1843,35 @@ class TPUSystemScheduler(SystemScheduler):
     def _system_fit(self, tg, tg_constr, mirror):
         """One dispatch: fit for every node at once. Returns (prep,
         fit_np) or None when no node is eligible (stack.prepare bail).
-        nomad_tpu's node-sharded mesh arm is left out: one card holds
-        every node bucket."""
+        With a solve mesh, one fit a node shard, concatenated in row
+        order (nomad_tpu shards its one _greedy_step_state)."""
         prep = self.stack.prepare(tg, tg_constr)
         if prep is None:
             return None
         _check_device_fault(tg.name)
         t_dispatch = time.perf_counter()
+        args10 = (mirror.total, mirror.sched_cap, prep.used, prep.job_count,
+                  prep.tg_count, mirror.bw_avail, prep.bw_used, prep.mask,
+                  prep.ask, prep.bw_ask)
         with device_activity():
-            _score, fit = _greedy_step_state(
-                mirror.total, mirror.sched_cap, prep.used, prep.job_count,
-                prep.tg_count, mirror.bw_avail, prep.bw_used, prep.mask,
-                prep.ask, prep.bw_ask, 0.0,
-                prep.job_distinct, prep.tg_distinct,
-            )
-            fit_np = fit.cpu().numpy()
+            mesh = mesh_lib.mesh_for_nodes(mirror.padded, mirror.device)
+            if mesh is not None:
+                placed = mesh_lib.shard_waterfill_args(mesh, args10)
+                fits = []
+                for i, dev in enumerate(mesh.node_devices):
+                    _score, fit = _greedy_step_state(
+                        *(x.shards[i] for x in placed[:8]),
+                        placed[8].on(dev), placed[9].on(dev), 0.0,
+                        prep.job_distinct, prep.tg_distinct,
+                    )
+                    fits.append(fit.cpu())
+                fit_np = torch.cat(fits).numpy()
+            else:
+                _score, fit = _greedy_step_state(
+                    *(mesh_lib.whole(x) for x in args10), 0.0,
+                    prep.job_distinct, prep.tg_distinct,
+                )
+                fit_np = fit.cpu().numpy()
         # System jobs ask one copy per node; the fit mask IS the
         # placement decision, so fits = placements for the panel.
         SOLVER_PANEL.record_solve(

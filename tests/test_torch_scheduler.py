@@ -260,8 +260,9 @@ def test_coalescer_fault_reaches_fetch():
 # -- guards -------------------------------------------------------------------
 
 
-# The server loop's, simcluster's, the head's, the client's and the
-# observatories' modules, named so a walk that missed one still fails.
+# The server loop's, simcluster's, the head's, the client's, the
+# observatories' and the solver mesh's modules, named so a walk that
+# missed one still fails.
 SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.server.server", "nomad_tpu_torch.server.worker",
     "nomad_tpu_torch.server.plan_pipeline", "nomad_tpu_torch.server.fsm",
@@ -286,6 +287,8 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.capacity", "nomad_tpu_torch.raft_observe",
     "nomad_tpu_torch.simcluster.chaos", "nomad_tpu_torch.telemetry",
     "nomad_tpu_torch.profile_observe", "nomad_tpu_torch.bundle",
+    "nomad_tpu_torch.parallel", "nomad_tpu_torch.parallel.mesh",
+    "nomad_tpu_torch.parallel.dcn", "nomad_tpu_torch.parallel.dcn_worker",
 ]
 
 

@@ -85,7 +85,6 @@ RUNNABLE = ["burst-100k", "churn", "churn-frag-200", "churn-fragmentation",
 # registry's does), each with a word its error must name.
 WAITING = {
     "needs-tls": ({"tls": {"ca_file": "ca.pem"}}, "tlsutil"),
-    "needs-mesh": ({"solver_mesh": {"axis": 1}}, "parallel/mesh"),
 }
 
 
