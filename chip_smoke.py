@@ -3623,6 +3623,31 @@ MESH_WF_SHAPES = [(16384, 1, False, False, "random"),
 MESH_GREEDY_SHAPES = [(16384, 1, 128, "random"), (16384, 8, 128, "random"),
                       (131072, 1, 128, "random"), (131072, 8, 128, "random"),
                       (16384, 2, 128, "ties"), (16384, 1, 128, "infeasible")]
+# Rows of (a) on the per-pass route on the one card, (N, B, jd, td, mode,
+# S, groups): groups > 1 is one solve as that many groups of one process
+# each (a thread a group, first_index/n_shards, each group's shards
+# combined on the card, then MeshReduce between the groups); groups = 1
+# with S = 16 takes the per-pass route by rule (16 blocks an eval). At
+# 131072 rows a shard is spread over 2 blocks (S = 4) or 4 (S = 2), and
+# the "ties" cuts fall inside a block of a later shard (131072: after
+# 70,537 rows, in group 1; 16384: after 13,193, in shard 12 of 16, or in
+# shard 6 of 8, the fourth group's, whose boundary column is 6). The
+# 16384 x 1 and 256 x 1 rows at S = 2 in two groups are the DCN ranks'
+# shapes (DCN_CASES: one shard of 8,192 rows, or of 128, a rank).
+MESH_PASS_ROWS = [(16384, 2, False, False, "random", 4, 2),
+                  (16384, 1, False, False, "headline", 4, 2),
+                  (131072, 1, False, False, "ties", 4, 2),
+                  (131072, 2, True, True, "random", 2, 2),
+                  (16384, 2, False, False, "ties", 16, 1),
+                  (16384, 2, False, False, "ties", 8, 4),
+                  (16384, 1, False, False, "headline", 2, 2),
+                  (256, 1, False, False, "random", 2, 2)]
+# The merge past the main path's widths, all staged and (S k above
+# ~29,000) windowed, (N, B, k, S): 32 shards of 512 rows (a shard a lane),
+# 64 of 256 (two a lane), 256 of 64, 512 of 32.
+MESH_MERGE_WIDE = [(16384, 2, 128, 32), (16384, 2, 128, 64),
+                   (16384, 1, 128, 256), (16384, 2, 128, 512)]
+MERGE_SMEM_BYTES = 227 * 1024  # csrc/greedy.cu kMergeSmem
 # The main path's shapes, for the kernels line: the headline eval on (b)'s
 # mesh (8192-row bucket, 5,000 live, 100,000 tasks: one shard of 2,048
 # rows) and the service eval's merge (16384 rows, k = 128, 4 shards).
@@ -3656,11 +3681,95 @@ def shard_greedy_args(args, s: int):
     return out
 
 
+def group_solve(solve, shards, small, maxc, jd, td, groups: int = 2):
+    """One solve as ``groups`` groups of one process each, as that many DCN
+    ranks would run it: a thread a group, group g holding shards [g S/G,
+    (g+1) S/G) (first_index g S/G, n_shards S), each running its passes
+    with its shards combined on its device, and a seam that hands every
+    group's row to MeshReduce. ``solve``: waterfill.solve_waterfill_sharded
+    or its plain version. Returns (counts per shard, remaining), and
+    raises if the groups' remaining differ."""
+    import threading
+
+    import torch
+    from nomad_tpu_torch.parallel.mesh import MeshReduce
+
+    per = len(shards) // groups
+    barrier = threading.Barrier(groups, timeout=300)
+    rows, out, errors = [None] * groups, [None] * groups, []
+
+    def seam(g):
+        def reduce(parts, op):
+            (rows[g],) = parts
+            barrier.wait()
+            comb = MeshReduce()(list(rows), op)[g]
+            barrier.wait()  # every group has read rows before the next round
+            return [comb]
+        return reduce
+
+    def run(g):
+        lo = g * per
+        try:
+            out[g] = solve(shards[lo:lo + per], small[lo:lo + per], maxc,
+                           jd, td, seam(g), first_index=lo,
+                           n_shards=len(shards))
+        except Exception as exc:  # re-raised by the caller's thread
+            errors.append(exc)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(g,))
+               for g in range(groups)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"a group of the {groups}-group solve did not "
+                           "finish")
+    if not all(torch.equal(o[1], out[0][1]) for o in out):
+        raise AssertionError(f"the {groups} groups' remaining differ")
+    return [c for o in out for c in o[0]], out[0][1]
+
+
+def mesh_pass_solve(row, shards, small, maxc: int, plain: bool):
+    """A MESH_PASS_ROWS row's solve over its shards: its groups
+    (group_solve) or one group on the per-pass route by rule. Returns
+    (counts [B, N], remaining)."""
+    import torch
+    from nomad_tpu_torch.ops import waterfill
+    from nomad_tpu_torch.parallel.mesh import MeshReduce
+
+    jd, td, groups = row[2], row[3], row[6]
+    solve = (waterfill.solve_waterfill_sharded_plain if plain
+             else waterfill.solve_waterfill_sharded)
+    if groups > 1:
+        parts, rem = group_solve(solve, shards, small, maxc, jd, td, groups)
+    else:
+        parts, rem = solve(shards, small, maxc, jd, td, MeshReduce())
+    return torch.cat(parts, 1), rem
+
+
+def check_route(shards, single: bool, label: str, whole: bool = True):
+    """The route shard_route gives these shards is the one a row means to
+    run."""
+    from nomad_tpu_torch.ops import waterfill
+
+    route = waterfill.shard_route([x[0].device for x in shards],
+                                  shards[0][0].shape[1], whole)
+    if route.single != single:
+        raise AssertionError(f"{label}: route single={route.single}, "
+                             f"expected {single}")
+
+
 def phase_mesh_kernels(dev, rng):
     """(a): each shard kernel against its plain version on CUDA tensors and
     the sharded solves against the unsharded kernels, exactly, at S in
-    MESH_SHARDS; the sharded against the unsharded solve ms per S, the
-    rounds per solve and the merge ms."""
+    MESH_SHARDS (the single-launch route) and on MESH_PASS_ROWS (the
+    per-pass route); the merge at MESH_GREEDY_SHAPES and, windowed, at
+    MESH_MERGE_WIDE. Logs the sharded against the unsharded solve ms per
+    S, the single launch alone per S, the rounds and the merge ms."""
     import torch
     from nomad_tpu_torch.ops import greedy, waterfill
     from nomad_tpu_torch.parallel.mesh import MeshReduce
@@ -3671,10 +3780,11 @@ def phase_mesh_kernels(dev, rng):
         args = waterfill_case(rng, n, b, jd, td, mode, dev)
         want_c, want_r = waterfill.solve_waterfill_batched(*args)
         maxc = int(args[10].max())
-        u_ms = cuda_ms(lambda: waterfill.solve_waterfill_batched(*args), 5)
-        times = {}
+        u_ms = cuda_ms(lambda: waterfill.solve_waterfill_batched(*args), 20)
+        times, alone = {}, {}
         for s in MESH_SHARDS:
             shards, small = shard_wf_args(args, s)
+            check_route(shards, True, f"{row} S={s}")
             parts, rem = waterfill.solve_waterfill_sharded(
                 shards, small, maxc, jd, td, MeshReduce())
             p_parts, p_rem = waterfill.solve_waterfill_sharded_plain(
@@ -3694,12 +3804,50 @@ def phase_mesh_kernels(dev, rng):
                 raise AssertionError(f"sharded water-fill != unsharded "
                                      f"kernel at {row} S={s}")
             times[s] = cuda_ms(lambda: waterfill.solve_waterfill_sharded(
-                shards, small, maxc, jd, td, MeshReduce()), 5)
+                shards, small, maxc, jd, td, MeshReduce()), 20)
+            alone[s] = graph_ms(lambda: waterfill.shard_solve_only(
+                shards, small[0], jd, td), 20)
         check_wf_mode(mode, want_c, want_r, args[10], n)
         log(f"mesh waterfill N={n} B={b} jd={jd} td={td} {mode}: equal at "
-            f"S={list(MESH_SHARDS)}, rounds={waterfill.shard_rounds(maxc)} "
-            f"unsharded_ms={u_ms:.4f} sharded_ms="
-            + json.dumps({s: round(t, 4) for s, t in times.items()}))
+            f"S={list(MESH_SHARDS)}, one launch, unsharded_ms={u_ms:.4f} "
+            "sharded_ms="
+            + json.dumps({s: round(t, 4) for s, t in times.items()})
+            + " solve_kernel_ms="
+            + json.dumps({s: round(t, 5) for s, t in alone.items()}))
+
+    pass_err = 0
+    for row in MESH_PASS_ROWS:
+        n, b, jd, td, mode, s, groups = row
+        args = waterfill_case(rng, n, b, jd, td, mode, dev)
+        want_c, want_r = waterfill.solve_waterfill_batched(*args)
+        shards, small = shard_wf_args(args, s)
+        maxc = int(args[10].max())
+        half = s // groups
+        for g in range(groups):
+            check_route(shards[g * half:(g + 1) * half], False,
+                        f"{row} group {g}", whole=groups == 1)
+        got, rem = mesh_pass_solve(row, shards, small, maxc, False)
+        plain, p_rem = mesh_pass_solve(row, shards, small, maxc, True)
+        torch.cuda.synchronize()
+        err = max(int((got - plain).abs().max()),
+                  int((got - want_c).abs().max()),
+                  int((rem - want_r).abs().max()))
+        pass_err = max(pass_err, err)
+        if not (torch.equal(got, plain) and torch.equal(rem, p_rem)):
+            raise AssertionError(f"waterfill_shard pass kernel != plain at "
+                                 f"{row}: max abs err {err}")
+        if not (torch.equal(got, want_c) and torch.equal(rem, want_r)):
+            raise AssertionError(f"per-pass sharded water-fill != "
+                                 f"unsharded kernel at {row}")
+        n_s = n // s
+        check_wf_mode(mode, want_c, want_r, args[10],
+                      -(-n_s // waterfill.shard_blocks(n_s)))
+        ms = cuda_ms(lambda: mesh_pass_solve(row, shards, small, maxc,
+                                             False), 3)
+        log(f"mesh waterfill per-pass N={n} B={b} jd={jd} td={td} {mode} "
+            f"S={s} groups={groups} blocks_a_shard="
+            f"{waterfill.shard_blocks(n // s)}: equal, rounds="
+            f"{waterfill.shard_rounds(maxc)} sharded_ms={ms:.4f}")
 
     merge_err = 0
     for row in MESH_GREEDY_SHAPES:
@@ -3713,19 +3861,8 @@ def phase_mesh_kernels(dev, rng):
             got = greedy.solve_greedy_sharded(shards, args[10], k, False,
                                               False)
             seq = gathered_sequences(shards, args[10], k)
-            m_k = greedy.merge_greedy(*seq, args[10], n // s)
-            m_p = greedy.merge_greedy_plain(*seq, args[10], n // s)
-            torch.cuda.synchronize()
-            err = max(int((m_k[0] - m_p[0]).abs().max()),
-                      int((m_k[1] != m_p[1]).sum()),
-                      int((got[0] - want[0]).abs().max()))
-            merge_err = max(merge_err, err)
-            if not all(torch.equal(x, y) for x, y in zip(m_k, m_p)):
-                raise AssertionError(f"greedy_merge kernel != plain at "
-                                     f"{row} S={s}: max abs err {err}")
-            if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"sharded scan != unsharded kernel at "
-                                     f"{row} S={s}")
+            merge_err = max(merge_err, check_merge(seq, args[10], n // s,
+                                                   got, want, f"{row} S={s}"))
             if mode == "infeasible" and (bool(got[1].any())
                                          or bool(got[0].any())):
                 raise AssertionError("an all-infeasible sharded scan must "
@@ -3739,7 +3876,45 @@ def phase_mesh_kernels(dev, rng):
             + json.dumps({s: round(t, 4) for s, t in times.items()})
             + " merge_kernel_ms="
             + json.dumps({s: round(t, 5) for s, t in merge_ms.items()}))
-    return {"wf_err": wf_err, "merge_err": merge_err}
+
+    for n, b, k, s in MESH_MERGE_WIDE:
+        window = greedy.merge_window(s, k)
+        if (window < k) != (s * k * 8 + k > MERGE_SMEM_BYTES):
+            raise AssertionError(f"the merge at S={s} k={k} staged "
+                                 f"{window} entries a shard")
+        args = greedy_case(rng, n, b, k, dev)
+        want = greedy.solve_greedy_batched_shared(*args)
+        shards = shard_greedy_args(args, s)
+        got = greedy.solve_greedy_sharded(shards, args[10], k, False, False)
+        seq = gathered_sequences(shards, args[10], k)
+        merge_err = max(merge_err, check_merge(seq, args[10], n // s, got,
+                                               want, f"wide S={s} k={k}"))
+        ms = graph_ms(lambda: greedy.merge_kernel_only(*seq, args[10],
+                                                       n // s), 20)
+        log(f"mesh greedy merge warp path N={n} B={b} k={k} S={s} "
+            f"window={window}: equal, merge_kernel_ms={ms:.5f}")
+    return {"wf_err": wf_err, "pass_err": pass_err, "merge_err": merge_err}
+
+
+def check_merge(seq, active, n_s: int, got, want, label: str) -> int:
+    """The merge kernel against its plain version on the gathered
+    sequences, and the sharded scan against the unsharded kernel; returns
+    the largest difference."""
+    import torch
+    from nomad_tpu_torch.ops import greedy
+
+    m_k = greedy.merge_greedy(*seq, active, n_s)
+    m_p = greedy.merge_greedy_plain(*seq, active, n_s)
+    torch.cuda.synchronize()
+    err = max(int((m_k[0] - m_p[0]).abs().max()),
+              int((m_k[1] != m_p[1]).sum()),
+              int((got[0] - want[0]).abs().max()))
+    if not all(torch.equal(x, y) for x, y in zip(m_k, m_p)):
+        raise AssertionError(f"greedy_merge kernel != plain at {label}: "
+                             f"max abs err {err}")
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"sharded scan != unsharded kernel at {label}")
+    return err
 
 
 def gathered_sequences(shards, active, k: int):
@@ -3760,7 +3935,7 @@ def gathered_sequences(shards, active, k: int):
 
 
 def mesh_kernel_numbers(dev):
-    """The kernels line's numbers for the two new kernels at the main
+    """The kernels line's numbers for the mesh's kernels at the main
     path's shapes: ms (CUDA graph of the kernel alone), plain ms and the
     bound."""
     import torch
@@ -3782,6 +3957,15 @@ def mesh_kernel_numbers(dev):
     wf_plain = host_ms(lambda: waterfill.solve_waterfill_sharded_plain(
         [shard], [small], N_TASKS, False, False, MeshReduce()), 1)
     wf_bound, wf_by = bound_ms(*waterfill_work(*shard, *small, False, False))
+    # The single launch: the whole headline eval, MESH_NODE_SHARDS shards.
+    whole = tuple(torch.tensor(np.asarray(a)[None], dtype=t, device=dev)
+                  for a, t in zip(rows[:8], dt))
+    shards, smalls = shard_wf_args((*whole, *small), MESH_NODE_SHARDS)
+    sv_ms = graph_ms(lambda: waterfill.shard_solve_only(
+        shards, small, False, False), 20)
+    sv_plain = host_ms(lambda: waterfill.solve_waterfill_sharded_plain(
+        shards, smalls, N_TASKS, False, False, MeshReduce()), 1)
+    sv_bound, sv_by = bound_ms(*waterfill_work(*whole, *small, False, False))
 
     rng = np.random.default_rng(SEED + 15)
     n, b, k, mode = MESH_MAIN_GREEDY_SHAPE
@@ -3799,13 +3983,19 @@ def mesh_kernel_numbers(dev):
     log(f"mesh kernels: waterfill_shard ms={wf_ms:.4f} "
         f"({waterfill.shard_rounds(N_TASKS) + 1} passes of one {n_s}-row "
         f"shard of the headline) plain_ms={wf_plain:.2f} "
-        f"bound_ms={wf_bound:.6f} ({wf_by}); greedy_merge ms={mg_ms:.5f} "
+        f"bound_ms={wf_bound:.6f} ({wf_by}); waterfill_shard_solve "
+        f"ms={sv_ms:.5f} (one launch, {MESH_NODE_SHARDS} shards of the "
+        f"headline's {MESH_MAIN_WF_ROWS} rows) plain_ms={sv_plain:.2f} "
+        f"bound_ms={sv_bound:.6f} ({sv_by}); greedy_merge ms={mg_ms:.5f} "
         f"(S={MESH_NODE_SHARDS} B={b} k={k}) plain_ms={mg_plain:.2f} "
         f"bound_ms={mg_bound:.6f} ({mg_by})")
-    return ({"ms": wf_ms, "plain_ms": wf_plain, "bound_ms": wf_bound,
-             "bound_by": wf_by},
-            {"ms": mg_ms, "plain_ms": mg_plain, "bound_ms": mg_bound,
-             "bound_by": mg_by})
+    return {"waterfill_shard": {"ms": wf_ms, "plain_ms": wf_plain,
+                                "bound_ms": wf_bound, "bound_by": wf_by},
+            "waterfill_shard_solve": {"ms": sv_ms, "plain_ms": sv_plain,
+                                      "bound_ms": sv_bound,
+                                      "bound_by": sv_by},
+            "greedy_merge": {"ms": mg_ms, "plain_ms": mg_plain,
+                             "bound_ms": mg_bound, "bound_by": mg_by}}
 
 
 def plan_node_counts(plan):
@@ -3884,9 +4074,10 @@ def mesh_system_eval(dev, job):
 def phase_mesh_scheduler(dev):
     """(b): the headline, the count-100 service job and config 4 through
     new_scheduler(..., device="cuda") on a 4-shard mesh of the one card,
-    against the same evals unsharded. Returns the new kernels' launches
-    (set to 0 just before the sharded evals, read just after) and the
-    earlier kernels' launches there."""
+    against the same evals unsharded. Returns the mesh kernels' launches
+    (set to 0 just before the sharded evals, read just after: the shard
+    kernel's, of them the single-launch route's, and the merge's) and
+    the earlier kernels' launches there."""
     from nomad_tpu_torch import structs
     from nomad_tpu_torch.ops import greedy, waterfill
     from nomad_tpu_torch.parallel import mesh as mesh_lib
@@ -3909,6 +4100,7 @@ def phase_mesh_scheduler(dev):
     try:
         h = build_cluster()  # a fresh store: its mirror is born sharded
         waterfill.SHARD_LAUNCHES = 0
+        waterfill.SHARD_SOLVE_LAUNCHES = 0
         greedy.MERGE_LAUNCHES = 0
         waterfill.LAUNCHES = 0
         greedy.LAUNCHES = 0
@@ -3930,13 +4122,14 @@ def phase_mesh_scheduler(dev):
                 sys_ms.append(ms)
         e2e["system"] = p50(sys_ms)
         launches = {"waterfill_shard": waterfill.SHARD_LAUNCHES,
+                    "waterfill_shard_solve": waterfill.SHARD_SOLVE_LAUNCHES,
                     "greedy_merge": greedy.MERGE_LAUNCHES,
                     "waterfill": waterfill.LAUNCHES,
                     "greedy": greedy.LAUNCHES}
     finally:
         mesh_lib.clear_node_sharding()
-    if not (launches["waterfill_shard"] and launches["greedy_merge"]
-            and launches["greedy"]):
+    if not (launches["waterfill_shard"] and launches["waterfill_shard_solve"]
+            and launches["greedy_merge"] and launches["greedy"]):
         raise AssertionError(f"the mesh path missed a kernel: {launches}")
     if launches["waterfill"]:
         raise AssertionError("the sharded headline launched the unsharded "
@@ -3998,11 +4191,16 @@ def phase_mesh_server(dev):
 
 def phase_mesh_dcn(dev):
     """(c): two ranks on the one card over gloo, per DCN_CASES; both
-    DCN_RESULTs ok and their counts equal the unsharded kernel's."""
+    DCN_RESULTs ok (each rank's pass kernel equal to the plain passes on
+    its own shard through the same DistReduce) and their counts equal the
+    unsharded kernel's. Returns (the ranks' launches of the shard kernel,
+    the per-pass route's, each rank's count starting at 0 in its own
+    process; the largest difference from the plain passes)."""
     import torch
     from nomad_tpu_torch.ops import waterfill
     from nomad_tpu_torch.parallel import dcn
 
+    launches, err = 0, 0
     for n_nodes, count in DCN_CASES:
         t0 = time.perf_counter()
         results, _outs = dcn.spawn_dcn_workers(
@@ -4013,14 +4211,21 @@ def phase_mesh_dcn(dev):
         want, rem = waterfill.solve_waterfill_batched(*case, False, False)
         digest = dcn.counts_digest(want[0].cpu().numpy())
         for r in results:
-            if not (r["ok"] and r["counts_sha256"] == digest
-                    and r["backend"] == "gloo" and int(rem[0]) == 0):
+            if not (r["ok"] and r["plain_equal"]
+                    and r["counts_sha256"] == digest
+                    and r["backend"] == "gloo" and int(rem[0]) == 0
+                    and r["shard_launches"] > 0):
                 raise AssertionError(f"dcn rank result {r} != the "
                                      "unsharded kernel's")
+            launches += r["shard_launches"]
+            err = max(err, r["plain_max_abs_err"])
         log(f"mesh dcn: 2 ranks on {results[0]['device']} over gloo, "
-            f"{n_nodes} nodes x {count} tasks: both ok, counts equal the "
+            f"{n_nodes} nodes x {count} tasks: both ok, each rank's pass "
+            "kernel equal to the plain passes on its shard, counts equal the "
             f"unsharded kernel's, nodes_used={results[0]['nodes_used']}, "
+            f"shard_launches={[r['shard_launches'] for r in results]}, "
             f"{wall:.1f} s with the workers' start")
+    return launches, err
 
 
 def phase_mesh(dev, rng):
@@ -4033,7 +4238,11 @@ def phase_mesh(dev, rng):
     t2 = time.perf_counter()
     launches["greedy"] += phase_mesh_server(dev)
     t3 = time.perf_counter()
-    phase_mesh_dcn(dev)
+    dcn_launches, dcn_err = phase_mesh_dcn(dev)
+    launches["waterfill_shard_pass"] = (
+        launches["waterfill_shard"] - launches["waterfill_shard_solve"]
+        + dcn_launches)
+    res["pass_err"] = max(res["pass_err"], dcn_err)
     log(f"mesh: phase {time.perf_counter() - t0:.1f} s (kernels "
         f"{t1 - t0:.1f}, scheduler {t2 - t1:.1f}, server {t3 - t2:.1f}, "
         f"dcn {time.perf_counter() - t3:.1f})")
@@ -4145,7 +4354,7 @@ def main() -> int:
     gr_launches += gr
 
     # 15. the solver mesh: node shards on the one card, and DCN
-    mres, (wf_shard, gr_merge), mlaunch = phase_mesh(dev, rng)
+    mres, mnum, mlaunch = phase_mesh(dev, rng)
     wf_launches += mlaunch["waterfill"]
     gr_launches += mlaunch["greedy"]
 
@@ -4168,20 +4377,20 @@ def main() -> int:
          "profiler_ms": gr["profiler_ms"], "plain_ms": gr["plain_ms"],
          "bound_ms": gr["bound_ms"], "bound_by": gr["bound_by"],
          "library_ms": None},
-        {"name": "waterfill_shard", "route": "cuda",
-         "source": "nomad_tpu_torch/csrc/waterfill_shard.cu",
-         "replaces": "nomad_tpu/ops/binpack.py:269",
-         "launches": mlaunch["waterfill_shard"],
-         "max_abs_err": mres["wf_err"], "ms": wf_shard["ms"],
-         "plain_ms": wf_shard["plain_ms"], "bound_ms": wf_shard["bound_ms"],
-         "bound_by": wf_shard["bound_by"], "library_ms": None},
-        {"name": "greedy_merge", "route": "cuda",
-         "source": "nomad_tpu_torch/csrc/greedy.cu",
-         "replaces": "nomad_tpu/ops/binpack.py:115",
-         "launches": mlaunch["greedy_merge"],
-         "max_abs_err": mres["merge_err"], "ms": gr_merge["ms"],
-         "plain_ms": gr_merge["plain_ms"], "bound_ms": gr_merge["bound_ms"],
-         "bound_by": gr_merge["bound_by"], "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": mlaunch[count],
+         "max_abs_err": mres[err], **mnum[name], "library_ms": None}
+        for name, source, replaces, count, err in (
+            ("waterfill_shard", "nomad_tpu_torch/csrc/waterfill_shard.cu",
+             "nomad_tpu/ops/binpack.py:269", "waterfill_shard_pass",
+             "pass_err"),
+            ("waterfill_shard_solve",
+             "nomad_tpu_torch/csrc/waterfill_shard.cu",
+             "nomad_tpu/ops/binpack.py:269", "waterfill_shard_solve",
+             "wf_err"),
+            ("greedy_merge", "nomad_tpu_torch/csrc/greedy.cu",
+             "nomad_tpu/ops/binpack.py:115", "greedy_merge", "merge_err"))
     ]}
     log(f"card: {card}")
     log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_main:.1f} s")

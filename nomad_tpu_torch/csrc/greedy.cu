@@ -49,11 +49,18 @@
 //
 // Arithmetic follows ops/waterfill.cu: IEEE float32, accurate powf, _rn
 // intrinsics so nothing is contracted into an FMA.
+//
+// The file also holds the merge of node-shard scans (merge_kernel, below),
+// with its own notes.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "device_once.cuh"
 
 namespace {
 
@@ -270,59 +277,283 @@ greedy_kernel(const int4* __restrict__ total, const float2* __restrict__ sched_c
   }
 }
 
-// The merge of node-shard scans (ops/greedy.py solve_greedy_sharded).
+// -- the merge of node-shard scans (ops/greedy.py solve_greedy_sharded) --
+//
 // A node's score depends on its own state alone, so the global scan,
 // restricted to one shard's rows, picks them in the order the shard's own
 // k-step scan does. Each shard scans its rows for all k steps (the kernel
 // above, on the shard's rows alone); this kernel interleaves the S
 // sequences back into the global one: at each step the shard whose next
 // pick has the highest score key, ties to the lower shard (shards are
-// contiguous, so that is the lowest global index, jnp.argmax's rule);
-// an active step that places advances that shard's head. When every head
-// is -inf the step gives index 0, score -inf and ok false, as the
-// unsharded scan does. One warp an eval (lane l holds shards l, l + 32,
-// ...), k dependent steps of one S-way argmax each: it reads
-// S x B x k x 8 bytes at most, a few microseconds of work on one SM.
-constexpr int kMaxShards = 512;  // ops/greedy.py MAX_SHARDS
+// contiguous, so that is the lowest global index, jnp.argmax's rule); an
+// active step that places advances that shard's head. When every head is
+// -inf the step gives index 0, score -inf and ok false, as the unsharded
+// scan does.
+//
+// What bounds it on the H100: the chain of k dependent steps, not bytes
+// (S x k x 8 bytes an eval, 4 KB at S = 4, k = 128). So nothing of a step
+// waits on memory beyond the SM:
+//
+// 1. Before the first step, every thread of the block stages the eval's
+//    [S, k] scores and indices into shared memory with cp.async (16-byte
+//    copies where k allows, else 4-byte), and the active row beside them.
+// 2. Warp 0 runs the steps. Lane l owns shards l, l + 32, ...: their
+//    heads (score, index, key) and the entries after them live in
+//    registers (kSpl a lane, the power of two from 1 that covers S / 32),
+//    with the lane's best (key, shard). A step is the warp argmax (one
+//    redux.sync and a ballot where a lane holds one shard, else
+//    warp_best's two redux.sync), the winning lane's outputs from its
+//    registers, its next entry moved up and a register compare over its
+//    kSpl keys. The one shared-memory read of a step, the entry after the
+//    new head, lands while the next step's argmax runs.
+// 3. Where S x k x 8 bytes does not fit the block's shared memory (S k
+//    above about 29,000), a window of each shard's entries is staged
+//    instead (merge_window, from the shape) and refilled by the warp, one
+//    coalesced read, when the entry a shard needs next crosses it.
+constexpr int kMaxShards = 512;         // ops/greedy.py MAX_SHARDS
+constexpr int kMergeThreads = 256;      // stagers; then warp 0
+constexpr int kMergeSmem = 227 * 1024;  // a block's shared memory on H100
 
-__global__ void __launch_bounds__(32)
+// Entries of each shard staged at a time: all k where they fit, else the
+// largest power of two from 32 below k that fits; 0 where none does.
+int merge_window(int n_shards, int k) {
+  const size_t act = (size_t)k;  // the active row
+  if ((size_t)n_shards * k * 8 + act <= (size_t)kMergeSmem) return k;
+  int w = 32;
+  while (2 * w < k && (size_t)n_shards * 2 * w * 8 + act <= (size_t)kMergeSmem)
+    w *= 2;
+  return (size_t)n_shards * w * 8 + act <= (size_t)kMergeSmem ? w : 0;
+}
+
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// The merge's shared memory: [S][window] scores, [S][window] indices, [k]
+// active flags.
+struct MergeSmem {
+  float* score;
+  int* idx;
+  unsigned char* act;
+};
+
+// Every thread of the block: stage each shard's first `window` entries of
+// eval blockIdx.x and its active row; returns when they have all landed.
+__device__ __forceinline__ MergeSmem stage(
+    unsigned char* smem, const int* __restrict__ idx,
+    const float* __restrict__ score, const unsigned char* __restrict__ active,
+    int n_shards, int batch, int k, int window, int vec16) {
+  const MergeSmem m = {
+      reinterpret_cast<float*>(smem),
+      reinterpret_cast<int*>(smem + (size_t)n_shards * window * 4),
+      smem + (size_t)n_shards * window * 8};
+  const int b = blockIdx.x;
+  const int per_copy = vec16 ? 4 : 1;
+  const int row_copies = window / per_copy;
+  for (int c = threadIdx.x; c < n_shards * row_copies; c += kMergeThreads) {
+    const int s = c / row_copies;
+    const int e = (c - s * row_copies) * per_copy;
+    const size_t src = ((size_t)s * batch + b) * k + e;
+    const int dst = s * window + e;
+    if (vec16) {
+      copy_async16(&m.score[dst], &score[src]);
+      copy_async16(&m.idx[dst], &idx[src]);
+    } else {
+      copy_async4(&m.score[dst], &score[src]);
+      copy_async4(&m.idx[dst], &idx[src]);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int t = threadIdx.x; t < k; t += kMergeThreads)
+    m.act[t] = active[(size_t)b * k + t];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  return m;
+}
+
+// The lane's best (key, shard) over its kSpl heads: its shards rise, so a
+// strict > keeps the lowest shard on ties; no shard holds key 0.
+template <int kSpl>
+__device__ __forceinline__ void lane_best(const unsigned (&key)[kSpl],
+                                          int lane, unsigned& bk, int& bs) {
+  bk = 0;
+  bs = INT_MAX;
+#pragma unroll
+  for (int j = 0; j < kSpl; ++j) {
+    if (key[j] > bk) {
+      bk = key[j];
+      bs = lane + 32 * j;
+    }
+  }
+}
+
+// One block an eval, any S: warp 0 runs the steps. Each of a lane's
+// shards keeps its head (score, index, key) and the entry after it in
+// registers, so a step reads nothing on its chain: the warp argmax, the
+// outputs and, where it places, the winner's next entry moved up from a
+// register; the entry after that is read from shared memory after the
+// step, while the next step's argmax runs.
+template <int kSpl, bool kWindowed>
+__global__ void __launch_bounds__(kMergeThreads, 1)
 merge_kernel(const int* __restrict__ idx, const float* __restrict__ score,
              const unsigned char* __restrict__ active,
              int* __restrict__ idx_out, unsigned char* __restrict__ ok_out,
              float* __restrict__ score_out, int n_shards, int batch, int k,
-             int n_s) {
-  __shared__ int head[kMaxShards];
+             int n_s, int window, int vec16) {
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  const MergeSmem m = stage(merge_smem, idx, score, active, n_shards, batch,
+                            k, window, vec16);
+  if (threadIdx.x >= 32) return;
+  float* s_score = m.score;
+  int* s_idx = m.idx;
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
-  for (int s = lane; s < n_shards; s += 32) head[s] = 0;
-  __syncwarp();
+
+  unsigned key[kSpl];
+  float cur_s[kSpl], nxt_s[kSpl];
+  int cur_i[kSpl], nxt_i[kSpl], head[kSpl];
+#pragma unroll
+  for (int j = 0; j < kSpl; ++j) {
+    const int s = lane + 32 * j;
+    const bool live = s < n_shards;
+    head[j] = 0;
+    cur_s[j] = live ? s_score[s * window] : 0.0f;
+    cur_i[j] = live ? s_idx[s * window] : 0;
+    key[j] = live ? score_key(cur_s[j]) : 0u;
+    nxt_s[j] = live && k > 1 ? s_score[s * window + 1] : 0.0f;
+    nxt_i[j] = live && k > 1 ? s_idx[s * window + 1] : 0;
+  }
+  unsigned lk;
+  int ls;
+  lane_best(key, lane, lk, ls);
+  const unsigned dead = score_key(-INFINITY);
   for (int step = 0; step < k; ++step) {
-    unsigned bk = 0;
-    int bs = INT_MAX;
-    for (int s = lane; s < n_shards; s += 32) {
-      const unsigned key =
-          score_key(score[((size_t)s * batch + b) * k + head[s]]);
-      if (key > bk) {  // a lane's shards rise: > keeps the lowest on ties
-        bk = key;
-        bs = s;
+    const bool ok = m.act[step] != 0;  // warp-uniform, off the chain
+    unsigned best_key;
+    int best_s;
+    if (kSpl == 1) {
+      // Lane l holds shard l alone: the lowest lane holding the best key
+      // is the lowest shard.
+      best_key = __reduce_max_sync(kFull, lk);
+      best_s = __ffs(__ballot_sync(kFull, lk == best_key)) - 1;
+    } else {
+      best_s = warp_best(lk, ls, best_key);
+    }
+    const size_t o = (size_t)b * k + step;
+    if (best_key <= dead) {  // every head is -inf (warp-uniform)
+      if (lane == 0) {
+        idx_out[o] = 0;
+        ok_out[o] = 0;
+        score_out[o] = -INFINITY;
+      }
+      continue;
+    }
+    const int owner = best_s & 31;
+    const int js = best_s >> 5;
+    int h = 0;  // the winner's new head, on its lane
+    if (lane == owner) {
+      float bsc = 0.0f;
+      int bix = 0;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j) {
+        if (j == js) {
+          bsc = cur_s[j];
+          bix = cur_i[j];
+          h = head[j] + 1;
+        }
+      }
+      idx_out[o] = best_s * n_s + bix;
+      ok_out[o] = ok ? 1 : 0;
+      score_out[o] = bsc;
+      if (ok) {
+#pragma unroll
+        for (int j = 0; j < kSpl; ++j) {
+          if (j == js) {
+            head[j] = h;
+            cur_s[j] = nxt_s[j];
+            cur_i[j] = nxt_i[j];
+            key[j] = h < k ? score_key(nxt_s[j]) : 0u;
+          }
+        }
+        lane_best(key, lane, lk, ls);
       }
     }
-    unsigned best_key;
-    const int best_s = warp_best(bk, bs, best_key);
-    const size_t at = ((size_t)best_s * batch + b) * k + head[best_s];
-    const float best_score = score[at];
-    const bool live = best_score > -INFINITY;
-    const bool ok = live && active[(size_t)b * k + step] != 0;
-    if (lane == 0) {
-      const size_t o = (size_t)b * k + step;
-      idx_out[o] = live ? best_s * n_s + idx[at] : 0;
-      ok_out[o] = ok ? 1 : 0;
-      score_out[o] = live ? best_score : -INFINITY;
+    if (!ok) continue;
+    // The entry after the new head, into the winner's next registers.
+    if (kWindowed) {
+      h = __shfl_sync(kFull, h, owner);
+      if (h + 1 < k && (h + 1) % window == 0) {
+        // The shard's window is spent: the warp reads its next one.
+        __syncwarp();  // the owner's reads of the old one come first
+        const size_t row = ((size_t)best_s * batch + b) * k + h + 1;
+        for (int e = lane; e < window && h + 1 + e < k; e += 32) {
+          s_score[best_s * window + e] = score[row + e];
+          s_idx[best_s * window + e] = idx[row + e];
+        }
+        __syncwarp();
+      }
     }
-    __syncwarp();  // every lane has read the heads
-    if (ok && lane == (best_s & 31)) head[best_s] += 1;
-    __syncwarp();
+    if (lane == owner) {
+      const bool more = h + 1 < k;
+      const int at = best_s * window + (kWindowed ? (h + 1) % window : h + 1);
+      const float ns = more ? s_score[at] : 0.0f;
+      const int ni = more ? s_idx[at] : 0;
+#pragma unroll
+      for (int j = 0; j < kSpl; ++j) {
+        if (j == js) {
+          nxt_s[j] = ns;
+          nxt_i[j] = ni;
+        }
+      }
+    }
   }
+}
+
+template <int kSpl, bool kWindowed>
+cudaError_t launch_merge(const void* idx, const void* score,
+                         const void* active, void* idx_out, void* ok_out,
+                         void* score_out, int n_shards, int batch, int k,
+                         int n_s, int window, int vec16, size_t smem,
+                         cudaStream_t stream) {
+  static std::atomic<int> attr[kMaxDevices];  // this instantiation's
+  const cudaError_t err =
+      smem_opt_in(attr, merge_kernel<kSpl, kWindowed>, kMergeSmem);
+  if (err != cudaSuccess) return err;
+  merge_kernel<kSpl, kWindowed><<<batch, kMergeThreads, smem, stream>>>(
+      (const int*)idx, (const float*)score, (const unsigned char*)active,
+      (int*)idx_out, (unsigned char*)ok_out, (float*)score_out, n_shards,
+      batch, k, n_s, window, vec16);
+  return cudaGetLastError();
+}
+
+template <bool kWindowed>
+cudaError_t launch_merge_spl(int spl, const void* idx, const void* score,
+                             const void* active, void* idx_out, void* ok_out,
+                             void* score_out, int n_shards, int batch, int k,
+                             int n_s, int window, int vec16, size_t smem,
+                             cudaStream_t stream) {
+#define NOMAD_MERGE(S)                                                     \
+  launch_merge<S, kWindowed>(idx, score, active, idx_out, ok_out,          \
+                             score_out, n_shards, batch, k, n_s, window,   \
+                             vec16, smem, stream)
+  switch (spl) {
+    case 1: return NOMAD_MERGE(1);
+    case 2: return NOMAD_MERGE(2);
+    case 4: return NOMAD_MERGE(4);
+    case 8: return NOMAD_MERGE(8);
+    default: return NOMAD_MERGE(16);
+  }
+#undef NOMAD_MERGE
 }
 
 }  // namespace
@@ -338,11 +569,11 @@ extern "C" int nomad_greedy(
   const cudaStream_t s = (cudaStream_t)stream;
   if (n <= kSmemCacheRows) {
     // Above 48 KB a block's dynamic shared memory must be asked for, once
-    // per process (thread-safe static initialisation; one card a process).
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        greedy_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemCacheRows * (int)sizeof(float));
-    if (attr != cudaSuccess) return (int)attr;
+    // per device.
+    static std::atomic<int> attr[kMaxDevices];
+    const cudaError_t err = smem_opt_in(attr, greedy_kernel<true>,
+                                        kSmemCacheRows * (int)sizeof(float));
+    if (err != cudaSuccess) return (int)err;
     greedy_kernel<true><<<batch, kThreads, (size_t)n * sizeof(float), s>>>(
         (const int4*)total, (const float2*)sched_cap, (const int*)bw_avail,
         (const int4*)used0, (const int*)job_count0, (const int*)tg_count0,
@@ -365,6 +596,11 @@ extern "C" int nomad_greedy(
   return (int)cudaGetLastError();
 }
 
+// Entries of each shard the merge stages at a time (k: all of them).
+extern "C" int nomad_greedy_merge_window(int n_shards, int k) {
+  return merge_window(n_shards, k);
+}
+
 // idx and score: [S, B, k] shard-local picks of S scans of n_s rows each;
 // active [B, k]; outputs [B, k].
 extern "C" int nomad_greedy_merge(const void* idx, const void* score,
@@ -375,9 +611,21 @@ extern "C" int nomad_greedy_merge(const void* idx, const void* score,
   if (n_shards < 1 || n_shards > kMaxShards || batch <= 0 || k <= 0 ||
       n_s <= 0)
     return (int)cudaErrorInvalidValue;
-  merge_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(
-      (const int*)idx, (const float*)score, (const unsigned char*)active,
-      (int*)idx_out, (unsigned char*)ok_out, (float*)score_out, n_shards,
-      batch, k, n_s);
-  return (int)cudaGetLastError();
+  const int window = merge_window(n_shards, k);
+  if (window == 0) return (int)cudaErrorInvalidValue;
+  const int vec16 = window % 4 == 0 && k % 4 == 0 &&
+                    (uintptr_t)idx % 16 == 0 && (uintptr_t)score % 16 == 0;
+  const size_t smem = (size_t)n_shards * window * 8 + (size_t)k;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int spl = 1;  // shards a lane, a power of two
+  while (32 * spl < n_shards) spl *= 2;
+  const cudaError_t err =
+      window < k
+          ? launch_merge_spl<true>(spl, idx, score, active, idx_out, ok_out,
+                                   score_out, n_shards, batch, k, n_s,
+                                   window, vec16, smem, s)
+          : launch_merge_spl<false>(spl, idx, score, active, idx_out, ok_out,
+                                    score_out, n_shards, batch, k, n_s,
+                                    window, vec16, smem, s);
+  return (int)err;
 }

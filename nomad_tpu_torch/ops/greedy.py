@@ -193,12 +193,22 @@ def kernel_only(*inputs):
 # one merge (csrc/greedy.cu merge_kernel, a small kernel rather than a
 # host loop: the gathered sequences already sit on the card, and a host
 # loop would copy them down and walk S x B x k heads in Python) picks the
-# global order. One gather a solve in place of one collective a step.
+# global order. One gather a solve in place of one collective a step. The
+# merge stages each eval's sequences in shared memory (a window of each
+# shard's where they do not all fit) and runs its steps from registers.
 
 # Launches of the merge kernel (the plain merge never counts).
 MERGE_LAUNCHES = 0
 
 MAX_SHARDS = 512  # kMaxShards in csrc/greedy.cu
+
+
+def merge_window(n_shards: int, k: int) -> int:
+    """Entries of each shard's sequence the merge kernel stages at a time:
+    k where every shard's fit the block's shared memory, else a window
+    (csrc/greedy.cu merge_window decides)."""
+    return kernels.entry("greedy", "nomad_greedy_merge_window", 0, 2,
+                         stream=False)(n_shards, k)
 
 
 def solve_greedy_sharded(shards, active, k: int, job_distinct: bool,

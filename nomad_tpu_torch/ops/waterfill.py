@@ -12,7 +12,8 @@ raises to the caller.
 
 from __future__ import annotations
 
-from typing import Tuple
+import array
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -251,24 +252,45 @@ def kernel_only(*inputs):
 # -- the node-sharded water-fill --------------------------------------------
 #
 # The counterpart of nomad_tpu's solve_waterfill under node-axis shardings
-# (XLA SPMD over a mesh). One code path drives the rounds for every shard
-# (solve_waterfill_sharded); each pass of a shard is the CUDA kernel
-# csrc/waterfill_shard.cu for CUDA tensors and its plain version
-# (_PlainShard) for CPU tensors; between passes the caller's ``reduce``
-# sums or maxes the shards' partials (parallel/mesh.py MeshReduce,
-# parallel/dcn.py DistReduce). The rounds are the unsharded kernel's sync
-# points: 1 (max cap) + the level passes + 4 (threshold) + 1 (boundary
-# prefix); see csrc/waterfill_shard.cu.
+# (XLA SPMD over a mesh). ``shard_route`` decides, from the shards' devices
+# and rows and before any launch, how a solve runs (csrc/waterfill_shard.cu
+# has the design):
+#
+# - every shard of the solve on one device, at most MAX_CLUSTER blocks an
+#   eval: the whole solve in one launch (route 1, one cluster an eval);
+# - else the per-pass protocol (route 2): the shards grouped by device (up
+#   to GROUP_SHARDS consecutive shards a group), one launch a pass for each
+#   group, which combines its shards' partials on its device, and between
+#   passes the caller's ``reduce`` sums or maxes the groups' rows
+#   (parallel/mesh.py MeshReduce, parallel/dcn.py DistReduce). The rounds
+#   are the unsharded kernel's sync points: 1 (max cap) + the level passes
+#   + 4 (threshold) + 1 (boundary prefix).
+#
+# CUDA shards launch the kernels; CPU shards take the plain passes
+# (_PlainShard) over the same routes and groups.
 
-# Launches of the shard kernel, one a pass of a shard (the plain passes
-# never count).
+# Launches of csrc/waterfill_shard.cu, both routes (the plain passes never
+# count), and of them the single-launch route's.
 SHARD_LAUNCHES = 0
+SHARD_SOLVE_LAUNCHES = 0
 
 PART_WIDTH = 512  # int64 columns of a partial: 256 bin counts, 256 sums
 N_STATE = 16      # int64 slots of an eval's decision state
+GROUP_SHARDS = 16  # most shards one launch binds (kGroupShards)
+MAX_CLUSTER = 8    # the portable cluster limit (waterfill_cluster.cuh)
+SMEM_ROWS = 16384  # rows a block keeps in shared memory (kSmemRows)
 _PHASES = {"caps": 0, "level_first": 1, "level": 2, "keys": 3, "radix": 4,
            "boundary": 5, "counts": 6}
 _RADIX_SHIFTS = (16, 8, 0)
+# The word table of a binding (csrc/waterfill_shard.cu enum Word): 9
+# pointers a shard for GROUP_SHARDS shards, then these.
+_SHARD_PTRS = 9
+_WORDS = ("ask", "bw_ask", "count", "penalty", "cap", "key", "state",
+          "parts", "block_hist", "remaining", "stream", "batch", "rows",
+          "group", "column", "n_shards", "job_distinct", "tg_distinct",
+          "device")
+_WORD = {name: GROUP_SHARDS * _SHARD_PTRS + i for i, name in enumerate(_WORDS)}
+N_WORDS = GROUP_SHARDS * _SHARD_PTRS + len(_WORDS)
 
 
 def level_shifts(max_count: int) -> list:
@@ -290,8 +312,46 @@ def _passes(max_count: int) -> list:
 
 
 def shard_rounds(max_count: int) -> int:
-    """Combines between the passes of one sharded solve."""
+    """Combines between the passes of one sharded solve (route 2)."""
     return len(_passes(max_count)) - 1
+
+
+def shard_blocks(n_s: int) -> int:
+    """Blocks a shard of ``n_s`` rows is spread over: the next power of two
+    of n_s / SMEM_ROWS, at least 1, at most MAX_CLUSTER (waterfill.cu's
+    rule, cluster_size in csrc/waterfill_cluster.cuh)."""
+    ncl = 1
+    while ncl < MAX_CLUSTER and ncl * SMEM_ROWS < n_s:
+        ncl *= 2
+    return ncl
+
+
+class ShardRoute(NamedTuple):
+    """How a sharded solve runs: ``single`` (route 1: the whole solve in one
+    launch) or not (route 2: the passes); ``groups``: (start, stop) of each
+    group of consecutive shards on one device, one launch a pass each."""
+
+    single: bool
+    groups: List[Tuple[int, int]]
+
+
+def shard_route(devices, n_s: int, whole: bool = True) -> ShardRoute:
+    """The route of a solve over shards of ``n_s`` rows on ``devices`` (one
+    a shard, in node order). ``whole``: these are every shard of the solve
+    (false for one process's part of a DCN solve). One launch where every
+    shard is on one device and the solve needs at most MAX_CLUSTER blocks
+    an eval; else groups of consecutive shards on one device, at most
+    GROUP_SHARDS each."""
+    devices = [torch.device(d) for d in devices]
+    groups, start = [], 0
+    for i in range(1, len(devices) + 1):
+        if (i == len(devices) or devices[i] != devices[start]
+                or i - start == GROUP_SHARDS):
+            groups.append((start, i))
+            start = i
+    single = (whole and len(groups) == 1
+              and len(devices) * shard_blocks(n_s) <= MAX_CLUSTER)
+    return ShardRoute(single, groups)
 
 
 def solve_waterfill_sharded(shards, small, max_count: int,
@@ -302,13 +362,14 @@ def solve_waterfill_sharded(shards, small, max_count: int,
     tg_count0, bw_avail, bw_used0, eligible; each ``[B, n_s, ...]`` on the
     shard's device; every shard holds n_s rows, shard i the global rows
     from ``(first_index + i) * n_s``); ``small[i]``: (ask [B, 4], bw_ask
-    [B], count [B] int32, penalty [B] float32) on the same device;
-    ``max_count``: the largest count of the batch; ``reduce(parts, op)``:
-    the seam, "sum" or "max" over every shard's partial in the solve
-    (``n_shards`` of them, default ``len(shards)``). Returns (counts per
-    shard, [B, n_s] int32 each, remaining [B] int32 on the first shard's
-    device). CUDA shards launch the shard kernel; CPU shards take the plain
-    passes."""
+    [B], count [B] int32, penalty [B] float32) on the same device, equal on
+    every shard; ``max_count``: the largest count of the batch; ``reduce(
+    parts, op)``: the seam, "sum" or "max" over every device group's
+    partial in the solve (``n_shards`` shards in all, default
+    ``len(shards)``). Returns (counts per shard, [B, n_s] int32 each,
+    remaining [B] int32 on the first shard's device). The route follows
+    from the devices and shapes (shard_route); CUDA shards launch the
+    shard kernels, CPU shards take the plain passes."""
     return _solve_sharded(shards, small, max_count, job_distinct,
                           tg_distinct, reduce, first_index, n_shards, False)
 
@@ -317,118 +378,236 @@ def solve_waterfill_sharded_plain(shards, small, max_count: int,
                                   job_distinct: bool, tg_distinct: bool,
                                   reduce, first_index: int = 0,
                                   n_shards=None):
-    """Plain version of solve_waterfill_sharded: the same rounds and seam,
-    every pass plain PyTorch on whatever device the shards are."""
+    """Plain version of solve_waterfill_sharded: the same routes, groups
+    and seam, every pass plain PyTorch on whatever device the shards
+    are."""
     return _solve_sharded(shards, small, max_count, job_distinct,
                           tg_distinct, reduce, first_index, n_shards, True)
+
+
+def _local(parts, _op):
+    """The seam of a solve that is one group: its partial is the
+    combine."""
+    return parts
 
 
 def _solve_sharded(shards, small, max_count, job_distinct, tg_distinct,
                    reduce, first_index, n_shards, plain):
     n_shards = len(shards) if n_shards is None else n_shards
-    passes = [
-        (_PlainShard if plain or s[0].device.type != "cuda"
-         else _KernelShard)(
-            s, sm, first_index + i, n_shards, job_distinct, tg_distinct)
-        for i, (s, sm) in enumerate(zip(shards, small))
+    route = shard_route([s[0].device for s in shards], shards[0][0].shape[1],
+                        whole=first_index == 0 and n_shards == len(shards))
+    kernel = not plain and shards[0][0].device.type == "cuda"
+    if route.single and kernel:
+        return _KernelSolve(shards, small[0], job_distinct,
+                            tg_distinct).run()
+    groups = [
+        (_KernelGroup if kernel else _PlainShard)(
+            shards[lo:hi], small[lo], first_index + lo, n_shards,
+            job_distinct, tg_distinct)
+        for lo, hi in route.groups
     ]
-    comb = [None] * len(passes)
+    seam = _local if route.single else reduce
+    comb = [None] * len(groups)
     for phase, shift, op in _passes(max_count):
-        parts = [p.run(phase, c, shift) for p, c in zip(passes, comb)]
+        parts = [g.run(phase, c, shift) for g, c in zip(groups, comb)]
         if op is not None:
-            comb = reduce(parts, op)
-    return [p.counts for p in passes], passes[0].remaining
+            comb = seam(parts, op)
+    return [c for g in groups for c in g.counts], groups[0].remaining
 
 
-class _KernelShard:
-    """One shard's passes as launches of csrc/waterfill_shard.cu, with its
-    scratch (caps, keys, state, two partial buffers used in turn so a
-    pass never writes the row its combine was read from)."""
+_NODE_INPUTS = ("total", "sched_cap", "used0", "job_count0", "tg_count0",
+                "bw_avail", "bw_used0", "eligible")
 
-    def __init__(self, inputs8, small4, index, n_shards, jd, td,
-                 counted=True):
-        check_inputs(*inputs8, *small4)
-        self.counted = counted
-        total = inputs8[0]
-        b, n, _ = total.shape
-        dev = total.device
-        self.fn = kernels.entry("waterfill_shard", "nomad_waterfill_shard",
-                                20, 8)
-        self.dev = dev
-        self.b, self.n = b, n
-        self.index, self.n_shards = index, n_shards
-        self.flags = (int(bool(jd)), int(bool(td)))
-        total, sched_cap, used0, jc, tc, bwa, bwu, elig = inputs8
-        self.inputs = (total, used0, sched_cap, jc, tc, bwa, bwu, elig,
-                       *small4)
+
+def _check_shards(shards, small4):
+    """The first shard's inputs and the small ones as check_inputs takes
+    them; every other shard's like the first's (dtype, shape, device,
+    contiguous)."""
+    check_inputs(*shards[0], *small4)
+    for q, inputs8 in enumerate(shards[1:], 1):
+        for name, t, ref in zip(_NODE_INPUTS, inputs8, shards[0]):
+            if not (t.dtype == ref.dtype and t.shape == ref.shape
+                    and t.device == ref.device and t.is_contiguous()):
+                raise ValueError(
+                    f"shard {q}'s {name} is a {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device} (contiguous: {t.is_contiguous()}); every "
+                    f"shard's must be shard 0's {ref.dtype} "
+                    f"{tuple(ref.shape)} on {ref.device}, contiguous")
+
+
+def _check_word_table():
+    """csrc/waterfill_shard.cu reads as many words as this module
+    writes."""
+    got = kernels.entry("waterfill_shard", "nomad_waterfill_shard_words",
+                        0, 0, stream=False)()
+    if got != N_WORDS:
+        raise RuntimeError(f"csrc/waterfill_shard.cu reads {got} words of a "
+                           f"binding, ops/waterfill.py writes {N_WORDS}")
+
+
+class _Binding:
+    """The shards of one device bound once a solve for
+    csrc/waterfill_shard.cu: inputs checked, outputs and scratch
+    allocated, and every pointer in one int64 word table, so a launch is
+    one ctypes call of integers."""
+
+    def __init__(self, shards, small4, column, n_shards, jd, td, scratch,
+                 pass_buffers):
+        if len(shards) > GROUP_SHARDS:
+            raise ValueError(f"{len(shards)} shards: one launch binds at "
+                             f"most {GROUP_SHARDS}")
+        _check_shards(shards, small4)
+        b, n_s, _ = shards[0][0].shape
+        dev = shards[0][0].device
+        s = len(shards)
         i32, i64 = torch.int32, torch.int64
-        self.cap = torch.empty((b, n), dtype=i32, device=dev)
-        self.key = torch.empty((b, n), dtype=i32, device=dev)
-        self.state = torch.empty((b, N_STATE), dtype=i64, device=dev)
-        self.parts = [torch.empty((b, PART_WIDTH), dtype=i64, device=dev)
-                      for _ in range(2)]
-        self.turn = 0
-        self.counts = torch.empty((b, n), dtype=i32, device=dev)
+        # One [S, B, n_s] tensor: counts[q] is shard q's, contiguous.
+        self.counts = list(torch.empty((s, b, n_s), dtype=i32,
+                                       device=dev).unbind(0))
         self.remaining = torch.empty((b,), dtype=i32, device=dev)
+        self.cap = (torch.empty((b, s, n_s), dtype=i32, device=dev)
+                    if scratch else None)
+        self.key = (torch.empty((b, s, n_s), dtype=i32, device=dev)
+                    if scratch else None)
+        self.state = self.parts = self.block_hist = None
+        if pass_buffers:
+            g = s * shard_blocks(n_s)
+            self.state = torch.empty((2, b, N_STATE), dtype=i64, device=dev)
+            self.parts = torch.zeros((3, b, PART_WIDTH), dtype=i64,
+                                     device=dev)
+            self.block_hist = torch.empty((b, g, 256), dtype=i32, device=dev)
+        words = [0] * N_WORDS
+        for q, inputs8 in enumerate(shards):
+            total, sched_cap, used0, jc, tc, bwa, bwu, elig = inputs8
+            ptrs = [t.data_ptr() for t in (total, used0, sched_cap, jc, tc,
+                                           bwa, bwu, elig, self.counts[q])]
+            if ptrs[0] % 16 or ptrs[1] % 16 or ptrs[2] % 8:
+                raise ValueError(f"shard {q}'s total and used0 must be "
+                                 "16-byte aligned, sched_cap 8-byte")
+            words[_SHARD_PTRS * q:_SHARD_PTRS * (q + 1)] = ptrs
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        values = dict(zip(("ask", "bw_ask", "count", "penalty"),
+                          map(ptr, small4)))
+        values.update(
+            cap=ptr(self.cap), key=ptr(self.key), state=ptr(self.state),
+            parts=ptr(self.parts), block_hist=ptr(self.block_hist),
+            remaining=ptr(self.remaining),
+            stream=torch.cuda.current_stream(dev).cuda_stream, batch=b,
+            rows=n_s, group=s, column=column, n_shards=n_shards,
+            job_distinct=int(bool(jd)), tg_distinct=int(bool(td)),
+            device=dev.index if dev.index is not None
+            else torch.cuda.current_device())
+        for name, v in values.items():
+            words[_WORD[name]] = v
+        _check_word_table()
+        self.words = array.array("q", words)
+        self.addr = self.words.buffer_info()[0]
+        self.inputs = (shards, small4)  # alive as long as the binding
+
+
+class _KernelSolve(_Binding):
+    """Route 1: a solve whose every shard is on this device, one launch of
+    csrc/waterfill_shard.cu's solve_kernel."""
+
+    def __init__(self, shards, small4, jd, td, counted=True):
+        n_s = shards[0][0].shape[1]
+        blocks = shard_blocks(n_s)
+        super().__init__(shards, small4, 0, len(shards), jd, td,
+                         -(-n_s // blocks) > SMEM_ROWS, False)
+        self.counted = counted
+        self.fn = kernels.entry("waterfill_shard",
+                                "nomad_waterfill_shard_solve", 1, 0,
+                                stream=False)
+
+    def launch(self):
+        global SHARD_LAUNCHES, SHARD_SOLVE_LAUNCHES
+        kernels.check_launch(self.fn(self.addr), "waterfill_shard")
+        if self.counted:
+            SHARD_LAUNCHES += 1
+            SHARD_SOLVE_LAUNCHES += 1
+
+    def run(self):
+        self.launch()
+        return self.counts, self.remaining
+
+
+class _KernelGroup(_Binding):
+    """Route 2: one device's group of shards, one launch of
+    csrc/waterfill_shard.cu's pass_kernel a pass, which leaves the group's
+    combined partial in one of three rotating buffers."""
+
+    def __init__(self, shards, small4, column, n_shards, jd, td,
+                 counted=True):
+        super().__init__(shards, small4, column, n_shards, jd, td, True,
+                         True)
+        self.counted = counted
+        self.turn = 0
+        self.fn = kernels.entry("waterfill_shard",
+                                "nomad_waterfill_shard_pass", 2, 3,
+                                stream=False)
 
     def run(self, phase: str, comb, shift: int):
         """Launch one pass; returns its partial (None for the counts
         pass)."""
         global SHARD_LAUNCHES
-        own_prev = self.parts[self.turn ^ 1]
-        part = self.parts[self.turn]
-        ptrs = [t.data_ptr() for t in self.inputs]
-        ptrs += [self.cap.data_ptr(), self.key.data_ptr(),
-                 self.state.data_ptr(),
-                 None if comb is None else comb.data_ptr(),
-                 own_prev.data_ptr(), part.data_ptr(),
-                 self.counts.data_ptr(), self.remaining.data_ptr()]
-        with torch.cuda.device(self.dev):
-            err = self.fn(*ptrs, _PHASES[phase], shift, self.b, self.n,
-                          self.index, self.n_shards, *self.flags,
-                          torch.cuda.current_stream(self.dev).cuda_stream)
+        err = self.fn(self.addr, None if comb is None else comb.data_ptr(),
+                      _PHASES[phase], shift, self.turn)
         kernels.check_launch(err, "waterfill_shard")
         if self.counted:
             SHARD_LAUNCHES += 1
-        self.turn ^= 1
+        part = self.parts[self.turn % 3]
+        self.turn += 1
         return None if phase == "counts" else part
 
 
 def shard_kernel_only(inputs8, small4, max_count: int, job_distinct: bool,
                       tg_distinct: bool):
-    """For timing the shard kernel apart from its wrapper and the seam:
-    checks one shard's inputs and allocates its scratch once, and returns
-    a zero-argument call that launches every pass of a solve over that
-    shard alone (one shard of one, so each combine is the shard's own
-    partial and no other operation runs; not counted in
-    ``SHARD_LAUNCHES``)."""
+    """For timing the pass kernel apart from its wrapper and the seam:
+    binds one shard once, and returns a zero-argument call that launches
+    every pass of a solve over that shard alone (one shard of one, so
+    each combine is the shard's own partial and no other operation runs;
+    not counted in ``SHARD_LAUNCHES``)."""
     if inputs8[0].device.type != "cuda":
         raise ValueError("shard_kernel_only needs CUDA tensors")
-    shard = _KernelShard(inputs8, small4, 0, 1, job_distinct, tg_distinct,
+    group = _KernelGroup([inputs8], small4, 0, 1, job_distinct, tg_distinct,
                          counted=False)
     passes = _passes(max_count)
 
     def run():
         comb = None
         for phase, shift, _op in passes:
-            comb = shard.run(phase, comb, shift)
+            comb = group.run(phase, comb, shift)
 
     return run
 
 
-class _PlainShard:
-    """One shard's passes in plain PyTorch: the same partials, decisions
-    and state as the kernel's passes, over [B, n_s] tensors."""
+def shard_solve_only(shards, small4, job_distinct: bool, tg_distinct: bool):
+    """For timing the single-launch route apart from its wrapper: binds
+    the shards once and returns a zero-argument call that launches the
+    solve (not counted)."""
+    if shards[0][0].device.type != "cuda":
+        raise ValueError("shard_solve_only needs CUDA tensors")
+    solve = _KernelSolve(shards, small4, job_distinct, tg_distinct,
+                         counted=False)
+    return solve.launch
 
-    def __init__(self, inputs8, small4, index, n_shards, jd, td):
-        check_inputs(*inputs8, *small4)
+
+class _PlainShard:
+    """One device group's passes in plain PyTorch: the same partials,
+    decisions and state as the kernels', over the group's shards side by
+    side ([B, S n_s] tensors, in node order)."""
+
+    def __init__(self, shards, small4, column, n_shards, jd, td):
+        _check_shards(shards, small4)
+        self.n_s = shards[0][0].shape[1]
+        cols = [torch.cat(col, 1) if len(shards) > 1 else col[0]
+                for col in zip(*shards)]
         (self.total, self.sched_cap, self.used0, self.job_count0,
-         self.tg_count0, self.bw_avail, self.bw_used0,
-         self.eligible) = inputs8
+         self.tg_count0, self.bw_avail, self.bw_used0, self.eligible) = cols
         self.ask, self.bw_ask, count, self.penalty = small4
         self.count = count.to(torch.int64)
         self.jd, self.td = bool(jd), bool(td)
-        self.index, self.n_shards = index, n_shards
+        self.index, self.n_shards = column, n_shards
         b = self.total.shape[0]
         z = torch.zeros(b, dtype=torch.int64, device=self.total.device)
         self.st = {k: z.clone() for k in (
@@ -606,7 +785,8 @@ class _PlainShard:
         sel = (rem > 0) & ((key > st["t_eff"][:, None])
                            | (at & (rank < st["fill"][:, None])))
         level = st["level"][:, None]
-        self.counts = (torch.minimum(self.cap, level)
-                       + sel.to(torch.int64)).to(torch.int32)
+        counts = (torch.minimum(self.cap, level)
+                  + sel.to(torch.int64)).to(torch.int32)
+        self.counts = list(counts.split(self.n_s, 1))
         self.remaining = (st["remaining"] - st["nsel"]).to(torch.int32)
         return None

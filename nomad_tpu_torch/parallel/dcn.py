@@ -244,10 +244,14 @@ def run_dcn_solve(mesh: DCNMesh, n_nodes: int = 1024,
                   count: int = 900) -> Dict[str, object]:
     """The production water-fill over node tensors sharded across every
     rank: rank r holds the rows [r N/P, (r+1) N/P) on its device and runs
-    its shard's passes through DistReduce. Returns summary values that
-    read identically on every rank, and the digest of the whole counts
-    vector (all-gathered)."""
-    from nomad_tpu_torch.ops.waterfill import solve_waterfill_sharded
+    its shard's passes through DistReduce, then the same passes in plain
+    PyTorch (solve_waterfill_sharded_plain) on the same shard through the
+    same seam. Returns summary values that read identically on every rank,
+    the digest of the whole counts vector (all-gathered), this rank's
+    launches of the shard kernel (``shard_launches``), and whether its
+    counts and remaining equal the plain passes' (``plain_equal``, with
+    ``plain_max_abs_err``)."""
+    from nomad_tpu_torch.ops import waterfill
 
     if n_nodes % mesh.world:
         raise ValueError(f"{n_nodes} nodes do not divide over "
@@ -260,10 +264,17 @@ def run_dcn_solve(mesh: DCNMesh, n_nodes: int = 1024,
                                device=dev) for a in case[:8])
     small = tuple(torch.tensor(a, device=dev) for a in case[8:])
     reduce = DistReduce()
-    parts, remaining = solve_waterfill_sharded(
+    launches = waterfill.SHARD_LAUNCHES
+    parts, remaining = waterfill.solve_waterfill_sharded(
+        [shard], [small], count, False, False, reduce,
+        first_index=mesh.rank, n_shards=mesh.world)
+    launches = waterfill.SHARD_LAUNCHES - launches
+    p_parts, p_remaining = waterfill.solve_waterfill_sharded_plain(
         [shard], [small], count, False, False, reduce,
         first_index=mesh.rank, n_shards=mesh.world)
     counts = parts[0][0]
+    plain_err = max(int((counts - p_parts[0][0]).abs().max()),
+                    int((remaining - p_remaining).abs().max()))
     whole = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
     whole[lo:lo + n_s] = counts.to(torch.int64)
     (whole,) = reduce([whole], "sum")
@@ -280,4 +291,7 @@ def run_dcn_solve(mesh: DCNMesh, n_nodes: int = 1024,
         "backend": mesh.backend,
         "counts_sha256": counts_digest(whole),
         "counts_sharded_over": [DCN_AXIS],
+        "shard_launches": launches,
+        "plain_equal": plain_err == 0,
+        "plain_max_abs_err": plain_err,
     }

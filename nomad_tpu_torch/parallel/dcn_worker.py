@@ -41,7 +41,7 @@ def _main() -> None:
     out["process_id"] = process_id
     out["ok"] = bool(
         out["placed"] == count and out["unplaced"] == 0
-        and out["n_processes"] == num_processes
+        and out["n_processes"] == num_processes and out["plain_equal"]
     )
     print("DCN_RESULT " + json.dumps(out), flush=True)
     sys.exit(0 if out["ok"] else 1)

@@ -9,10 +9,12 @@ snapshot, while the node axis is split over the mesh's devices.
 nomad_tpu places ``jax.Array``s with ``NamedSharding``s and lets XLA's
 SPMD partitioner insert the collectives. Here a node-sharded tensor is a
 ``ShardedTensor``: shard ``i`` is its own tensor on mesh device ``i``,
-holding the contiguous rows ``[i N/S, (i+1) N/S)``. A solve runs one pass
-per shard (``ops/waterfill.py``, ``ops/greedy.py``) and combines the
-shards' small partials between passes through ``MeshReduce``: copy them
-to the first shard's device, sum or max them there.
+holding the contiguous rows ``[i N/S, (i+1) N/S)``. A water-fill whose
+shards all lie on one card is one launch (``ops/waterfill.py``
+``shard_route``); across cards each card's shards run one launch a pass
+and ``MeshReduce`` combines the cards' small partials between passes:
+copy them to the first card, sum or max them there. The exact scan runs
+each shard's scan and one merge (``ops/greedy.py``).
 """
 
 from __future__ import annotations
@@ -387,9 +389,10 @@ def restage_rows(t, rows: np.ndarray, vals: np.ndarray):
 
 class MeshReduce:
     """The reduction seam between the passes of a solve whose shards live
-    in this process: each shard's partial is copied to the first shard's
-    device, summed or maxed there, and the result handed back to each
-    shard's device (no copy where a shard shares the first's device)."""
+    in this process: each device group's partial (one a group, its
+    shards' already combined on its device) is copied to the first
+    group's device, summed or maxed there, and the result handed back to
+    each group's device (no copy where it shares the first's device)."""
 
     def __call__(self, parts: List[torch.Tensor],
                  op: str) -> List[torch.Tensor]:

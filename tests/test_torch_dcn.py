@@ -41,6 +41,7 @@ def test_two_process_dcn_solve(n_nodes, count, nodes_used):
     assert want_rem == 0
     for r in results:
         assert r["ok"] is True
+        assert r["plain_equal"] is True and r["plain_max_abs_err"] == 0
         assert r["n_processes"] == 2
         assert r["n_devices"] == 2  # one node shard a rank
         assert r["backend"] == "gloo" and r["device"] == "cpu"
@@ -71,6 +72,7 @@ def test_one_rank_group_runs_the_same_solve():
     want, _rem = unsharded_counts(64, 100)
     assert out["counts_sha256"] == dcn.counts_digest(want)
     assert out["placed"] == 100 and out["unplaced"] == 0
+    assert out["plain_equal"] is True
 
 
 def test_rank_devices_and_backends():

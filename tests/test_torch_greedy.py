@@ -389,3 +389,56 @@ def test_greedy_ties_match_jax(penalty, flags):
     agree within the pow contract's 256 ulp."""
     c = tie_case(64, 32, penalty, jd=flags == "jd", td=flags == "td")
     assert compare_with_jax(c) == "equal"
+
+
+def _shaped_nodes(n, seed):
+    """One eval's numpy inputs over n nodes of three fixed shapes (the
+    last eighth padding), usage in whole asks and job counts 0 or 1: two
+    nodes' scores tie exactly or differ by far more than 256 ulp."""
+    rng = np.random.default_rng(seed)
+    ask = np.array([100, 128, 0, 0], dtype=np.int32)
+    live = n - n // 8
+    total = np.zeros((n, 4), dtype=np.int32)
+    total[:live, :2] = np.array([(2000, 4096), (4000, 8192),
+                                 (8000, 16384)])[rng.integers(0, 3, live)]
+    total[:live, 2:] = (100 * 1024, 150)
+    used = np.zeros((n, 4), dtype=np.int32)
+    used[:live] = ask * rng.integers(0, 4, (live, 1))
+    zeros = np.zeros(n, dtype=np.int32)
+    return (total, total[:, :2].astype(np.float32), used,
+            rng.integers(0, 2, n).astype(np.int32), zeros, zeros, zeros,
+            np.arange(n) < live, ask, np.int32(0))
+
+
+@pytest.mark.parametrize("count", [128, 100])
+def test_merge_plain_past_the_staging_window_matches_nomad_tpu(count):
+    """The sharded scan's plain version at S x k past the merge kernel's
+    staging window: 256 shards of 64 rows and k = 128 (S k = 32,768,
+    above the ~29,000 entries a block's shared memory holds, where the
+    kernel stages a window of each shard's sequence). Each shard's plain
+    scan, then the plain merge, against nomad_tpu's unsharded solve_greedy
+    on the same numpy inputs, with padding steps after ``count``: idx and
+    ok equal, tolerance 0 (the shaped scores make the pow contract's band
+    empty)."""
+    s, n_s, k = 256, 64, 128
+    n = s * n_s
+    case = _shaped_nodes(n, 77)
+    want_idx, want_ok, _ = jax_solve_greedy(
+        *(jnp.asarray(a) for a in case), jnp.arange(k) < count,
+        jnp.float32(10.0), k, False, False)
+    total, sched, used, jc, tc, bwa, bwu, elig, ask, bw_ask = (
+        torch.tensor(np.asarray(a)) for a in case)
+    small = (ask[None], bw_ask.reshape(1),
+             torch.tensor([10.0], dtype=torch.float32))
+    shards = []
+    for i in range(s):
+        r = slice(i * n_s, (i + 1) * n_s)
+        shards.append(((total[r], sched[r], bwa[r]),
+                       tuple(x[None, r] for x in (used, jc, tc, bwu, elig)),
+                       small))
+    active = (torch.arange(k) < count)[None]
+    idx, ok, _score = greedy.solve_greedy_sharded(shards, active, k, False,
+                                                  False)
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(ok[0].numpy(), np.asarray(want_ok))
+    assert int(ok.sum()) == count

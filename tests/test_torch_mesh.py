@@ -131,6 +131,27 @@ def port_sharded_row(case):
     return tuple(row)
 
 
+def batch_args(case):
+    """The case as the batched solve's 12 inputs, B = 1 (CPU)."""
+    row = port_row(case)
+    return (*(x.unsqueeze(0) for x in row[:10]),
+            torch.tensor([case[10]], dtype=torch.int32),
+            torch.tensor([case[11]], dtype=torch.float32))
+
+
+def per_pass_waterfill(case, s, groups=None):
+    """The case over S shards on the per-pass route, as ``groups`` groups
+    of one process each (default S: one shard a group), through
+    chip_smoke.group_solve: a thread a group, each group's plain passes
+    with its shards combined locally, MeshReduce between the groups.
+    Returns (counts [N] numpy, remaining)."""
+    shards, small = chip_smoke.shard_wf_args(batch_args(case), s)
+    parts, rem = chip_smoke.group_solve(
+        waterfill.solve_waterfill_sharded, shards, small, case[10], False,
+        False, s if groups is None else groups)
+    return torch.cat(parts, 1)[0].numpy(), int(rem[0])
+
+
 def jax_sharded_waterfill(case, s):
     mesh = jmesh.configure_node_sharding(s)
     try:
@@ -166,7 +187,9 @@ def jax_sharded_greedy(case, k, s):
 def test_waterfill_sharded_matches_single_device(node_mesh, s):
     """The closed-form water-fill, dispatched with node-axis shardings,
     gives identical counts: the port's single-entry mesh arm against its
-    unsharded solve and against nomad_tpu's sharded solve_waterfill."""
+    unsharded solve and against nomad_tpu's sharded solve_waterfill; and
+    the same case on the per-pass route, one shard a group, each shard's
+    partials through the MeshReduce seam (per_pass_waterfill)."""
     node_mesh(s)
     for trial in range(4):
         case = shaped_case(100 + trial)
@@ -175,9 +198,11 @@ def test_waterfill_sharded_matches_single_device(node_mesh, s):
         plain_c, plain_r = waterfill.solve_waterfill(
             *port_row(case)[:10], case[10], case[11], False, False)
         jax_c, jax_r = jax_sharded_waterfill(case, s)
+        pass_c, pass_r = per_pass_waterfill(case, s)
         np.testing.assert_array_equal(counts[0].numpy(), plain_c.numpy())
         np.testing.assert_array_equal(counts[0].numpy(), jax_c)
-        assert int(remaining[0]) == plain_r == jax_r
+        np.testing.assert_array_equal(pass_c, jax_c)
+        assert int(remaining[0]) == plain_r == jax_r == pass_r
 
 
 @pytest.mark.parametrize("mode", ["rem0", "over", "tie", "count0",
@@ -191,6 +216,10 @@ def test_waterfill_sharded_edge_cases(node_mesh, s, mode):
     jax_c, jax_r = jax_sharded_waterfill(case, s)
     np.testing.assert_array_equal(counts[0].numpy(), jax_c)
     assert int(remaining[0]) == jax_r
+    # The per-pass route, one shard a group, through the MeshReduce seam.
+    pass_c, pass_r = per_pass_waterfill(case, s)
+    np.testing.assert_array_equal(pass_c, jax_c)
+    assert pass_r == jax_r
     placed = int(counts.sum())
     if mode in ("rem0", "tie"):
         assert jax_r == 0 and placed == case[10]
@@ -206,9 +235,11 @@ def test_waterfill_sharded_edge_cases(node_mesh, s, mode):
 @pytest.mark.parametrize("s", SHARDS)
 def test_waterfill_sharded_equals_unsharded_on_random_instances(s):
     """Every mode of chip_smoke.py's kernel phase (over-committed rows,
-    bandwidth asks, distinct-hosts scopes, caps above 2^16) through the
-    sharded plain passes and the seam, against the unsharded plain
-    version. Tolerance 0."""
+    bandwidth asks, distinct-hosts scopes, caps above 2^16), sharded,
+    against the unsharded plain version: the whole solve (one device
+    group: its shards' rows side by side), and the per-pass route with
+    one shard a group, each shard's plain passes and the MeshReduce seam
+    between them (chip_smoke.group_solve). Tolerance 0."""
     rng = np.random.default_rng(5 + s)
     modes = ["random", "headline", "ties", "saturated", "count0",
              "ineligible", "bigcaps"]
@@ -224,6 +255,11 @@ def test_waterfill_sharded_equals_unsharded_on_random_instances(s):
             shards, small, int(args[10].max()), jd, td, pmesh.MeshReduce())
         assert torch.equal(torch.cat(parts, 1), want_c), (mode, n)
         assert torch.equal(rem, want_r), (mode, n)
+        parts, rem = chip_smoke.group_solve(
+            waterfill.solve_waterfill_sharded, shards, small,
+            int(args[10].max()), jd, td, s)
+        assert torch.equal(torch.cat(parts, 1), want_c), (mode, n, "groups")
+        assert torch.equal(rem, want_r), (mode, n, "groups")
 
 
 def test_shard_rounds_are_bounded():
@@ -236,6 +272,114 @@ def test_shard_rounds_are_bounded():
     assert waterfill.level_shifts(2**31 - 1) == [24, 16, 8, 0]
     assert waterfill.shard_rounds(100_000) == 9
     assert waterfill.shard_rounds(2**31 - 1) == 10
+
+
+CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("devices, n_s, whole, single, groups", [
+    # A mesh of one card: one launch up to 8 blocks an eval.
+    ([CUDA0] * 4, 2048, True, True, [(0, 4)]),
+    ([CUDA0] * 8, 16384, True, True, [(0, 8)]),
+    ([CUDA0] * 4, 32768, True, True, [(0, 4)]),     # 2 blocks a shard
+    ([CUDA0], 262144, True, True, [(0, 1)]),        # 8 blocks, scratch
+    # Past 8 blocks an eval: the passes, the card's shards in one group.
+    ([CUDA0] * 4, 65536, True, False, [(0, 4)]),    # 4 blocks a shard
+    ([CUDA0] * 16, 1024, True, False, [(0, 16)]),
+    ([CUDA0] * 32, 1024, True, False, [(0, 16), (16, 32)]),
+    # Distinct cards: a group each run of consecutive shards on one card.
+    ([CUDA0, CUDA0, CUDA1, CUDA1], 2048, True, False, [(0, 2), (2, 4)]),
+    ([CUDA0, CUDA1, CUDA0, CUDA1], 2048, True, False,
+     [(0, 1), (1, 2), (2, 3), (3, 4)]),
+    # One process's part of a larger (DCN) solve: the passes.
+    ([CUDA0] * 2, 2048, False, False, [(0, 2)]),
+    (["cpu"] * 8, 256, True, True, [(0, 8)]),
+    (["cpu"], 64, False, False, [(0, 1)]),
+])
+def test_shard_route_groups_by_device(devices, n_s, whole, single, groups):
+    """The route follows from the shards' devices and rows alone, before
+    any launch (no card is needed to plan one)."""
+    route = waterfill.shard_route(devices, n_s, whole)
+    assert route.single == single
+    assert route.groups == groups
+
+
+def test_shard_blocks_is_the_water_fill_rule():
+    """A shard's blocks: the next power of two of n_s / 16,384, at least 1,
+    at most 8 (csrc/waterfill_cluster.cuh cluster_size)."""
+    got = [waterfill.shard_blocks(n) for n in (
+        1, 16384, 16385, 32768, 40000, 131072, 131073, 1 << 20)]
+    assert got == [1, 1, 2, 2, 4, 8, 8, 8]
+
+
+@pytest.mark.parametrize("mode", ["shaped", "tie", "tie_late", "over",
+                                  "rem0"])
+@pytest.mark.parametrize("s", [2, 4, 8])
+def test_waterfill_two_groups_match_nomad_tpu(s, mode):
+    """The per-pass route with two device groups, as two processes of a
+    DCN solve run it: group g holds shards [g S/2, (g+1) S/2)
+    (first_index, n_shards), combines its shards' partials locally, and
+    the seam combines the two groups' rows through MeshReduce (two
+    threads, chip_smoke.group_solve). Equal to nomad_tpu's
+    node-sharded solve_waterfill and to the unsharded solve; tolerance 0
+    ("tie": the boundary's fill ends in the first group; "tie_late":
+    N / 4 more tasks, so it ends inside the second)."""
+    case = list(shaped_case(40 + s, mode.replace("_late", "")))
+    if mode == "tie_late":
+        case[10] += N // 4
+    row = port_row(case)
+    shards, _small = chip_smoke.shard_wf_args(batch_args(case), s)
+    half = s // 2
+    for g in (0, 1):
+        route = waterfill.shard_route(
+            [x[0].device for x in shards[g * half:(g + 1) * half]],
+            N // s, whole=False)
+        assert not route.single and route.groups == [(0, half)]
+    counts, rem = per_pass_waterfill(case, s, 2)
+    jax_c, jax_r = jax_sharded_waterfill(case, s)
+    plain_c, plain_r = waterfill.solve_waterfill(
+        *row[:10], case[10], case[11], False, False)
+    np.testing.assert_array_equal(counts, jax_c)
+    np.testing.assert_array_equal(counts, plain_c.numpy())
+    assert rem == jax_r == plain_r
+    if mode.startswith("tie"):
+        live = counts[: N - N // 8]
+        cut = int((live == live.max()).sum())
+        assert (live[:cut] == live.max()).all() and live.min() < live.max()
+        assert (cut > N // 2) == (mode == "tie_late")
+
+
+@pytest.mark.parametrize("mode", ["shaped", "tie", "tie_late", "over",
+                                  "rem0", "count0", "ineligible"])
+@pytest.mark.parametrize("groups", [4, 8])
+def test_waterfill_many_groups_match_nomad_tpu(groups, mode):
+    """The per-pass route over 8 shards as 4 or 8 device groups, as that
+    many DCN ranks or cards run it: a thread a group (first_index,
+    n_shards), each group's shards combined locally, the seam over every
+    group's row through MeshReduce (chip_smoke.group_solve). The boundary
+    round's columns then sit at 0, 8 / G, ...: the "tie" fill ends in
+    the second group's column or later, "tie_late"'s past the middle.
+    Equal to nomad_tpu's node-sharded solve_waterfill and to the
+    unsharded solve; tolerance 0."""
+    s = 8
+    case = list(shaped_case(60 + groups, mode.replace("_late", "")))
+    if mode == "tie_late":
+        case[10] += N // 4
+    row = port_row(case)
+    counts, rem = per_pass_waterfill(case, s, groups)
+    jax_c, jax_r = jax_sharded_waterfill(case, s)
+    plain_c, plain_r = waterfill.solve_waterfill(
+        *row[:10], case[10], case[11], False, False)
+    np.testing.assert_array_equal(counts, jax_c)
+    np.testing.assert_array_equal(counts, plain_c.numpy())
+    assert rem == jax_r == plain_r
+    if mode.startswith("tie"):
+        live = counts[: N - N // 8]
+        cut = int((live == live.max()).sum())
+        assert (live[:cut] == live.max()).all() and live.min() < live.max()
+        per_group = N // groups
+        assert cut > per_group and cut % per_group  # inside a later group
+        assert (cut > N // 2) == (mode == "tie_late")
 
 
 def test_coalesced_batch_dispatch_on_mesh(node_mesh):
@@ -706,9 +850,11 @@ def test_a_mesh_scenario_needs_no_unported_module():
 
 def test_chip_smoke_mesh_kernels_phase_at_a_small_size(monkeypatch, capsys):
     """chip_smoke.py's phase 15 (a) on the CPU at 256 rows: every row at
-    every S equal (the CPU route of both wrappers is the plain version, so
-    this runs its shapes, seams and checks, not the kernels), with the
-    device timers stubbed."""
+    every S equal, the per-pass rows (two or four groups, a thread each;
+    16 shards in one group) and a wide merge too (the CPU route of both wrappers is
+    the plain version, so this runs its shapes, routes, seams and checks,
+    not the kernels), with the device timers and the merge's window (a
+    query of the built kernel) stubbed."""
     monkeypatch.setattr(chip_smoke, "MESH_WF_SHAPES", [
         (256, 2, False, False, "random"), (256, 2, True, True, "random"),
         (256, 2, False, False, "ties"), (256, 2, False, False, "saturated"),
@@ -717,11 +863,21 @@ def test_chip_smoke_mesh_kernels_phase_at_a_small_size(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "MESH_GREEDY_SHAPES", [
         (256, 2, 16, "random"), (256, 2, 16, "ties"),
         (256, 1, 16, "infeasible")])
+    monkeypatch.setattr(chip_smoke, "MESH_PASS_ROWS", [
+        (256, 2, False, False, "random", 4, 2),
+        (256, 1, False, False, "saturated", 4, 2),
+        (256, 2, True, True, "random", 16, 1),
+        (256, 2, False, False, "random", 8, 4)])
+    monkeypatch.setattr(chip_smoke, "MESH_MERGE_WIDE", [(2048, 1, 16, 128)])
+    monkeypatch.setattr(chip_smoke, "MERGE_SMEM_BYTES", 8 * 1024)
+    monkeypatch.setattr(greedy, "merge_window", lambda s, k: 8)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 0.0)
     monkeypatch.setattr(chip_smoke, "graph_ms", lambda bind, reps: 0.0)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     res = chip_smoke.phase_mesh_kernels(torch.device("cpu"),
                                         np.random.default_rng(3))
-    assert res == {"wf_err": 0, "merge_err": 0}
+    assert res == {"wf_err": 0, "pass_err": 0, "merge_err": 0}
     out = capsys.readouterr().out
     assert out.count("equal at S=[1, 2, 4, 8]") == 9
+    assert out.count("mesh waterfill per-pass") == 4
+    assert "mesh greedy merge warp path N=2048 B=1 k=16 S=128" in out
