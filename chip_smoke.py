@@ -172,6 +172,29 @@ Phases, each printing its own lines:
    DCN ranks on the one card over gloo (spawn_dcn_workers), 256 and
    16,384 nodes: both ranks ok, their counts equal to the unsharded
    kernel's.
+16. secure: TLS, the uplink, the native verifier and the fuzz oracle.
+   Certificates from the openssl CLI (a CA, a loopback-SAN server pair,
+   a client pair, a pair from a CA nothing trusts). (a) A three-member
+   ClusterServer cell over mutual TLS (raft, forwarding and the pools
+   too): a plaintext dial and the untrusted pair refused, the client pair
+   answered; the 10,000 nodes, the headline and the count-100 service job
+   through a follower, committed on every member (the headline is not
+   deregistered); one real Client over TLS runs 4 mock_driver tasks to
+   dead; the plan verifier's native fit_check called. (b) A server-mode
+   Agent from a config file (tls { uplink = true }, atlas { endpoint })
+   dials an UplinkBroker over mutual TLS; the headline is registered
+   through the tunnel, its 100,000 alloc stubs read back through it, and
+   a blocking query parked through it wakes on a second registration.
+   (c) The native library (nomad_tpu_torch/native, built with c++ at
+   first use) against its plain version, exactly, on the cell's 10,000
+   verifier rows. (d) solve_rounds_fused (plain torch on the card)
+   against the water-fill kernel at the headline shape and the 60 fuzz
+   seeds of tests/test_fuzz_differential.py: equal, or inside the pow
+   contract's 256-ulp band with equal totals and sound counts (the band
+   count is logged). Logs each job's register->complete ms, the stub
+   read's ms, native and plain fit_check us, the oracle's ms.
+
+Every phase logs ``phase N: <s> s``, and the script its total.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run. The
@@ -977,14 +1000,10 @@ SERVER_STAGES = ("broker.wait", "worker.wait_for_index",
                  "submit_plan.outside_plan_spans")
 
 
-def check_committed(snap, job, want: int, per_node: int = 0) -> int:
-    """From a state snapshot: ``job`` holds ``want`` live tasks, all on
-    nodes of its datacenters with kernel.name=linux (make_job's
-    constraint), and every node's summed live asks of all jobs plus its
-    reserved resources fit its capacity (numpy over the stored blocks'
-    runs and the object rows). With ``per_node`` (a system job: 1), every
-    node that holds the job holds exactly that many. Returns the live
-    count."""
+def committed_usage(snap, job_id: str = ""):
+    """From a state snapshot: each node's summed live asks of all jobs
+    (int64 [4] by node id), and each node's live task count of
+    ``job_id`` (numpy over the stored blocks' runs and the object rows)."""
     usage, job_nodes = {}, {}
 
     def add(nid, vec, cnt, own):
@@ -995,11 +1014,23 @@ def check_committed(snap, job, want: int, per_node: int = 0) -> int:
     for blk in snap.alloc_blocks():
         vec = np.asarray(blk.resource_vector(), dtype=np.int64)
         for nid, cnt in blk.live_node_counts():
-            add(nid, vec, int(cnt), blk.job_id == job.id)
+            add(nid, vec, int(cnt), blk.job_id == job_id)
     for a in snap.allocs_objects():
         if not a.terminal_status():
             add(a.node_id, np.asarray(a.resources.as_vector(),
-                                      dtype=np.int64), 1, a.job_id == job.id)
+                                      dtype=np.int64), 1, a.job_id == job_id)
+    return usage, job_nodes
+
+
+def check_committed(snap, job, want: int, per_node: int = 0) -> int:
+    """From a state snapshot: ``job`` holds ``want`` live tasks, all on
+    nodes of its datacenters with kernel.name=linux (make_job's
+    constraint), and every node's summed live asks of all jobs plus its
+    reserved resources fit its capacity (numpy over the stored blocks'
+    runs and the object rows). With ``per_node`` (a system job: 1), every
+    node that holds the job holds exactly that many. Returns the live
+    count."""
+    usage, job_nodes = committed_usage(snap, job.id)
     live = sum(job_nodes.values())
     if live != want:
         raise AssertionError(f"{live} live tasks of job {job.name} "
@@ -4249,6 +4280,693 @@ def phase_mesh(dev, rng):
     return res, numbers, launches
 
 
+# -- 16. the secure cell, the uplink, the native verifier, the oracle ------
+
+SECURE_MEMBERS = 3
+# The real Client's job: mock_driver tasks, which only a node whose
+# client enabled that driver can take (none of the 10,000 fake nodes).
+SECURE_CLIENT_COUNT = 4
+SECURE_WAIT_S = 120.0
+# The cell never deregisters the headline, so no FSM apply holds a raft
+# lock for seconds (phase 7's reason for 10-15 s elections): 2-3 s.
+SECURE_RAFT = dict(heartbeat_interval=0.1, election_timeout_min=2.0,
+                   election_timeout_max=3.0)
+SECURE_TOKEN = "chip-smoke-uplink"
+SECURE_INFRA = "chip-smoke"
+# tests/test_fuzz_differential.py's N_KERNEL_SEEDS and seed base.
+ORACLE_SEEDS = 60
+ORACLE_SEED_BASE = 10_000
+# The pow contract's band (ROADMAP Queue 3 item 1): torch's CUDA pow is
+# not the kernel's accurate powf, so two candidate scores this close may
+# order differently.
+ULP_BAND = 256
+NATIVE_REPS = 20
+
+
+def make_certs(d: str) -> dict:
+    """Test-only keys, one day valid, made with the openssl CLI in ``d``:
+    a CA; a server pair whose SAN is the loopback (localhost, 127.0.0.1),
+    which the servers also present when they dial each other; a client
+    pair signed by the CA; and a client pair signed by a second CA that
+    nothing trusts."""
+    def run(*args):
+        subprocess.run(args, check=True, capture_output=True, timeout=60)
+
+    def ca(name):
+        key, crt = os.path.join(d, f"{name}.key"), os.path.join(d, f"{name}.crt")
+        run("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+            "-keyout", key, "-out", crt, "-days", "1",
+            "-subj", f"/CN=chip-smoke-{name}")
+        return key, crt
+
+    def pair(name, cn, ca_key, ca_crt, san):
+        key, csr, crt = (os.path.join(d, f"{name}.{ext}")
+                         for ext in ("key", "csr", "crt"))
+        ext = os.path.join(d, f"{name}.cnf")
+        with open(ext, "w") as f:
+            f.write((f"subjectAltName={san}\n" if san else "")
+                    + "basicConstraints=CA:FALSE\n")
+        run("openssl", "req", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+            "-out", csr, "-subj", f"/CN={cn}")
+        run("openssl", "x509", "-req", "-in", csr, "-CA", ca_crt, "-CAkey",
+            ca_key, "-CAcreateserial", "-days", "1", "-extfile", ext,
+            "-out", crt)
+        return crt, key
+
+    ca_key, ca_crt = ca("ca")
+    rogue_key, rogue_crt = ca("rogue-ca")
+    server = pair("server", "localhost", ca_key, ca_crt,
+                  "DNS:localhost,IP:127.0.0.1")
+    client = pair("client", "chip-smoke-client", ca_key, ca_crt, "")
+    rogue = pair("rogue", "chip-smoke-rogue", rogue_key, rogue_crt, "")
+    return {"ca": ca_crt, "server": server, "client": client,
+            "rogue": rogue}
+
+
+def secure_tls(certs: dict, pair: str = "server"):
+    """Mutual TLS (verify_incoming on), trusting the CA, presenting
+    ``pair``; hostnames not checked (one region-shared server pair)."""
+    from nomad_tpu_torch.tlsutil import TLSConfig
+
+    crt, key = certs[pair]
+    return TLSConfig(enabled=True, ca_file=certs["ca"], cert_file=crt,
+                     key_file=key, verify_incoming=True,
+                     verify_hostname=False)
+
+
+def check_refusals(certs: dict, addr: str) -> None:
+    """A plaintext dial and a client presenting the untrusted CA's pair
+    must both fail against a TLS listener; the client pair gets through."""
+    from nomad_tpu_torch.rpc import ConnPool, RPCError
+
+    for label, tls in (("plaintext", None),
+                       ("untrusted certificate", secure_tls(certs, "rogue"))):
+        pool = ConnPool(timeout=5.0, ssl_context=(
+            tls.outgoing_context() if tls is not None else None))
+        try:
+            pool.call(addr, "Status.Ping", {})
+        except RPCError as exc:
+            log(f"secure: {label} dial refused ({type(exc).__name__}: {exc})")
+        else:
+            raise AssertionError(f"a {label} dial reached {addr}")
+        finally:
+            pool.shutdown()
+    pool = ConnPool(timeout=5.0, ssl_context=secure_tls(
+        certs, "client").outgoing_context())
+    try:
+        if pool.call(addr, "Status.Ping", {}) != "pong":
+            raise AssertionError("the client pair's ping got no pong")
+    finally:
+        pool.shutdown()
+
+
+def secure_register(servers, leader, follower, job) -> float:
+    """Register ``job`` through ``follower``; wait for it complete on the
+    leader and applied by every member, check every member's store;
+    returns register->complete ms (on the leader)."""
+    want = job.task_groups[0].count
+    t0 = time.perf_counter()
+    eid, _ = cluster_call(lambda: follower.job_register(job), "Job.Register")
+    reg = (wait_complete(leader, eid) - t0) * 1000.0
+    every = (wait_members(servers, eid, leader.raft.applied_index)
+             - t0) * 1000.0
+    for srv in servers:
+        check_committed(srv.state_store.snapshot(), job, want)
+    log(f"secure {job.name}: register_complete_ms={reg:.3f} "
+        f"all_members_ms={every:.3f} committed={want} on each of "
+        f"{len(servers)} members")
+    return reg
+
+
+def mock_job(job_id: str, count: int):
+    """A batch job of ``count`` mock_driver tasks of 0.1 s, exit 0."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.structs import (
+        Job, Resources, RestartPolicy, Task, TaskGroup,
+    )
+
+    return Job(region="global", id=job_id, name=job_id,
+               type=structs.JOB_TYPE_BATCH, priority=50,
+               datacenters=["dc1"], task_groups=[TaskGroup(
+                   name="g", count=count,
+                   restart_policy=RestartPolicy(attempts=0, interval=60.0,
+                                                delay=1.0),
+                   tasks=[Task(name="m", driver="mock_driver",
+                               config={"run_for": 0.1, "exit_code": 0},
+                               resources=Resources(cpu=100, memory_mb=64))],
+               )])
+
+
+def secure_client(certs: dict, servers, tmp: str) -> None:
+    """One real Client over mutual TLS to a follower runs a count-
+    SECURE_CLIENT_COUNT mock_driver job to dead."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.client import Client, ClientConfig
+
+    leader = current_leader(servers)
+    follower = next(s for s in servers if s is not leader)
+    t0 = time.perf_counter()
+    client = Client(ClientConfig(
+        state_dir=os.path.join(tmp, "client", "state"),
+        alloc_dir=os.path.join(tmp, "client", "allocs"),
+        node_name="secure-client", servers=[follower.rpc_addr],
+        options={"driver.mock_driver.enable": "1"},
+        tls=secure_tls(certs, "client")))
+    client.start()
+    try:
+        wait_for("the TLS client's node ready", lambda: (
+            (n := leader.state_store.node_by_id(client.node.id)) is not None
+            and n.status == structs.NODE_STATUS_READY), SECURE_WAIT_S)
+        t1 = time.perf_counter()
+        job = mock_job("secure-mock", SECURE_CLIENT_COUNT)
+        eid, _ = cluster_call(lambda: follower.job_register(job),
+                              "Job.Register")
+        wait_complete(leader, eid)
+
+        def all_dead():
+            allocs = leader.state_store.allocs_by_job(job.id)
+            return (len(allocs) == SECURE_CLIENT_COUNT and all(
+                a.client_status == structs.ALLOC_CLIENT_STATUS_DEAD
+                and a.node_id == client.node.id for a in allocs))
+        wait_for("the TLS client's tasks dead", all_dead, SECURE_WAIT_S)
+        log(f"secure client: node ready {(t1 - t0) * 1000.0:.1f} ms after "
+            f"start, {SECURE_CLIENT_COUNT} mock tasks dead "
+            f"{(time.perf_counter() - t1) * 1000.0:.1f} ms after register, "
+            "every RPC over mutual TLS")
+    finally:
+        client.shutdown(destroy_allocs=True)
+
+
+def committed_rows(snap):
+    """Per node of ``snap`` (sorted by id), the summed live asks plus the
+    reserved resources, and the totals, as int32 [N, 4] rows: the plan
+    verifier's fit_check input."""
+    usage, _ = committed_usage(snap)
+    nodes = sorted(snap.nodes(), key=lambda n: n.id)
+    zero = np.zeros(4, dtype=np.int64)
+    used = np.array([usage.get(n.id, zero) + np.asarray(
+        n.reserved.as_vector() if n.reserved else zero) for n in nodes],
+        dtype=np.int64)
+    total = np.array([n.resources.as_vector() for n in nodes],
+                     dtype=np.int64)
+    return used.astype(np.int32), total.astype(np.int32)
+
+
+def phase_secure_cell(dev, certs: dict, tmp: str):
+    """(a): a three-member ClusterServer cell over mutual TLS; the
+    refusals; the 10,000 nodes, the headline and the count-100 service
+    job through a follower, committed on every member (the headline is
+    not deregistered: its 100,000-stop apply holds the raft lock for
+    seconds); a real Client over TLS. Returns the verifier's fit_check
+    rows of the leader's store."""
+    from nomad_tpu_torch import native, structs
+    from nomad_tpu_torch.server.cluster import ClusterConfig, form_cluster
+    from nomad_tpu_torch.server.server import ServerConfig
+
+    fit0 = native.CALLS["fit_check"]
+    t0 = time.perf_counter()
+    servers = form_cluster(SECURE_MEMBERS, ServerConfig(
+        scheduler_backend="tpu", device=str(dev),
+        min_heartbeat_ttl=SERVER_HEARTBEAT_TTL_S, tls=secure_tls(certs),
+    ), base_cluster=ClusterConfig(bind_host="127.0.0.1", **SECURE_RAFT))
+    try:
+        leader = current_leader(servers)
+        follower = next(s for s in servers if s is not leader)
+        log(f"secure: {SECURE_MEMBERS} members over mutual TLS, leader "
+            f"{leader.cluster.node_id} after "
+            f"{(time.perf_counter() - t0) * 1000.0:.1f} ms")
+        check_refusals(certs, follower.rpc_addr)
+        t0 = time.perf_counter()
+        cluster_call(lambda: follower.node_batch_register(cluster_nodes()),
+                     "Node.BatchRegister")
+        settle(servers, leader.raft.applied_index)
+        counts = [len(s.state_store.nodes()) for s in servers]
+        if counts != [N_NODES] * SECURE_MEMBERS:
+            raise AssertionError(f"members hold {counts} nodes")
+        log(f"secure: {N_NODES} nodes through a follower to every member in "
+            f"{(time.perf_counter() - t0) * 1000.0:.1f} ms")
+        secure_register(servers, leader, follower, make_job(
+            "secure-batch", structs.JOB_TYPE_BATCH, N_TASKS, ["dc1"]))
+        secure_register(servers, leader, follower, make_job(
+            "secure-svc", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+            ["dc1", "dc2"]))
+        secure_client(certs, servers, tmp)
+        rows = committed_rows(current_leader(servers).state_store.snapshot())
+    finally:
+        for srv in servers:
+            srv.shutdown(drain_timeout=5.0)
+    calls = native.CALLS["fit_check"] - fit0
+    log(f"secure: native fit_check calls on the verify path {calls}")
+    if calls < 1:
+        raise AssertionError("the plan verifier never called the native "
+                             "fit_check")
+    return rows
+
+
+def uplink_config_hcl(data_dir: str, device: str, certs: dict,
+                      endpoint: str) -> str:
+    crt, key = certs["server"]
+    return f"""data_dir = "{data_dir}"
+name = "uplink-1"
+bind_addr = "127.0.0.1"
+device = "{device}"
+
+ports {{
+    http = 0
+    rpc = 0
+}}
+
+server {{
+    enabled = true
+    bootstrap_expect = 1
+}}
+
+tls {{
+    enabled = true
+    ca_file = "{certs['ca']}"
+    cert_file = "{crt}"
+    key_file = "{key}"
+    verify_incoming = true
+    uplink = true
+}}
+
+atlas {{
+    endpoint = "{endpoint}"
+    infrastructure = "{SECURE_INFRA}"
+    token = "{SECURE_TOKEN}"
+}}
+"""
+
+
+def tunnel_json(broker, verb: str, path: str, body=None,
+                timeout: float = 30.0):
+    resp = broker.http(SECURE_INFRA, verb, path, body=body, timeout=timeout)
+    if resp["status"] != 200:
+        raise AssertionError(f"{verb} {path} through the uplink: "
+                             f"{resp['status']} {resp['body'][:200]}")
+    return json.loads(resp["body"]), resp["headers"]
+
+
+def phase_secure_uplink(dev, certs: dict, tmp: str) -> None:
+    """(b): a server-mode agent from a config file (TLS on its RPC tier,
+    tls.uplink) dials an in-process UplinkBroker over mutual TLS; the
+    headline is registered through the tunnel and its 100,000 alloc
+    stubs read back through it; a blocking query parked through the
+    tunnel wakes on a second registration."""
+    from nomad_tpu_torch import agent_config, structs, telemetry
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.codec import to_dict
+    from nomad_tpu_torch.scada import UplinkBroker
+
+    metrics_was = telemetry.get_global()
+    broker = UplinkBroker(token=SECURE_TOKEN,
+                          ssl_context=secure_tls(certs).incoming_context())
+    path = os.path.join(tmp, "uplink.hcl")
+    with open(path, "w") as f:
+        f.write(uplink_config_hcl(os.path.join(tmp, "uplink"), dev.type,
+                                  certs, broker.addr))
+    cfg = AgentConfig.from_file_config(agent_config.default_config().merge(
+        agent_config.load_config_file(path)))
+    if not (cfg.tls_uplink and cfg.tls is not None and cfg.atlas_endpoint):
+        raise AssertionError("the uplink config file lost its tls or atlas "
+                             "block")
+    agent = Agent(cfg)
+    agent.server.config.min_heartbeat_ttl = SERVER_HEARTBEAT_TTL_S
+    try:
+        t0 = time.perf_counter()
+        agent.start()
+        srv = agent.server
+        wait_for("the uplink agent leading", lambda: srv.raft.is_leader,
+                 SECURE_WAIT_S)
+        wait_for("the uplink session",
+                 lambda: SECURE_INFRA in broker.sessions(), SECURE_WAIT_S)
+        log(f"secure uplink: session up "
+            f"{(time.perf_counter() - t0) * 1000.0:.1f} ms after start, "
+            f"TLS on the tunnel and the RPC tier")
+        check_refusals(certs, srv.rpc_addr)
+        srv.node_batch_register(cluster_nodes())
+        job = make_job("uplink-batch", structs.JOB_TYPE_BATCH, N_TASKS,
+                       ["dc1"])
+        t0 = time.perf_counter()
+        out, _ = tunnel_json(broker, "PUT", "/v1/jobs",
+                             {"job": to_dict(job)})
+        reg = (wait_complete(srv, out["eval_id"]) - t0) * 1000.0
+        check_committed(srv.state_store.snapshot(), job, N_TASKS)
+        t0 = time.perf_counter()
+        stubs, _ = tunnel_json(broker, "GET",
+                               f"/v1/job/{job.id}/allocations",
+                               timeout=SECURE_WAIT_S)
+        read = (time.perf_counter() - t0) * 1000.0
+        live = [a for a in stubs if a["desired_status"] == "run"]
+        if len(live) != N_TASKS or {a["job_id"] for a in live} != {job.id}:
+            raise AssertionError(f"{len(live)} live stubs of {job.name} "
+                                 f"through the uplink, want {N_TASKS}")
+        _, headers = tunnel_json(broker, "GET", "/v1/jobs")
+        index = int(headers["X-Nomad-Index"])
+        got = {}
+
+        def poll():
+            try:
+                got["out"] = tunnel_json(
+                    broker, "GET", f"/v1/jobs?index={index}&wait=60s",
+                    timeout=90.0)
+            except Exception as exc:  # surfaced below
+                got["err"] = exc
+        waiter = threading.Thread(target=poll, daemon=True)
+        waiter.start()
+        time.sleep(0.3)
+        if got:
+            raise AssertionError(f"the blocking query did not park: {got}")
+        second = make_job("uplink-svc", structs.JOB_TYPE_SERVICE,
+                          SERVICE_COUNT, ["dc1", "dc2"])
+        t0 = time.perf_counter()
+        out, _ = tunnel_json(broker, "PUT", "/v1/jobs",
+                             {"job": to_dict(second)})
+        waiter.join(SECURE_WAIT_S)
+        woke = (time.perf_counter() - t0) * 1000.0
+        if "out" not in got:
+            raise AssertionError(f"the parked query never woke: {got}")
+        jobs, headers = got["out"]
+        if (int(headers["X-Nomad-Index"]) <= index
+                or second.id not in {j["id"] for j in jobs}):
+            raise AssertionError("the parked query woke without the second "
+                                 "job")
+        wait_complete(srv, out["eval_id"])
+        check_committed(srv.state_store.snapshot(), second, SERVICE_COUNT)
+        log(f"secure uplink: headline register_complete_ms={reg:.3f} "
+            f"through the tunnel; {len(stubs)} alloc stubs read through it "
+            f"in {read:.1f} ms; a parked blocking query woke "
+            f"{woke:.1f} ms after the second registration; provider "
+            f"sessions {agent.uplink.sessions}")
+    finally:
+        agent.shutdown()
+        broker.shutdown()
+        telemetry.set_global(metrics_was)
+
+
+def phase_secure_native(rows) -> None:
+    """(c): the native library, built at first use from the checkout's
+    source, against its plain version, exactly, on the headline cell's
+    verifier rows and on the same rows with every 97th pushed over one
+    dimension; logs each alone over NATIVE_REPS calls."""
+    from nomad_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build or load")
+    log(f"secure native: {native.library_path().name} available "
+        f"({(time.perf_counter() - t0) * 1000.0:.1f} ms to load or build)")
+    used, total = rows
+    over = used.copy()
+    pushed = np.arange(0, len(over), 97)
+    over[pushed, pushed % 4] = total[pushed, pushed % 4] + 1
+    for label, u in (("headline rows", used), ("rows pushed over", over)):
+        got, want = native.fit_check(u, total), native.fit_check_plain(
+            u, total)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"native fit_check != plain on the {label}")
+    if not native.fit_check(used, total)[0].all():
+        raise AssertionError("a committed node does not fit its tasks")
+
+    def alone_us(fn):
+        fn(used, total)
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_REPS):
+            fn(used, total)
+        return (time.perf_counter() - t0) * 1e6 / NATIVE_REPS
+    log(f"secure native: fit_check on {used.shape[0]} x {used.shape[1]} "
+        f"int32 rows equal to the plain version (and with "
+        f"{int((~native.fit_check_plain(over, total)[0]).sum())} rows over); "
+        f"native {alone_us(native.fit_check):.1f} us, plain "
+        f"{alone_us(native.fit_check_plain):.1f} us a call")
+
+
+def fuzz_solve_inputs(rng):
+    """tests/test_fuzz_differential.py's _random_solve_inputs, draw for
+    draw (that module imports jax)."""
+    n = int(rng.choice([8, 16, 32, 64, 128]))
+    total = np.zeros((n, 4), dtype=np.int32)
+    total[:, 0] = rng.integers(200, 8000, n)
+    total[:, 1] = rng.integers(128, 16384, n)
+    total[:, 2] = rng.integers(1024, 200_000, n)
+    total[:, 3] = rng.integers(10, 300, n)
+    used = np.zeros((n, 4), dtype=np.int32)
+    if rng.random() < 0.5:
+        frac = rng.random((n, 1)) * rng.choice([0.5, 0.95])
+        used = (total * frac).astype(np.int32)
+    job_count = rng.integers(0, 3, n).astype(np.int32) * (rng.random() < 0.4)
+    tg_count = np.minimum(job_count, rng.integers(0, 2, n)).astype(np.int32)
+    bw_avail = rng.integers(100, 2000, n).astype(np.int32)
+    bw_used = (bw_avail * rng.random(n) * 0.8).astype(np.int32) * (
+        rng.random() < 0.5
+    )
+    eligible = rng.random(n) > rng.choice([0.0, 0.3, 0.9])
+    ask = np.array([
+        int(rng.integers(1, 1500)), int(rng.integers(1, 2048)),
+        int(rng.integers(0, 2000)), int(rng.integers(0, 50)),
+    ], dtype=np.int32)
+    bw_ask = int(rng.integers(0, 200)) if rng.random() < 0.5 else 0
+    count = int(rng.integers(1, 800))
+    penalty = float(rng.choice([5.0, 10.0]))
+    jd = bool(rng.random() < 0.15)
+    td = bool(rng.random() < 0.15 and not jd)
+    return dict(
+        total=total, used=used, job_count=job_count, tg_count=tg_count,
+        bw_avail=bw_avail, bw_used=bw_used, eligible=eligible, ask=ask,
+        bw_ask=bw_ask, count=count, penalty=penalty, jd=jd, td=td,
+    )
+
+
+def fuzz_tensors(s, dev):
+    """A fuzz_solve_inputs case as the ten node and ask tensors of one
+    eval on ``dev``."""
+    import torch
+
+    i32 = lambda a: torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+    return (i32(s["total"]),
+            torch.tensor(s["total"][:, :2].astype(np.float32), device=dev),
+            i32(s["used"]), i32(s["job_count"]), i32(s["tg_count"]),
+            i32(s["bw_avail"]), i32(s["bw_used"]),
+            torch.tensor(s["eligible"], device=dev), i32(s["ask"]),
+            i32(s["bw_ask"]))
+
+
+def kernel_counts(t, count: int, penalty: float, jd: bool, td: bool):
+    """One eval through the water-fill wrapper (B = 1): the kernel on the
+    card, its plain version on the CPU."""
+    import torch
+
+    from nomad_tpu_torch.ops import waterfill
+
+    dev = t[0].device
+    counts, left = waterfill.solve_waterfill_batched(
+        *[x.unsqueeze(0) for x in t],
+        torch.tensor([count], dtype=torch.int32, device=dev),
+        torch.tensor([penalty], dtype=torch.float32, device=dev), jd, td)
+    return counts[0].cpu().numpy(), int(left[0])
+
+
+def f32_ulp_gap(a: float, b: float) -> int:
+    def key(x):
+        bits = int(np.asarray(x, dtype=np.float32).view(np.uint32))
+        return (~bits & 0xFFFFFFFF) if bits >> 31 else bits | 0x80000000
+    return abs(key(a) - key(b))
+
+
+def boundary_gap(s, t):
+    """ulp gap between the k-th and (k+1)-th candidate scores of the
+    partial round (k = the tasks left after the full rounds), scored by
+    torch on the tensors' device; None when that round takes all of its
+    candidates or none."""
+    import torch
+
+    from nomad_tpu_torch.ops.binpack import _greedy_step_state
+
+    total, used, ask, count = s["total"], s["used"], s["ask"], s["count"]
+    avail = total.astype(np.int64) - used
+    nonneg = np.all(avail >= 0, axis=1) & (s["bw_used"] <= s["bw_avail"])
+    cap = np.where(ask > 0, avail // np.maximum(ask, 1), 2**30).min(axis=1)
+    if s["bw_ask"] > 0:
+        cap = np.minimum(cap, (s["bw_avail"] - s["bw_used"]) // s["bw_ask"])
+    if s["jd"]:
+        cap = np.minimum(cap, (s["job_count"] == 0).astype(cap.dtype))
+    if s["td"]:
+        cap = np.minimum(cap, (s["tg_count"] == 0).astype(cap.dtype))
+    cap = np.where(s["eligible"] & nonneg, np.clip(cap, 0, count), 0)
+    lo, hi = 0, min(count, int(cap.max()))
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if np.minimum(cap, mid).sum() <= count:
+            lo = mid
+        else:
+            hi = mid - 1
+    base = np.minimum(cap, lo)
+    remaining = count - int(base.sum())
+    dev = t[0].device
+    b = torch.tensor(base.astype(np.int32), device=dev)
+    score, fit = _greedy_step_state(
+        t[0], t[1], t[2] + b.unsqueeze(-1) * t[8].unsqueeze(0), t[3] + b,
+        t[4] + b, t[5], t[6] + b * t[9], t[7], t[8], t[9], s["penalty"],
+        s["jd"], s["td"])
+    cand = fit.cpu().numpy() & (cap > lo)
+    scores = np.sort(score.cpu().numpy()[cand])[::-1]
+    if remaining <= 0 or remaining >= len(scores):
+        return None
+    return f32_ulp_gap(scores[remaining - 1], scores[remaining])
+
+
+def check_sound(s, counts) -> None:
+    """Every placement fits its node under the case's constraints."""
+    avail = s["total"].astype(np.int64) - s["used"]
+    for i in np.flatnonzero(counts):
+        n = int(counts[i])
+        ok = (bool(s["eligible"][i]) and bool(np.all(s["ask"] * n <= avail[i]))
+              and (s["bw_ask"] == 0 or s["bw_used"][i] + n * s["bw_ask"]
+                   <= s["bw_avail"][i])
+              and (not s["jd"] or (n <= 1 and s["job_count"][i] == 0))
+              and (not s["td"] or (n <= 1 and s["tg_count"][i] == 0)))
+        if not ok:
+            raise AssertionError(f"node {i} holds {n} tasks it cannot")
+
+
+def oracle_agrees(s, t) -> bool:
+    """solve_rounds_fused against the water-fill on one case: equal, or
+    (returns True) a pow-band instance with an equal total and both sound."""
+    from nomad_tpu_torch.ops.binpack import solve_rounds_fused
+
+    counts, left = kernel_counts(t, s["count"], s["penalty"], s["jd"],
+                                 s["td"])
+    oc, oleft = solve_rounds_fused(*t, s["count"], s["penalty"], s["jd"],
+                                   s["td"])
+    oc = oc.cpu().numpy()
+    if np.array_equal(counts, oc) and left == oleft:
+        return False
+    gap = boundary_gap(s, t)
+    if gap is None or gap > ULP_BAND:
+        raise AssertionError(f"solve_rounds_fused != the water-fill outside "
+                             f"the pow band (boundary gap {gap} ulp)")
+    if int(counts.sum()) != int(oc.sum()) or left != oleft:
+        raise AssertionError("solve_rounds_fused placed another total in "
+                             "the pow band")
+    check_sound(s, counts)
+    check_sound(s, oc)
+    return True
+
+
+def phase_secure_oracle(dev, seeds: int = ORACLE_SEEDS):
+    """(d): solve_rounds_fused (plain torch on ``dev``) against the
+    water-fill at the headline shape and at the fuzz seeds. Returns the
+    band count."""
+    from nomad_tpu_torch.ops.binpack import solve_rounds_fused
+
+    n, _b, jd, td, mode = MAIN_WF_SHAPE
+    args = waterfill_case(np.random.default_rng(SEED), n, 1, jd, td, mode,
+                          dev)
+    t = [x[0] for x in args[:10]]
+    count, penalty = int(args[10][0]), float(args[11][0])
+    counts, left = kernel_counts(t, count, penalty, jd, td)
+    oc, oleft = solve_rounds_fused(*t, count, penalty, jd, td)
+    if not (np.array_equal(counts, oc.cpu().numpy()) and left == oleft
+            and oleft == 0):
+        raise AssertionError("solve_rounds_fused != the water-fill at the "
+                             "headline shape")
+    if dev.type == "cuda":
+        ms = cuda_ms(lambda: solve_rounds_fused(*t, count, penalty, jd, td),
+                     5)
+        log(f"secure oracle: solve_rounds_fused at the headline shape "
+            f"({n} rows, {count} tasks, {int(oc.max())} rounds) "
+            f"{ms:.3f} ms, equal to the water-fill kernel")
+    band = 0
+    for seed in range(seeds):
+        s = fuzz_solve_inputs(np.random.default_rng(ORACLE_SEED_BASE + seed))
+        band += oracle_agrees(s, fuzz_tensors(s, dev))
+    log(f"secure oracle: {seeds} fuzz seeds, {seeds - band} equal, {band} "
+        f"in the {ULP_BAND}-ulp pow band (equal totals, sound)")
+    return band
+
+
+def phase_secure(dev, card: str, tmp: str):
+    """Phase 16. Returns (water-fill launches, greedy launches) of (a) and
+    (b), the main path of the phase; (c) and (d) launch only to compare."""
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    t0 = time.perf_counter()
+    certs = make_certs(tmp)
+    t1 = time.perf_counter()
+    waterfill.LAUNCHES = 0
+    greedy.LAUNCHES = 0
+    rows = phase_secure_cell(dev, certs, tmp)
+    t2 = time.perf_counter()
+    phase_secure_uplink(dev, certs, tmp)
+    t3 = time.perf_counter()
+    wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+    log(f"secure: waterfill_launches={wf} greedy_launches={gr} ({card})")
+    if wf == 0 or gr == 0:
+        raise AssertionError("the secure phase did not launch both hand "
+                             f"kernels (water-fill {wf}, greedy {gr})")
+    phase_secure_native(rows)
+    t4 = time.perf_counter()
+    phase_secure_oracle(dev)
+    log(f"secure: phase {time.perf_counter() - t0:.1f} s (certs "
+        f"{t1 - t0:.1f}, cell {t2 - t1:.1f}, uplink {t3 - t2:.1f}, native "
+        f"{t4 - t3:.1f}, oracle {time.perf_counter() - t4:.1f})")
+    return wf, gr
+
+
+def timed(n: int, fn, *args):
+    """Run phase ``n`` and log its seconds as ``phase n: <s> s``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        log(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+
+
+def in_tmp(fn, *args):
+    """fn(*args, tmp) with a fresh temporary directory, removed after."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        return fn(*args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def build_kernels():
+    """Phase 1: build every kernel; print ptxas' report, fail on a spill."""
+    from nomad_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.library("waterfill")
+    kernels.library("greedy")
+    log(f"build: {kernels.BUILD_INFO.get('built')} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, report in sorted(kernels.BUILD_INFO.get("ptxas", {}).items()):
+        for line in report.splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                log(f"ptxas {name}: {line.strip()}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                raise AssertionError(f"ptxas reports spills in {name}")
+
+
+def harness_phases(dev):
+    """Phases 3-5 through the harness; returns (water-fill launches,
+    greedy launches)."""
+    t0 = time.perf_counter()
+    h = build_cluster()
+    log(f"cluster: {N_NODES} nodes in {time.perf_counter() - t0:.1f}s")
+    wf = timed(3, phase_headline, h, dev)
+    gr = timed(4, phase_service, h, dev)
+    wf += timed(5, phase_burst, h, dev)
+    return wf, gr
+
+
+def server_phases(dev):
+    wf, gr = phase_server(dev)
+    return wf + phase_server_burst(dev), gr
+
+
 def main() -> int:
     import torch
 
@@ -4263,7 +4981,6 @@ def main() -> int:
         print(f"chip_smoke: the nomad_tpu_torch package is missing ({exc})",
               file=sys.stderr)
         return 2
-    from nomad_tpu_torch.ops import kernels
 
     t_main = time.perf_counter()
     no_outside_network()
@@ -4272,91 +4989,54 @@ def main() -> int:
     torch.manual_seed(SEED)
 
     # 1. build
-    t0 = time.perf_counter()
-    kernels.library("waterfill")
-    kernels.library("greedy")
-    log(f"build: {kernels.BUILD_INFO.get('built')} in "
-        f"{time.perf_counter() - t0:.1f}s")
-    for name, report in sorted(kernels.BUILD_INFO.get("ptxas", {}).items()):
-        for line in report.splitlines():
-            if ("entry function" in line or "registers" in line
-                    or "spill" in line):
-                log(f"ptxas {name}: {line.strip()}")
-            if re.search(r"\b[1-9]\d* bytes spill", line):
-                raise AssertionError(f"ptxas reports spills in {name}")
+    timed(1, build_kernels)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
     # 2. kernels vs plain
-    kres = phase_kernels(dev, rng)
+    kres = timed(2, phase_kernels, dev, rng)
 
     # 3-5. the main path through the harness
-    t0 = time.perf_counter()
-    h = build_cluster()
-    log(f"cluster: {N_NODES} nodes in {time.perf_counter() - t0:.1f}s")
-    wf_launches = phase_headline(h, dev)
-    gr_launches = phase_service(h, dev)
-    wf_launches += phase_burst(h, dev)
+    wf_launches, gr_launches = harness_phases(dev)
 
     # 6. the server loop
-    wf, gr = phase_server(dev)
-    wf_launches += wf + phase_server_burst(dev)
+    wf, gr = timed(6, server_phases, dev)
+    wf_launches += wf
     gr_launches += gr
 
     # 7. the cluster tier
-    wf, gr = phase_cluster(dev, rng)
+    wf, gr = timed(7, phase_cluster, dev, rng)
     wf_launches += wf
     gr_launches += gr
 
     # 8. simcluster
-    wf_launches += phase_simcluster(dev, card)
+    wf_launches += timed(8, phase_simcluster, dev, card)
 
     # 9. the system scheduler (BASELINE config 4)
-    phase_system(dev)
+    timed(9, phase_system, dev)
 
-    # 10. the agent, HTTP and the CLI
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
-    try:
-        wf, gr = phase_agent(dev, card, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    wf_launches += wf
-    gr_launches += gr
-
-    # 11. the client: node agents run what the card placed
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
-    try:
-        wf, gr = phase_client(dev, card, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    wf_launches += wf
-    gr_launches += gr
-
-    # 12. the front door and the fast lanes
-    wf, gr = phase_planes(dev, card)
-    wf_launches += wf
-    gr_launches += gr
-
-    # 13. recovery and chaos
-    wf, gr = phase_recovery(dev, card)
-    wf_launches += wf
-    gr_launches += gr
-
-    # 14. the agent's operator surface
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
-    try:
-        wf, gr = phase_operator(dev, card, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    wf_launches += wf
-    gr_launches += gr
+    # 10-14. the agent, HTTP and the CLI; the client; the front door and
+    # the fast lanes; recovery and chaos; the agent's operator surface
+    for n, fn, args in ((10, in_tmp, (phase_agent, dev, card)),
+                        (11, in_tmp, (phase_client, dev, card)),
+                        (12, phase_planes, (dev, card)),
+                        (13, phase_recovery, (dev, card)),
+                        (14, in_tmp, (phase_operator, dev, card))):
+        wf, gr = timed(n, fn, *args)
+        wf_launches += wf
+        gr_launches += gr
 
     # 15. the solver mesh: node shards on the one card, and DCN
-    mres, mnum, mlaunch = phase_mesh(dev, rng)
+    mres, mnum, mlaunch = timed(15, phase_mesh, dev, rng)
     wf_launches += mlaunch["waterfill"]
     gr_launches += mlaunch["greedy"]
+
+    # 16. the secure cell, the uplink, the native verifier, the oracle
+    wf, gr = timed(16, in_tmp, phase_secure, dev, card)
+    wf_launches += wf
+    gr_launches += gr
 
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]
@@ -4393,7 +5073,7 @@ def main() -> int:
              "nomad_tpu/ops/binpack.py:115", "greedy_merge", "merge_err"))
     ]}
     log(f"card: {card}")
-    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

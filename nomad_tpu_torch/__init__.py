@@ -9,7 +9,3 @@ Imports torch, never jax, and nothing of ``nomad_tpu``.
 
 __version__ = "0.1.0"
 
-
-class NotPortedError(RuntimeError):
-    """A caller asked for a module of nomad_tpu that nomad_tpu_torch does
-    not have yet; the message names the module."""

@@ -16,9 +16,10 @@ statsd/statsite when configured), sets the global ``Metrics`` and arms
 the SIGUSR1 dump when called on the main thread. The debug surface
 (``debug_info``, ``debug_bundle``) is served behind ``enable_debug``.
 
-What needs a module the port does not have yet raises
-:class:`nomad_tpu_torch.NotPortedError` naming it (``NOT_PORTED``): the
-Atlas/SCADA uplink.
+``tls`` (a ``tlsutil.TLSConfig``) runs the server's RPC tier and the
+client's dials over TLS; with ``atlas_endpoint`` set the agent dials the
+uplink broker after its HTTP listener is up (``scada.UplinkProvider``),
+over TLS when ``tls_uplink``.
 """
 
 from __future__ import annotations
@@ -31,24 +32,13 @@ from typing import Dict, List, Optional
 
 import torch
 
-from nomad_tpu_torch import NotPortedError
 from nomad_tpu_torch.client import Client, ClientConfig
 from nomad_tpu_torch.server.server import Server, ServerConfig
-
-# AgentConfig fields of nomad_tpu whose modules the port does not have
-# yet, with the module each needs. Setting one raises at Agent
-# construction: it is never ignored.
-NOT_PORTED = {
-    "atlas_endpoint": "the Atlas/SCADA uplink (scada.py)",
-}
 
 
 @dataclass
 class AgentConfig:
-    """Agent-level configuration (reference: command/agent/config.go).
-
-    nomad_tpu's TLS keys have no field here: tlsutil.py is not ported
-    (``agent_config`` raises on them in a config file)."""
+    """Agent-level configuration (reference: command/agent/config.go)."""
 
     region: str = "global"
     datacenter: str = "dc1"
@@ -123,7 +113,15 @@ class AgentConfig:
     rpc_host: str = ""
     rpc_port: int = 4647
     start_join: List[str] = field(default_factory=list)
+    # Atlas/SCADA-analog uplink (command/agent/scada.go): only active when
+    # an explicit endpoint is configured — there is no hardcoded SaaS.
+    atlas_infrastructure: str = ""
+    atlas_token: str = ""
     atlas_endpoint: str = ""
+    # TLS for the server RPC tier (+ optionally the uplink tunnel):
+    # a nomad_tpu_torch.tlsutil.TLSConfig, or None for plaintext.
+    tls: object = None
+    tls_uplink: bool = False
     # Deterministic fault-injection plan (nomad_tpu_torch.faults): the
     # ``faults{}`` config block as a {"seed": int, "sites": {...}} spec,
     # armed at agent start; live reconfiguration rides the debug-gated
@@ -203,6 +201,11 @@ class AgentConfig:
             rpc_host=fc.addresses.rpc or fc.bind_addr or "127.0.0.1",
             rpc_port=fc.ports.rpc,
             start_join=list(fc.server.start_join),
+            atlas_infrastructure=fc.atlas.infrastructure,
+            atlas_token=fc.atlas.token,
+            atlas_endpoint=fc.atlas.endpoint,
+            tls=(_tls_from_block(fc.tls) if fc.tls.enabled else None),
+            tls_uplink=_check_uplink_tls(fc.tls),
             faults=(
                 {"seed": fc.faults.seed, "sites": dict(fc.faults.sites)}
                 if fc.faults.sites else None
@@ -210,15 +213,37 @@ class AgentConfig:
         )
 
 
+def _check_uplink_tls(block) -> bool:
+    if block.uplink and not block.enabled:
+        # Silent plaintext downgrade is worse than failing fast.
+        raise ValueError(
+            "tls.uplink requires tls.enabled (the tunnel would silently "
+            "run plaintext otherwise)")
+    return block.uplink
+
+
+def _tls_from_block(block) -> "object":
+    from nomad_tpu_torch.tlsutil import TLSConfig
+
+    return TLSConfig(
+        enabled=True,
+        ca_file=block.ca_file,
+        cert_file=block.cert_file,
+        key_file=block.key_file,
+        verify_incoming=block.verify_incoming,
+        verify_hostname=block.verify_hostname,
+    )
+
+
 class Agent:
     def __init__(self, config: AgentConfig,
                  logger: Optional[logging.Logger] = None):
-        for key, needs in NOT_PORTED.items():
-            if getattr(config, key):
-                raise NotPortedError(
-                    f"AgentConfig.{key} needs {needs}, which "
-                    "nomad_tpu_torch does not have yet"
-                )
+        if config.atlas_endpoint:
+            # Validate before any side effects (listeners, raft) so a
+            # malformed endpoint fails at construction, not mid-start.
+            from nomad_tpu_torch.scada import _split_endpoint
+
+            _split_endpoint(config.atlas_endpoint)
         self.config = config
         self.logger = logger or logging.getLogger("nomad_tpu_torch.agent")
         self.server: Optional[Server] = None
@@ -226,6 +251,7 @@ class Agent:
         self.http: Optional[object] = None
         self.client_config: Optional[ClientConfig] = None
         self.inmem_sink = None
+        self.uplink = None
         self.lock_watchdog = None
         if config.lock_watchdog:
             # Before _setup_server(): only locks CONSTRUCTED after
@@ -271,6 +297,7 @@ class Agent:
             node_name=self.config.node_name or "server",
             scheduler_backend=self.config.scheduler_backend,
             device=self.config.device,
+            tls=self.config.tls,
             eval_pending_cap=self.config.eval_pending_cap,
             plan_queue_cap=self.config.plan_queue_cap,
             max_blocking_watchers=self.config.max_blocking_watchers,
@@ -350,6 +377,7 @@ class Agent:
             options=dict(self.config.client_options),
             rpc_handler=self.server,
             servers=list(self.config.client_servers),
+            tls=self.config.tls,
         )
 
     def setup_telemetry(self) -> None:
@@ -419,8 +447,31 @@ class Agent:
             self.logger.getChild("http"),
         )
         self.http.start()
+        if self.config.atlas_endpoint:
+            from nomad_tpu_torch.scada import UplinkProvider
+
+            # An endpoint alone is enough (the Atlas docstring promises
+            # "endpoint set -> agent dials"); infrastructure falls back to
+            # the node name so the broker still gets a session key.
+            uplink_tls = None
+            if self.config.tls_uplink and self.config.tls is not None:
+                uplink_tls = self.config.tls.outgoing_context()
+            self.uplink = UplinkProvider(
+                endpoint=self.config.atlas_endpoint,
+                infrastructure=self.config.atlas_infrastructure
+                or self.config.node_name or "default",
+                token=self.config.atlas_token,
+                http_addr=f"{self.config.http_host}:{self.http.port}",
+                meta={"region": self.config.region,
+                      "datacenter": self.config.datacenter},
+                logger=self.logger.getChild("scada"),
+                tls_context=uplink_tls,
+            )
+            self.uplink.start()
 
     def shutdown(self) -> None:
+        if self.uplink is not None:
+            self.uplink.shutdown()
         if self.http is not None:
             self.http.shutdown()
         if self.client is not None:

@@ -4,16 +4,14 @@ Port of nomad_tpu/agent_config.py (reference: upstream
 command/agent/config.go) — the agent reads any number of config
 files/directories given with ``-config``; later files override earlier
 ones field-by-field, maps merge key-by-key, and CLI flags override files.
-Blocks: ports, addresses, advertise, client, server, telemetry, faults.
+Blocks: ports, addresses, advertise, client, server, telemetry, faults,
+atlas, tls.
 
 The HCL dialect is the same one job specs use, so this reuses
 ``nomad_tpu_torch.jobspec.hcl``; ``.json`` files parse with the stdlib.
 
-A key whose module the port does not have yet (``NOT_PORTED_KEYS``: TLS,
-Atlas) raises
-:class:`nomad_tpu_torch.NotPortedError` naming that module: it is never
-ignored. The port adds ``device`` (default ``cuda``): where the agent's
-server solves.
+The port adds ``device`` (default ``cuda``): where the agent's server
+solves.
 """
 
 from __future__ import annotations
@@ -23,7 +21,6 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from nomad_tpu_torch import NotPortedError
 from nomad_tpu_torch.capacity import CapacityConfig
 from nomad_tpu_torch.jobspec.hcl import Block, Body, parse as parse_hcl
 from nomad_tpu_torch.parallel.mesh import SolverMeshConfig
@@ -34,21 +31,6 @@ from nomad_tpu_torch.server.admission import AdmissionConfig
 from nomad_tpu_torch.server.express import ExpressConfig
 from nomad_tpu_torch.server.read_path import ReadPathConfig
 from nomad_tpu_torch.slo import Objective
-
-# Config keys of nomad_tpu whose modules the port does not have yet, with
-# the module each needs.
-NOT_PORTED_KEYS = {
-    "tls": "TLS on the RPC tier (tlsutil.py)",
-    "atlas": "the Atlas/SCADA uplink (scada.py)",
-}
-
-
-def _not_ported(key: str) -> NotPortedError:
-    return NotPortedError(
-        f"agent config {key!r} needs {NOT_PORTED_KEYS[key]}, which "
-        "nomad_tpu_torch does not have yet"
-    )
-
 
 @dataclass
 class Ports:
@@ -161,6 +143,20 @@ class Telemetry:
 
 
 @dataclass
+class Atlas:
+    """config.go AtlasConfig block. When ``endpoint`` is set the agent
+    dials it and exposes the HTTP API over the tunnel
+    (nomad_tpu_torch.scada.UplinkProvider, ref command/agent/scada.go);
+    without an explicit endpoint the uplink stays off — the reference's
+    default points at a defunct third-party SaaS."""
+
+    infrastructure: str = ""
+    token: str = ""
+    join: bool = False
+    endpoint: str = ""
+
+
+@dataclass
 class FaultsBlock:
     """Deterministic fault-injection plan (nomad_tpu_torch.faults)::
 
@@ -176,6 +172,21 @@ class FaultsBlock:
 
     seed: int = 0
     sites: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class TLSBlock:
+    """TLS for the server RPC tier and the uplink tunnel (reference:
+    nomad/tlsutil feeding the rpcTLS listener arm, nomad/rpc.go:104-110).
+    ``uplink`` additionally wraps the dialed atlas tunnel."""
+
+    enabled: bool = False
+    ca_file: str = ""
+    cert_file: str = ""
+    key_file: str = ""
+    verify_incoming: bool = True
+    verify_hostname: bool = False
+    uplink: bool = False
 
 
 @dataclass
@@ -196,6 +207,8 @@ class FileConfig:
     server: ServerBlock = field(default_factory=ServerBlock)
     telemetry: Telemetry = field(default_factory=Telemetry)
     faults: FaultsBlock = field(default_factory=FaultsBlock)
+    atlas: Atlas = field(default_factory=Atlas)
+    tls: TLSBlock = field(default_factory=TLSBlock)
     leave_on_interrupt: bool = False
     leave_on_terminate: bool = False
     enable_syslog: bool = False
@@ -337,6 +350,26 @@ class FileConfig:
             # overrides a site's whole rule (list), never splices into it.
             sites={**self.faults.sites, **other.faults.sites},
         )
+        out.atlas = Atlas(
+            infrastructure=(other.atlas.infrastructure
+                            or self.atlas.infrastructure),
+            token=other.atlas.token or self.atlas.token,
+            join=other.atlas.join or self.atlas.join,
+            endpoint=other.atlas.endpoint or self.atlas.endpoint,
+        )
+        out.tls = TLSBlock(
+            enabled=other.tls.enabled or self.tls.enabled,
+            ca_file=other.tls.ca_file or self.tls.ca_file,
+            cert_file=other.tls.cert_file or self.tls.cert_file,
+            key_file=other.tls.key_file or self.tls.key_file,
+            # verify_incoming defaults True; an explicit False in either
+            # layer wins (relaxation must be expressible).
+            verify_incoming=(self.tls.verify_incoming
+                             and other.tls.verify_incoming),
+            verify_hostname=(other.tls.verify_hostname
+                             or self.tls.verify_hostname),
+            uplink=other.tls.uplink or self.tls.uplink,
+        )
         return out
 
 
@@ -402,8 +435,6 @@ def _from_mapping(data: dict) -> FileConfig:
         "scheduler_backend", "device",
     }
     for key, value in data.items():
-        if key in NOT_PORTED_KEYS:
-            raise _not_ported(key)
         if key in scalars:
             setattr(cfg, key, value)
         elif key == "ports":
@@ -429,8 +460,6 @@ def _from_mapping(data: dict) -> FileConfig:
                     setattr(cfg.client, k, v)
         elif key == "server":
             for k, v in value.items():
-                if f"server.{k}" in NOT_PORTED_KEYS:
-                    raise _not_ported(f"server.{k}")
                 if k in ("enabled_schedulers", "start_join"):
                     setattr(cfg.server, k, list(v))
                 elif k in ("scheduler_workers", "num_schedulers"):
@@ -466,8 +495,6 @@ def _from_mapping(data: dict) -> FileConfig:
                     setattr(cfg.server, k, v)
         elif key == "telemetry":
             for k, v in value.items():
-                if f"telemetry.{k}" in NOT_PORTED_KEYS:
-                    raise _not_ported(f"telemetry.{k}")
                 if not hasattr(cfg.telemetry, k):
                     raise ValueError(f"unknown telemetry config key {k!r}")
                 if k in ("trace_buffer_size", "event_buffer_size"):
@@ -507,6 +534,14 @@ def _from_mapping(data: dict) -> FileConfig:
                     cfg.faults.sites.update(v)
                 else:
                     raise ValueError(f"unknown faults config key {k!r}")
+        elif key == "atlas":
+            for k, v in value.items():
+                setattr(cfg.atlas, k, v)
+        elif key == "tls":
+            for k, v in value.items():
+                if not hasattr(cfg.tls, k):
+                    raise ValueError(f"unknown tls config key {k!r}")
+                setattr(cfg.tls, k, v)
         else:
             raise ValueError(f"unknown agent config key {key!r}")
     return cfg

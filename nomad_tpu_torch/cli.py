@@ -130,7 +130,19 @@ def _read_agent_config(args):
     flags.device = "" if args.device == "cuda" else args.device
     if args.http_port != 4646:
         flags.ports.http = args.http_port
-    return config.merge(flags)
+    config = config.merge(flags)
+
+    if config.atlas.endpoint:
+        # Mirror the agent's session-key fallback (agent.py start()) so
+        # the banner names the key a broker will actually see.
+        infra = config.atlas.infrastructure or config.name or "default"
+        print(f"==> Atlas/SCADA uplink: {config.atlas.endpoint} "
+              f"(infrastructure: {infra})")
+    elif config.atlas.infrastructure:
+        from nomad_tpu_torch.scada import scada_unavailable_reason
+
+        print(f"==> Atlas/SCADA disabled: {scada_unavailable_reason()}")
+    return config
 
 
 def cmd_agent(args) -> int:

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 from nomad_tpu_torch import structs
 from nomad_tpu_torch.client.alloc_runner import AllocRunner
-from nomad_tpu_torch.client.config import ClientConfig, check_no_tls
+from nomad_tpu_torch.client.config import ClientConfig
 from nomad_tpu_torch.client.driver.driver import builtin_driver_classes
 from nomad_tpu_torch.client.fingerprint import BUILTIN_FINGERPRINTS
 from nomad_tpu_torch.structs import Allocation, Node, Resources, generate_uuid
@@ -69,8 +69,12 @@ class Client:
             # In-process short-circuit (config.go:44-46 RPCHandler)
             self.endpoint = InProcessEndpoint(config.rpc_handler)
         elif config.servers:
-            check_no_tls(config.tls)
-            self.endpoint = RemoteEndpoint(config.servers)
+            tls = config.tls
+            self.endpoint = RemoteEndpoint(
+                config.servers,
+                ssl_context=(tls.outgoing_context()
+                             if tls is not None else None),
+            )
         else:
             raise ValueError(
                 "client requires an rpc_handler (in-process server) or a "

@@ -10,7 +10,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from nomad_tpu_torch import NotPortedError
 
 
 @dataclass
@@ -30,12 +29,10 @@ class ClientConfig:
     # a Server instance in single-process mode.
     rpc_handler: object = None
     heartbeat_grace: float = 0.5
-    # TLS for the client->server RPC path: nomad_tpu's TLSConfig. The
-    # port has no tlsutil.py yet, so anything but None raises.
+    # TLS for the client->server RPC path (nomad_tpu_torch.tlsutil.TLSConfig
+    # or None): must match the servers' tls block or every RPC handshake
+    # fails against their TLS listeners.
     tls: object = None
-
-    def __post_init__(self) -> None:
-        check_no_tls(self.tls)
 
     def read(self, key: str) -> Optional[str]:
         return self.options.get(key)
@@ -49,11 +46,3 @@ class ClientConfig:
             return default
         return val.lower() in ("1", "true", "t", "yes")
 
-
-def check_no_tls(tls) -> None:
-    """The client's RPC path is plaintext until tlsutil.py is ported: a
-    TLS config is refused, never ignored."""
-    if tls is not None:
-        raise NotPortedError(
-            "ClientConfig.tls needs TLS on the RPC tier (tlsutil.py), "
-            "which nomad_tpu_torch does not have yet")

@@ -14,7 +14,8 @@ plain PyTorch version in the same module:
 
 Both go through the coalescing dispatcher (``ops/coalesce.py``), which
 stacks concurrent evals' solves on an eval axis. ``solve_rounds_fused``
-(the JAX package's fuzz oracle) is not ported yet.
+simulates the rounds one by one in plain PyTorch on the inputs' device:
+the fuzz oracle the water-fill is held to. No scheduler calls it.
 """
 
 from __future__ import annotations
@@ -90,6 +91,47 @@ def _greedy_step_state(
     score = score - penalty * job_count.to(torch.float32)
     score = torch.where(fit, score, torch.full_like(score, NEG_INF))
     return score, fit
+
+
+def solve_rounds_fused(
+    total, sched_cap, used0, job_count0, tg_count0, bw_avail, bw_used0,
+    eligible, ask, bw_ask, count: int, penalty: float,
+    job_distinct: bool = False, tg_distinct: bool = False,
+):
+    """Direct round simulation: each round places one copy on every
+    fitting node, or, where more nodes fit than tasks remain, on the
+    ``remaining`` best-scoring of them (a stable descending sort, so ties
+    go to the lower index, as ``jnp.argsort`` orders them). Stops when
+    nothing is left or a round places nothing. Returns (counts [N] int32,
+    remaining int)."""
+    n = total.shape[0]
+    used, job_count, tg_count, bw_used = used0, job_count0, tg_count0, bw_used0
+    counts = torch.zeros(n, dtype=torch.int32, device=total.device)
+    remaining = int(count)
+    while remaining > 0:
+        score, fit = _greedy_step_state(
+            total, sched_cap, used, job_count, tg_count, bw_avail, bw_used,
+            eligible, ask, bw_ask, penalty, job_distinct, tg_distinct,
+        )
+        if int(fit.sum()) <= remaining:
+            selected = fit
+        else:
+            # Partial round: non-fit scores are NEG_INF, so fits sort first.
+            order = torch.argsort(-score, stable=True)
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(n, device=order.device)
+            selected = fit & (rank < remaining)
+        n_placed = int(selected.sum())
+        if n_placed == 0:
+            break
+        step = selected.to(torch.int32)
+        used = used + step.unsqueeze(-1) * ask.unsqueeze(0)
+        job_count = job_count + step
+        tg_count = tg_count + step
+        bw_used = bw_used + step * bw_ask
+        counts = counts + step
+        remaining -= n_placed
+    return counts, remaining
 
 
 def solve_many_async(

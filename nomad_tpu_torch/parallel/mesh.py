@@ -43,11 +43,11 @@ logger = logging.getLogger("nomad_tpu_torch.parallel")
 
 
 def local_devices(device_type: Optional[str] = None) -> List[torch.device]:
-    """The local device list: every card ``torch.cuda`` sees, or, for
-    ``device_type="cpu"`` (the default where there is no card),
+    """The local device list: every card ``torch.cuda`` sees (the default,
+    ``None`` or ``"cuda"``; raises where there is no card, as
+    ``device.resolve_device`` does), or, for ``device_type="cpu"``,
     ``CPU_DEVICES`` entries of ``cpu``."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type = resolve_device(device_type).type
     if device_type == "cuda":
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]

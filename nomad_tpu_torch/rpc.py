@@ -16,8 +16,9 @@ caller on its seq and a per-connection reader demuxes responses. A
 blocking long-poll (Eval.Dequeue, blocking queries) therefore shares the
 connection with control traffic instead of requiring a second pool.
 
-TLS: the ``ssl_context`` arguments stay in the signatures for nomad_tpu's
-call shape but take only None here; the port has no ``tlsutil`` yet.
+TLS: an optional ``ssl_context`` (``tlsutil.TLSConfig``'s incoming or
+outgoing context) wraps each accepted or dialed TCP socket; the framing
+above it is unchanged, so a TLS peer of either package talks to the other.
 
 Wire format: 4-byte big-endian length + JSON object.
 Request:  {"seq": n, "method": "Service.Method", "args": {...}}
@@ -62,20 +63,24 @@ def _set_send_timeout(sock: socket.socket, seconds: float) -> None:
     )
 
 
-def _no_tls(ssl_context) -> None:
-    if ssl_context is not None:
-        raise ValueError(
-            "TLS needs tlsutil.py, which nomad_tpu_torch does not have yet"
-        )
-
-
-def _hard_close(sock: socket.socket) -> None:
-    """shutdown(SHUT_RDWR) then close: plain close() does not interrupt a
-    recv blocked in another thread, and the peer would never see FIN."""
+def _shut_down(sock: socket.socket) -> None:
+    """shutdown(SHUT_RDWR) from another thread than the socket's reader: a
+    recv blocked on it returns, the peer sees FIN, and the reader closes
+    the socket as it returns. Not closed here: OpenSSL keeps the
+    descriptor's number, so a TLS socket closed under its reader lets the
+    reader's next read land on whichever socket reuses that number (a
+    fresh connection of the same process then loses bytes or is reset)."""
     try:
         sock.shutdown(socket.SHUT_RDWR)
     except OSError:
         pass
+
+
+def _hard_close(sock: socket.socket) -> None:
+    """shutdown(SHUT_RDWR) then close, by the thread that reads ``sock``
+    (or where none does): plain close() does not interrupt a recv blocked
+    in another thread, and the peer would never see FIN."""
+    _shut_down(sock)
     try:
         sock.close()
     except OSError:
@@ -108,13 +113,18 @@ def _send_frame(sock: socket.socket, obj: Any) -> None:
     sock.sendall(_LEN.pack(len(data)) + data)
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    # Into one preallocated buffer: appending chunk by chunk copies the
+    # frame once a chunk, and a TLS socket hands out 16 KiB records, so a
+    # 40 MB frame (100,000 alloc stubs through the uplink) took seconds.
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], n - got)
+        if not k:
             raise ConnectionError("connection closed")
-        buf += chunk
+        got += k
     return buf
 
 
@@ -171,7 +181,7 @@ def serve_frames(
                     with write_lock:
                         _send_frame(conn, err)
                 except Exception:
-                    _hard_close(conn)
+                    _shut_down(conn)
         finally:
             inflight.release()
 
@@ -195,9 +205,11 @@ class RPCServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  logger: Optional[logging.Logger] = None,
                  ssl_context=None):
-        _no_tls(ssl_context)
         self.logger = logger or logging.getLogger("nomad_tpu_torch.rpc")
         self._handlers: Dict[str, Callable[[dict], Any]] = {}
+        # Optional TLS arm (reference nomad/rpc.go:104-110 rpcTLS): the
+        # context wraps each accepted conn; the mux above is unchanged.
+        self._ssl_context = ssl_context
         self._listener = socket.create_server((host, port))
         self.addr = "{}:{}".format(*self._listener.getsockname())
         self._shutdown = threading.Event()
@@ -228,7 +240,7 @@ class RPCServer:
             conns = list(self._conns)
             self._conns.clear()
         for conn in conns:
-            _hard_close(conn)
+            _shut_down(conn)  # each conn's serve thread closes it
         # The accept thread must actually exit before the caller may
         # rebind the port.
         if self._thread.is_alive():
@@ -249,7 +261,13 @@ class RPCServer:
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             _set_send_timeout(conn, SEND_TIMEOUT)
-        except (ConnectionError, OSError) as e:
+            if self._ssl_context is not None:
+                # Bound the handshake: a half-open probe must not pin
+                # this thread forever.
+                conn.settimeout(SEND_TIMEOUT)
+                conn = self._ssl_context.wrap_socket(conn, server_side=True)
+                conn.settimeout(None)
+        except (ConnectionError, OSError, ValueError) as e:
             self.logger.debug("rpc: connection setup failed: %s", e)
             _hard_close(conn)
             return
@@ -379,8 +397,10 @@ class ConnPool:
     concurrent requests — long-polls and control traffic interleave."""
 
     def __init__(self, timeout: float = 10.0, ssl_context=None):
-        _no_tls(ssl_context)
         self.timeout = timeout
+        # Optional TLS: wraps each pooled conn at dial; with
+        # check_hostname the context verifies the host part of the addr.
+        self._ssl_context = ssl_context
         self._lock = threading.Lock()
         self._conns: Dict[str, _MuxConn] = {}
         self._seq = 0
@@ -453,7 +473,12 @@ class ConnPool:
         host, port = addr.rsplit(":", 1)
         try:
             sock = socket.create_connection((host, int(port)), timeout=self.timeout)
+            if self._ssl_context is not None:
+                sock = self._ssl_context.wrap_socket(
+                    sock, server_hostname=host
+                )
         except (OSError, ValueError) as e:
+            # A failed TLS handshake never dispatched anything either.
             raise RPCUndeliveredError(
                 f"failed to connect to {addr}: {e}"
             ) from e
@@ -468,9 +493,9 @@ class ConnPool:
         with self._lock:
             existing = self._conns.get(addr)
             if existing is not None and existing.dead is None:
-                # Lost the connect race: hard-close so the loser's already-
-                # running reader thread unblocks and exits.
-                _hard_close(sock)
+                # Lost the connect race: shut down so the loser's already-
+                # running reader thread unblocks, closes it and exits.
+                _shut_down(sock)
                 return existing
             self._conns[addr] = mux
         return mux
@@ -482,11 +507,11 @@ class ConnPool:
                 self._conns.pop(addr, None)
                 mux = current
         if mux is not None:
-            _hard_close(mux.sock)
+            _shut_down(mux.sock)  # its reader closes it
 
     def shutdown(self) -> None:
         with self._lock:
             conns = list(self._conns.values())
             self._conns.clear()
         for mux in conns:
-            _hard_close(mux.sock)
+            _shut_down(mux.sock)

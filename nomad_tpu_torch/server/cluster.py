@@ -13,9 +13,9 @@ solves into one dispatch. Every member runs the SLO monitor, the
 admission front door (consulted on the leader: followers forward writes
 before checking anything), the express lane (placing only on the leader;
 leadership loss demotes it) and the read plane (a follower's linearizable
-lane confirms its read index over ``Raft.ReadIndex``). Left out until
-their modules are ported: TLS (``ServerConfig.tls`` stays in
-NOT_PORTED). Like nomad_tpu's, ``start`` runs no shape warmer.
+lane confirms its read index over ``Raft.ReadIndex``). With
+``ServerConfig.tls`` set, the listener and both pools (raft's too) run
+over TLS. Like nomad_tpu's, ``start`` runs no shape warmer.
 """
 
 from __future__ import annotations
@@ -108,15 +108,22 @@ class ClusterServer(Server):
         self.cluster = cluster or ClusterConfig()
         super().__init__(config, logger)
 
+        # Optional TLS (ServerConfig.tls -> tlsutil.TLSConfig): the
+        # listener serves the node cert (mutual when verify_incoming) and
+        # the pool dials with CA verification — the reference's rpcTLS
+        # arm (nomad/rpc.go:104-110).
+        tls = self.config.tls
+        incoming = tls.incoming_context() if tls is not None else None
+        outgoing = tls.outgoing_context() if tls is not None else None
         self.rpc = RPCServer(
             self.cluster.bind_host, self.cluster.bind_port,
-            self.logger.getChild("rpc"),
+            self.logger.getChild("rpc"), ssl_context=incoming,
         )
         self.rpc_addr = self.rpc.addr
         # One stream-multiplexed connection per peer carries control
         # traffic AND long-polls (Eval.Dequeue, blocking queries) — the
         # yamux posture (nomad/rpc.go:120-137); see nomad_tpu_torch/rpc.py.
-        self.pool = ConnPool(timeout=5.0)
+        self.pool = ConnPool(timeout=5.0, ssl_context=outgoing)
 
         if not self.cluster.node_id:
             self.cluster.node_id = self.config.node_name
@@ -157,8 +164,10 @@ class ClusterServer(Server):
             self.fsm,
             self.rpc,
             logger=self.logger.getChild("raft"),
-            # Raft keeps its own (shorter-timeout) pool.
-            pool=ConnPool(timeout=2.0),
+            # Raft keeps its own (shorter-timeout) pool; it must dial with
+            # the same TLS posture or peers' TLS listeners reject its
+            # plaintext vote/append traffic.
+            pool=ConnPool(timeout=2.0, ssl_context=outgoing),
         )
         self.raft.on_leadership_change = self._leadership_changed
         # Only a current leader feeds its broker during FSM apply; raft role

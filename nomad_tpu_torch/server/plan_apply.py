@@ -10,17 +10,17 @@ once and generalizes this module's verification to one fused K x nodes
 tensor pass, so the single-plan semantics here are the decision contract
 the batched verifier is fuzz-pinned against.
 
-nomad_tpu runs the bulk superset check through a ctypes C++ helper with a
-numpy equivalent (``nomad_tpu.native.fit_check``); the port keeps the
-numpy equivalent (``fit_check`` below) and builds no shared library. This
-is host control-plane code: the device kernels are in ``ops/``.
+The bulk superset check runs through the ctypes C++ helper
+(``nomad_tpu_torch.native.fit_check``), built with the host compiler at
+first use, as nomad_tpu's does. This is host control-plane code: the
+device kernels are in ``ops/``.
 """
 
 from __future__ import annotations
 
 import threading
 
-from nomad_tpu_torch import telemetry
+from nomad_tpu_torch import native, telemetry
 from nomad_tpu_torch.structs import (
     Allocation,
     Plan,
@@ -56,20 +56,6 @@ def evaluate_node_plan(snap, plan: Plan, node_id: str,
 
     fit, _, _ = allocs_fit(node, proposed)
     return fit
-
-
-def fit_check(used, total):
-    """Per-row superset check (funcs.go:56-71): (fit bool[N], first
-    exhausted dim int32[N], -1 where the row fits). Both inputs are cast to
-    int32 first, as nomad_tpu.native's numpy path casts them."""
-    import numpy as np
-
-    used = np.ascontiguousarray(used, dtype=np.int32)
-    total = np.ascontiguousarray(total, dtype=np.int32)
-    over = used > total
-    fit = ~over.any(axis=1)
-    exhausted = np.where(fit, -1, over.argmax(axis=1)).astype(np.int32)
-    return fit, exhausted
 
 
 # Plans below this many placements verify with the per-node scalar loop;
@@ -691,7 +677,7 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
                 used += block_usage[rows_arr]
             if ask_arr is not None:
                 used += ask_arr[rows_arr]
-            fit, _exhausted = fit_check(
+            fit, _exhausted = native.fit_check(
                 np.minimum(used, 2**31 - 1).astype(np.int32),
                 table.totals[rows_arr],
             )
@@ -774,7 +760,7 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
         used += ask_arr[rows_arr]
     for pos, extra in adjust.items():
         used[pos] += extra
-    fit, _exhausted = fit_check(
+    fit, _exhausted = native.fit_check(
         np.minimum(used, 2**31 - 1).astype(np.int32),
         table.totals[rows_arr],
     )
@@ -864,7 +850,7 @@ def _prevaluate_nodes_bulk_dict(snap, plan: Plan, batch_ask=None):
         return out
 
     used = np.asarray(base_rows, dtype=np.int64)
-    fit, _exhausted = fit_check(
+    fit, _exhausted = native.fit_check(
         np.minimum(used, 2**31 - 1).astype(np.int32),
         np.asarray(totals_rows, dtype=np.int32),
     )

@@ -247,7 +247,7 @@ def _fused_prefix(snap, plans: List[Plan], table,
             if row is not None:
                 res_rows[row] += vec
         base = base + res_rows[union]
-    # Same int32 clamp as the scalar verifier's fit_check feed —
+    # Same int32 clamp as the scalar verifier's native.fit_check feed —
     # decision identity must survive saturating asks.
     used = np.minimum(base[None, :, :] + cum, 2**31 - 1)
     fits = np.all(used <= table.totals[union].astype(np.int64)[None, :, :],

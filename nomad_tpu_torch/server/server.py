@@ -76,20 +76,11 @@ from nomad_tpu_torch.slo import (
 )
 from nomad_tpu_torch.tpu.mirror import GLOBAL_MIRROR_CACHE
 
-# nomad_tpu ServerConfig keys whose modules the port does not have yet,
-# with the module each needs. Setting one raises: it is never ignored.
-NOT_PORTED = {
-    "tls": "TLS on the RPC tier (tlsutil.py)",
-}
-
-
 @dataclass
 class ServerConfig:
     """Server tunables (reference: nomad/config.go:46-236 defaults).
 
-    The keys of nomad_tpu's ServerConfig that belong to modules the port
-    does not have yet are listed in ``NOT_PORTED`` and must stay None:
-    TLS. ``solver_mesh`` (parallel/mesh.py SolverMeshConfig) shards the
+    ``solver_mesh`` (parallel/mesh.py SolverMeshConfig) shards the
     node axis of every solve over the local devices of ``device``'s type;
     a mesh they can't satisfy leaves solves single-device on ``device``.
     ``Server.stats()`` reports the server's device in place of nomad_tpu's
@@ -189,6 +180,8 @@ class ServerConfig:
     # defaults (enabled; it drains books the raft node keeps as plain
     # data).
     raft_observe: Optional[Dict] = None
+    # Optional TLS on the RPC tier (reference nomad/rpc.go:104-110 rpcTLS
+    # + tlsutil): a nomad_tpu_torch.tlsutil.TLSConfig; None runs plaintext.
     tls: object = None
     # Runtime self-observatory spec (ProfileObserveConfig.parse mapping):
     # the read-only observer behind /v1/agent/profile and
@@ -199,12 +192,6 @@ class ServerConfig:
     solver_mesh: Optional[Dict] = None
 
     def __post_init__(self) -> None:
-        for key, needs in NOT_PORTED.items():
-            if getattr(self, key) is not None:
-                raise ValueError(
-                    f"ServerConfig.{key} needs {needs}, which "
-                    "nomad_tpu_torch does not have yet"
-                )
         if self.num_schedulers is not None:
             self.scheduler_workers = self.num_schedulers
         # Both spellings read the same resolved value afterwards.

@@ -39,11 +39,9 @@ own sources) for its span, and uninstalls it after; the contrast arms
 run without it. steady-10k's profiler-off contrast arm carries the
 ``profiler_overhead`` verdict.
 
-A scenario whose server overrides name a key of ``server.NOT_PORTED``
-(``unported_needs``) raises :class:`NotPortedError` naming the modules
-before anything starts. It never runs a quietly reduced version. Every
-scenario of nomad_tpu's registry, the three chaos families included,
-runs in this package.
+Every scenario of nomad_tpu's registry, the three chaos families
+included, runs in this package. Server overrides go to each member's
+``ServerConfig`` as nomad_tpu's runner passes them, ``tls`` included.
 
 The read fleet (``read_storm`` actions) talks HTTP to loopback fronts of
 the port's ``api/http.py``: one on the leader, and with the read plane on
@@ -68,14 +66,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from nomad_tpu_torch import (
-    NotPortedError,
-    faults,
-    lifecycle,
-    slo,
-    structs,
-    telemetry,
-)
+from nomad_tpu_torch import faults, lifecycle, slo, structs, telemetry
 from nomad_tpu_torch.api.codec import to_dict
 from nomad_tpu_torch.device import resolve_device
 from nomad_tpu_torch.rpc import RemoteError
@@ -84,7 +75,7 @@ from nomad_tpu_torch.server.cluster import (
     ClusterServer,
     wait_for_leader,
 )
-from nomad_tpu_torch.server.server import NOT_PORTED, ServerConfig
+from nomad_tpu_torch.server.server import ServerConfig
 from nomad_tpu_torch.simcluster.simnode import SimFleet, sim_node
 from nomad_tpu_torch.structs import parse_reject
 from nomad_tpu_torch.simcluster.workload import (
@@ -541,18 +532,6 @@ def _spec_registry() -> Dict[str, ScenarioSpec]:
 
 
 SCENARIOS = _spec_registry()
-
-
-def unported_needs(spec: ScenarioSpec) -> List[str]:
-    """The modules ``spec`` needs that nomad_tpu_torch does not have yet,
-    sorted (empty: the port runs it whole)."""
-    return sorted({NOT_PORTED[k] for k in spec.server_overrides
-                   if k in NOT_PORTED})
-
-
-def _not_ported_message(what: str, needs: List[str]) -> str:
-    return (f"{what} needs " + "; ".join(needs)
-            + ", which nomad_tpu_torch does not have yet")
 
 
 def canonical_events(events) -> Dict:
@@ -1413,10 +1392,6 @@ class ScenarioRunner:
         from nomad_tpu_torch.tpu.solver import SOLVER_PANEL
 
         spec = self.spec
-        needs = unported_needs(spec)
-        if needs:
-            raise NotPortedError(
-                _not_ported_message(f"scenario {spec.name!r}", needs))
         # Overrides go through the CONSTRUCTOR: __post_init__ resolves and
         # validates the scheduler_workers/num_schedulers alias pair.
         cfg_kwargs = dict(

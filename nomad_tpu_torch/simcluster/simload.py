@@ -19,8 +19,7 @@ run the plain PyTorch path).
 requires equal canonical event digests (scenario.canonical_events); the
 artifact records both digests and the verdict. Scenarios whose spec sets
 ``deterministic=False`` refuse verification instead of reporting a
-vacuous pass. A scenario that needs a module the port does not have yet
-exits with code 2 and names the module.
+vacuous pass.
 """
 
 from __future__ import annotations
@@ -55,19 +54,11 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
 
-    from nomad_tpu_torch.simcluster.scenario import (
-        SCENARIOS,
-        NotPortedError,
-        run_scenario,
-        unported_needs,
-    )
+    from nomad_tpu_torch.simcluster.scenario import SCENARIOS, run_scenario
 
     if args.list:
         for name, spec in sorted(SCENARIOS.items()):
-            needs = unported_needs(spec)
-            state = ("runs" if not needs
-                     else "waits for " + "; ".join(needs))
-            print(f"{name:20s} n_nodes={spec.n_nodes:<6d} {state}")
+            print(f"{name:20s} n_nodes={spec.n_nodes:<6d} runs")
         return 0
 
     spec = SCENARIOS.get(args.scenario)
@@ -83,12 +74,8 @@ def main(argv=None) -> int:
         return 2
 
     out_path = args.out or f"SIMLOAD_{args.scenario}_s{args.seed}.json"
-    try:
-        artifact = run_scenario(args.scenario, seed=args.seed,
-                                n_nodes=args.nodes, device=args.device)
-    except NotPortedError as e:
-        print(str(e), file=sys.stderr)
-        return 2
+    artifact = run_scenario(args.scenario, seed=args.seed,
+                            n_nodes=args.nodes, device=args.device)
 
     if args.verify_determinism:
         # Main arms only: the contrast arm's digest is not part of the

@@ -3,7 +3,7 @@
 Port of nomad_tpu/simcluster/simnode.py over the port's RPC tier
 (``nomad_tpu_torch.rpc.ConnPool``): the same fleet, ids and RPCs.
 
-A real client (``nomad_tpu/client/client.py``, not ported yet) carries an
+A real client (``nomad_tpu_torch/client/client.py``) carries an
 AllocRunner, TaskRunner, fingerprint probes and a persistence layer —
 ~none of which load the CONTROL PLANE. A SimNode is only the parts the
 server can see: a fingerprint-shaped registration, TTL heartbeat

@@ -275,7 +275,7 @@ def test_capacity_event_is_observer_topic():
 
 def test_server_config_parses_both_observatory_blocks():
     from nomad_tpu.server.server import ServerConfig as JaxServerConfig
-    from nomad_tpu_torch.server.server import NOT_PORTED, ServerConfig
+    from nomad_tpu_torch.server.server import ServerConfig
 
     spec = {"capacity": {"poll_interval": 0.25, "events_interval": 2.0},
             "raft_observe": {"enabled": False}}
@@ -283,7 +283,6 @@ def test_server_config_parses_both_observatory_blocks():
     ref = JaxServerConfig(**spec)
     assert vars(got.capacity_config) == vars(ref.capacity_config)
     assert vars(got.raft_observe_config) == vars(ref.raft_observe_config)
-    assert not {"capacity", "raft_observe"} & set(NOT_PORTED)
     for bad in ({"capacity": {"poll_interval": 0}},
                 {"raft_observe": {"bogus": 1}}):
         with pytest.raises(ValueError):
@@ -303,8 +302,6 @@ def test_agent_file_parses_both_observatory_blocks(tmp_path):
     from nomad_tpu_torch import agent_config
     from nomad_tpu_torch.agent import AgentConfig
 
-    assert not {"server.capacity", "server.raft_observe"} & set(
-        agent_config.NOT_PORTED_KEYS)
     path = tmp_path / "agent.hcl"
     path.write_text(AGENT_HCL)
     fc = agent_config.load_config_file(str(path))

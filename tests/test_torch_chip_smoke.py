@@ -9,9 +9,12 @@ planes phase's checks of the front door and the fast lanes, and the
 phase itself on the CPU at a small size; the simcluster phase's
 profiler-off arm and its check of the profiled arm's profile section;
 and the operator phase's Prometheus reader, lock and role deltas, config
-file, and the phase itself on the CPU at a small size."""
+file, and the phase itself on the CPU at a small size; and the secure
+phase's certificates and refusals, its oracle and its native check, and
+the phase itself on the CPU at a small size."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -732,3 +735,97 @@ def test_simcluster_phase_runs_the_profiler_off_arm(counted_plain,
     assert '"overhead_fraction"' in out
     assert "simcluster steady-1k: byte ledger per_row_bytes=" in out
     assert "projected_1m_rows=1048576" in out
+
+
+# -- the secure phase -----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def certs(tmp_path_factory):
+    return cs.make_certs(str(tmp_path_factory.mktemp("secure")))
+
+
+def test_certs_give_mutual_tls_and_the_refusals(certs):
+    """The server pair serves with its loopback SAN, the client pair gets
+    through, the plaintext and the rogue pair are refused; against a
+    plaintext listener the check fails."""
+    from nomad_tpu_torch.rpc import RPCServer
+
+    for name in ("server", "client", "rogue"):
+        crt, key = certs[name]
+        assert os.path.exists(crt) and os.path.exists(key)
+    tls = RPCServer(ssl_context=cs.secure_tls(certs).incoming_context())
+    plain = RPCServer()
+    for srv in (tls, plain):
+        srv.register("Status.Ping", lambda args: "pong")
+        srv.start()
+    try:
+        cs.check_refusals(certs, tls.addr)
+        with pytest.raises(AssertionError, match="plaintext dial reached"):
+            cs.check_refusals(certs, plain.addr)
+    finally:
+        tls.shutdown()
+        plain.shutdown()
+
+
+def test_secure_oracle_at_a_small_size(capsys):
+    """The oracle on the CPU: the headline shape and 12 fuzz seeds, none
+    in the pow band."""
+    assert cs.phase_secure_oracle(torch.device("cpu"), seeds=12) == 0
+    assert "12 equal, 0 in the 256-ulp pow band" in capsys.readouterr().out
+
+
+def test_secure_oracle_refuses_a_disagreement(monkeypatch):
+    from nomad_tpu_torch.ops import binpack
+
+    inner = binpack.solve_rounds_fused
+
+    def off_by_one(*args):
+        counts, left = inner(*args)
+        counts = counts.clone()
+        counts[int(counts.argmax())] -= 1
+        return counts, left + 1
+    monkeypatch.setattr(binpack, "solve_rounds_fused", off_by_one)
+    s = cs.fuzz_solve_inputs(np.random.default_rng(cs.ORACLE_SEED_BASE))
+    with pytest.raises(AssertionError, match="outside the pow band"):
+        cs.oracle_agrees(s, cs.fuzz_tensors(s, torch.device("cpu")))
+
+
+def test_check_sound_refuses_an_overfull_node():
+    s = cs.fuzz_solve_inputs(np.random.default_rng(cs.ORACLE_SEED_BASE + 1))
+    counts = np.zeros(len(s["total"]), dtype=np.int32)
+    cs.check_sound(s, counts)
+    counts[int(np.argmax(s["eligible"]))] = 1 << 20
+    with pytest.raises(AssertionError, match="holds"):
+        cs.check_sound(s, counts)
+
+
+def test_secure_phase_at_a_small_size(counted_plain, monkeypatch, capsys):
+    """phase_secure on the CPU: 300 nodes, a 1,000-task headline and a
+    count-20 service job through a follower of a mutual-TLS cell and
+    through the uplink of a TLS agent, a TLS client's mock tasks dead,
+    the native verifier and the oracle."""
+    from nomad_tpu_torch import native, telemetry
+    from nomad_tpu_torch.client import fingerprint
+
+    for name, value in (("N_NODES", 300), ("N_TASKS", 1000),
+                        ("SERVICE_COUNT", 20)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(fingerprint._MetadataFingerprint, "_get",
+                        lambda self, path: None)
+    was = telemetry.get_global()
+    calls = native.CALLS["fit_check"]
+    wf, gr = cs.in_tmp(cs.phase_secure, torch.device("cpu"), "cpu")
+    assert wf >= 2 and gr >= 2
+    assert native.CALLS["fit_check"] > calls
+    assert telemetry.get_global() is was
+    out = capsys.readouterr().out
+    assert out.count("plaintext dial refused") == 2
+    assert out.count("untrusted certificate dial refused") == 2
+    assert "secure secure-batch: register_complete_ms=" in out
+    assert "committed=1000 on each of 3 members" in out
+    assert "4 mock tasks dead" in out
+    assert "1000 alloc stubs read through it" in out
+    assert "a parked blocking query woke" in out
+    assert "fit_check on 301 x 4 int32 rows equal to the plain" in out
+    assert "60 equal, 0 in the 256-ulp pow band" in out

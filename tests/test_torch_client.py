@@ -42,7 +42,6 @@ import pytest
 import torch
 
 from nomad_tpu.scheduler import wait_for_device
-from nomad_tpu_torch import NotPortedError
 
 torch.set_num_threads(2)
 
@@ -397,9 +396,23 @@ def test_gpu_fingerprint_error_fails_the_client(monkeypatch, tmp_path):
         PORT.client.Client(config)
 
 
-def test_client_tls_is_refused():
-    with pytest.raises(NotPortedError, match="tlsutil.py"):
-        PORT.config.ClientConfig(servers=["127.0.0.1:1"], tls=object())
+def test_client_tls_dials_with_the_outgoing_context(tmp_path):
+    """``ClientConfig.tls`` gives the client's server pool the TLS
+    config's outgoing context, with the options nomad_tpu's client gets."""
+    from nomad_tpu.tlsutil import TLSConfig as JaxTLS
+    from nomad_tpu_torch.tlsutil import TLSConfig as PortTLS
+
+    opts = []
+    for p, tls_cls in ((JAX, JaxTLS), (PORT, PortTLS)):
+        client = p.client.Client(p.config.ClientConfig(
+            servers=["127.0.0.1:1"], tls=tls_cls(enabled=True),
+            state_dir=str(tmp_path / p.name / "state"),
+            alloc_dir=str(tmp_path / p.name / "allocs")))
+        ctx = client.endpoint.pool._ssl_context
+        opts.append((ctx.minimum_version, ctx.maximum_version,
+                     ctx.verify_mode, ctx.check_hostname, ctx.options))
+        client.endpoint.shutdown()
+    assert opts[1] == opts[0]
 
 
 def test_discover_runs_the_ports_module():

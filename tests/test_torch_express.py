@@ -689,6 +689,7 @@ def test_leader_failover_reconciles_outstanding_express():
     placement is uncommitted drops its lease on demotion; its committer
     forwards the entry to the new leader as a pending reconcile eval
     (Express.Reconcile), which places the task exactly once."""
+    seed0 = faults.get_registry().seed
     servers = form_cluster(3, ServerConfig(
         device="cpu", scheduler_backend="host", scheduler_workers=1,
         min_heartbeat_ttl=3600.0, prewarm_shapes=False,
@@ -729,7 +730,9 @@ def test_leader_failover_reconciles_outstanding_express():
         time.sleep(0.5)
         assert len(live()) == 1
     finally:
-        faults.get_registry().clear()
+        # The registry is the process's: leave its seed as it was found
+        # (the faults route of test_torch_api.py compares it).
+        faults.get_registry().load({"seed": seed0, "sites": {}})
         for srv in servers:
             srv.shutdown(drain_timeout=2.0)
 

@@ -715,6 +715,34 @@ def test_byte_ledger_counts_every_shard(node_mesh):
 # -- the server-config face ---------------------------------------------------
 
 
+def test_the_default_devices_are_the_cards(monkeypatch):
+    """``None`` means the CUDA cards at every entry to the device list:
+    local_devices, make_mesh, the NOMAD_TPU_NODE_SHARDS path and
+    apply_solver_mesh. Without a card each raises as resolve_device does
+    (no CPU stands in); the CPU list is asked for by name."""
+    assert pmesh.local_devices("cpu") == [torch.device("cpu")] * 8
+    if torch.cuda.is_available():
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        assert pmesh.local_devices() == pmesh.local_devices("cuda") == cards
+        assert pmesh.make_mesh().node_devices == cards
+        return
+    for call in (pmesh.local_devices, lambda: pmesh.local_devices("cuda"),
+                 pmesh.make_mesh, lambda: pmesh.make_mesh(2),
+                 lambda: pmesh.apply_solver_mesh(
+                     pmesh.SolverMeshConfig.parse({"node_shards": 2}))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    monkeypatch.setenv("NOMAD_TPU_NODE_SHARDS", "2")
+    monkeypatch.setattr(pmesh, "_env_checked", False)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pmesh.node_sharding_mesh()
+    finally:
+        pmesh.clear_node_sharding()
+    assert pmesh.node_sharding_mesh() is None  # the env is read once
+
+
 def test_apply_solver_mesh_fallback_and_configure(caplog):
     """A mesh the local device set can't satisfy leaves solves
     single-device (None, nomad_tpu's warning); a satisfiable one
@@ -831,10 +859,10 @@ def test_server_applies_its_solver_mesh(shards, want_mesh, caplog):
         pmesh.clear_node_sharding()
 
 
-def test_a_mesh_scenario_needs_no_unported_module():
-    """``solver_mesh`` is a server override the scenario runner now
-    passes on: a spec with one waits for nothing, and a bad one fails
-    config parsing, naming its key."""
+def test_a_mesh_scenario_override_reaches_the_server_config():
+    """``solver_mesh`` is a server override the scenario runner passes
+    on to each member's ServerConfig, and a bad one fails config parsing,
+    naming its key."""
     import dataclasses
 
     from nomad_tpu_torch.server.server import ServerConfig
@@ -843,7 +871,8 @@ def test_a_mesh_scenario_needs_no_unported_module():
     spec = dataclasses.replace(
         psc.SCENARIOS["steady-1k"], name="mesh",
         server_overrides={"solver_mesh": {"node_shards": 2}})
-    assert psc.unported_needs(spec) == []
+    cfg = ServerConfig(device="cpu", **spec.server_overrides)
+    assert cfg.solver_mesh_config.node_shards == 2
     with pytest.raises(ValueError, match="axis"):
         ServerConfig(device="cpu", solver_mesh={"axis": 1})
 

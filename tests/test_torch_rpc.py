@@ -236,11 +236,23 @@ def test_connect_failure_is_undelivered_and_retried():
         srv.shutdown()
 
 
-def test_tls_is_refused_until_ported():
-    with pytest.raises(ValueError, match="tlsutil"):
-        port_rpc.ConnPool(ssl_context=object())
-    with pytest.raises(ValueError, match="tlsutil"):
-        port_rpc.RPCServer(ssl_context=object())
+def test_large_frames_round_trip_over_tls(tmp_path):
+    """Both ends take an ssl_context; a frame of several MB (many TLS
+    records) arrives whole, each way, into one receive buffer."""
+    import chip_smoke as cs
+
+    cfg = cs.secure_tls(cs.make_certs(str(tmp_path)))
+    srv = port_rpc.RPCServer(ssl_context=cfg.incoming_context())
+    srv.register("Echo.Blob", lambda args: {"blob": args["blob"][::-1]})
+    srv.start()
+    pool = port_rpc.ConnPool(ssl_context=cfg.outgoing_context())
+    try:
+        blob = "".join(chr(97 + i % 26) for i in range(6 << 20))
+        assert pool.call(srv.addr, "Echo.Blob", {"blob": blob},
+                         timeout=60)["blob"] == blob[::-1]
+    finally:
+        pool.shutdown()
+        srv.shutdown()
 
 
 @pytest.mark.parametrize("mode", ["drop", "partition", "error"])

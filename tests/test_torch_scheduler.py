@@ -289,6 +289,8 @@ SERVER_LOOP_MODULES = [
     "nomad_tpu_torch.profile_observe", "nomad_tpu_torch.bundle",
     "nomad_tpu_torch.parallel", "nomad_tpu_torch.parallel.mesh",
     "nomad_tpu_torch.parallel.dcn", "nomad_tpu_torch.parallel.dcn_worker",
+    "nomad_tpu_torch.tlsutil", "nomad_tpu_torch.scada",
+    "nomad_tpu_torch.native",
 ]
 
 
@@ -303,7 +305,8 @@ def test_port_imports_without_jax_or_nomad_tpu():
         "for m in pkgutil.walk_packages(nomad_tpu_torch.__path__,"
         " 'nomad_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from nomad_tpu_torch import telemetry\n"
+        "from nomad_tpu_torch import native, telemetry\n"
+        "assert native.available()\n"
         "with telemetry.port_lock_watchdog() as wd:\n"
         "    assert telemetry.active_lock_watchdog() is wd\n"
         "assert not [m for m, v in sys.modules.items() if v is not None"

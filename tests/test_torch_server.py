@@ -56,7 +56,6 @@ from nomad_tpu_torch.server.plan_pipeline import (
     evaluate_plans as port_evaluate_plans,
 )
 from nomad_tpu_torch.server.plan_queue import PlanQueue as PortPlanQueue
-from nomad_tpu_torch.server.server import NOT_PORTED
 from nomad_tpu_torch.server.server import Server as PortServer
 from nomad_tpu_torch.server.server import ServerConfig as PortServerConfig
 from nomad_tpu_torch.state import StateStore as PortStore
@@ -448,10 +447,13 @@ def test_fit_check_matches_reference_numpy():
     used = rng.integers(-5, 2**31 - 1, (257, 4), dtype=np.int64)
     total = rng.integers(0, 2**31 - 1, (257, 4), dtype=np.int64)
     used[::3] = total[::3] - 1
+    from nomad_tpu_torch import native as port_native
+
     want = native.fit_check(used, total)
-    got = port_plan_apply.fit_check(used, total)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    for got in (port_native.fit_check(used, total),
+                port_native.fit_check_plain(used, total)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
 
 
 # -- evaluate_plans (the fused K-plan pass) ------------------------------------
@@ -817,18 +819,21 @@ def test_server_needs_its_device():
         PortServer(PortServerConfig(device="cuda"))
 
 
-@pytest.mark.parametrize("key", sorted(NOT_PORTED))
-def test_unported_config_key_raises(key):
-    with pytest.raises(ValueError, match=key):
-        PortServerConfig(device="cpu", **{key: {}})
+def test_tls_config_key_is_taken():
+    """``tls`` holds a TLSConfig as nomad_tpu's key does (the cluster
+    server wraps its listener and pools with it); None runs plaintext."""
+    from nomad_tpu_torch.tlsutil import TLSConfig
+
+    tls = TLSConfig(enabled=True)
+    assert PortServerConfig(device="cpu", tls=tls).tls is tls
+    assert JaxServerConfig(tls=tls).tls is tls
+    assert PortServerConfig(device="cpu").tls is JaxServerConfig().tls is None
 
 
 def test_prewarm_and_failover_ttl_keys_are_ported():
-    """Both keys left NOT_PORTED with this slice and read as nomad_tpu's
-    do: prewarm_shapes defaults on and its warmer warms once nodes
+    """Both keys read as nomad_tpu's do: prewarm_shapes defaults on and its warmer warms once nodes
     register (off: it never runs); failover_heartbeat_ttl is stored and
     inert — TTLs come from min_heartbeat_ttl."""
-    assert not {"prewarm_shapes", "failover_heartbeat_ttl"} & set(NOT_PORTED)
     cfg, jcfg = PortServerConfig(device="cpu"), JaxServerConfig()
     assert cfg.prewarm_shapes is jcfg.prewarm_shapes is True
     assert cfg.failover_heartbeat_ttl == jcfg.failover_heartbeat_ttl == 300.0

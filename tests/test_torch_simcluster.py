@@ -19,8 +19,8 @@
   exactly. Tolerance: exact; the fleet's nodes are identical, so no two
   candidate scores sit inside the pow contract's band (ROADMAP Queue 3).
 - A same-seed replay of the reference's ``steady-mini`` spec reproduces
-  the port's own digest; a scenario that needs an unported module raises
-  an error that names it; a contrast arm runs, and steady-10k's
+  the port's own digest; a ``tls`` server override is handled as
+  nomad_tpu's runner handles it; a contrast arm runs, and steady-10k's
   profiler-off arm (on a small spec) keeps the digest and gives the
   ``profiler_overhead`` verdict, the profiled arm carrying the profile
   section with the lock watchdog's table.
@@ -81,17 +81,7 @@ RUNNABLE = ["burst-100k", "churn", "churn-frag-200", "churn-fragmentation",
             "rack-failure", "read-storm", "read-storm-800", "restart-800",
             "restart-under-load", "steady-100k-nodes", "steady-10k",
             "steady-1k"]
-# Specs that would wait for a module the port does not have (none of the
-# registry's does), each with a word its error must name.
-WAITING = {
-    "needs-tls": ({"tls": {"ca_file": "ca.pem"}}, "tlsutil"),
-}
 
-
-def waiting_spec(name):
-    overrides, _word = WAITING[name]
-    return dataclasses.replace(psc.SCENARIOS["steady-1k"], name=name,
-                               server_overrides=overrides)
 
 
 def payload_view(payload, to_dict):
@@ -529,21 +519,31 @@ def test_chaos_family_end_to_end(name):
     assert art["placements"]["placed"] == ref["placed"]
 
 
-# -- what waits, and the device -----------------------------------------------
+# -- overrides, the registry and the device -----------------------------------
 
 
-@pytest.mark.parametrize("name", sorted(WAITING))
-def test_waiting_scenario_names_its_module(name):
-    runner = psc.ScenarioRunner(waiting_spec(name), device="cpu")
-    with pytest.raises(psc.NotPortedError, match=WAITING[name][1]):
-        runner.run()
-    assert runner._srv is None  # refused before anything started
+def test_tls_override_is_handled_as_nomad_tpu_handles_it():
+    """A ``tls`` server override goes to each member's ServerConfig as
+    nomad_tpu's runner passes it: a mapping where a TLSConfig belongs
+    fails the first member's construction in both packages alike,
+    before the run starts."""
+    errors = []
+    for mod, kw in ((jsc, {}), (psc, {"device": "cpu"})):
+        spec = dataclasses.replace(
+            mod.SCENARIOS["steady-1k"], name="tls",
+            server_overrides={"tls": {"ca_file": "ca.pem"}})
+        runner = mod.ScenarioRunner(spec, seed=42, **kw)
+        with pytest.raises(AttributeError) as info:
+            runner.run()
+        assert runner._srv is None
+        errors.append(str(info.value))
+    assert errors[1] == errors[0]
+    assert "incoming_context" in errors[0]
 
 
-def test_runnable_scenarios_need_nothing_unported():
-    runnable = [n for n, s in sorted(psc.SCENARIOS.items())
-                if not psc.unported_needs(s)]
-    assert runnable == RUNNABLE
+def test_every_registry_scenario_runs():
+    """The port's registry is nomad_tpu's, and every entry runs here."""
+    assert sorted(psc.SCENARIOS) == sorted(jsc.SCENARIOS) == RUNNABLE
 
 
 def test_runner_defaults_to_cuda():
@@ -560,27 +560,22 @@ def test_runner_defaults_to_cuda():
 # -- the CLI ------------------------------------------------------------------
 
 
-def test_simload_lists_what_runs_and_what_waits(capsys, monkeypatch):
-    for name in WAITING:
-        monkeypatch.setitem(psc.SCENARIOS, name, waiting_spec(name))
+def test_simload_lists_what_runs_and_what_waits(capsys):
+    """Every scenario runs: nothing waits for a module any more."""
     assert simload.main(["--list"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == len(psc.SCENARIOS)
     state = {line.split()[0]: line for line in lines}
+    assert sorted(state) == RUNNABLE
     for name in RUNNABLE:
         assert state[name].endswith("runs")
-    for name, (_overrides, word) in WAITING.items():
-        assert "waits for" in state[name] and word in state[name]
 
 
 @pytest.mark.parametrize("args, word", [
-    (["--scenario", "needs-tls"], "tlsutil"),
     (["--scenario", "churn", "--verify-determinism"], "deterministic"),
     (["--scenario", "no-such"], "unknown scenario"),
 ])
-def test_simload_refuses(args, word, capsys, monkeypatch):
-    monkeypatch.setitem(psc.SCENARIOS, "needs-tls",
-                        waiting_spec("needs-tls"))
+def test_simload_refuses(args, word, capsys):
     assert simload.main(args + ["--device", "cpu"]) == 2
     assert word in capsys.readouterr().err
 
