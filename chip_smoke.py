@@ -193,6 +193,27 @@ Phases, each printing its own lines:
    contract's 256-ulp band with equal totals and sound counts (the band
    count is logged). Logs each job's register->complete ms, the stub
    read's ms, native and plain fit_check us, the oracle's ms.
+17. update: the job-update path. (a) BASELINE config 5 (bench.py
+   run_config5) through the harness, plans verified and committed
+   columnar: 50,000 dc1 nodes (a 65,536-row mirror), a service job of
+   10,000 tasks placed by the water-fill; a cpu bump updates all 10,000
+   in place (AllocUpdateBatch, no kernel launch, no stop, no placement);
+   an env change's first rolling eval stops and places max_parallel =
+   1,000 through the water-fill with the anti-affinity penalty weighing
+   the survivors, and creates one follow-up eval of wait 10 s. Logs the
+   in-place and rolled updates/s as bench.py prints them. (b) The same
+   place, bump and whole roll through one Server (the follow-up evals
+   wait 1 s in the broker, a depth cut of the 10 s stagger): ten rolling
+   evals, every eval of the job complete once, 10,000 live tasks of the
+   new version and none of the old, check_committed. (c) On phase 6's
+   10,000 nodes, each given one IP and port 22 reserved: the count-100
+   service job placed, 10 of its nodes drained (replacements through the
+   greedy scan, none left on a drained node), then a count-20 service
+   job asking two dynamic ports and one reserved port (every port
+   distinct on its node and outside the reserved set). (d)
+   steady-100k-nodes through run_checked, held to nomad_tpu's digest, its
+   solves on the 131,072-row mirror; logs its plan p50/p95 and
+   registration nodes/s beside steady-10k's.
 
 Every phase logs ``phase N: <s> s``, and the script its total.
 
@@ -238,6 +259,8 @@ SEED = 42
 # Water-fill rows are (N, B, job_distinct, tg_distinct, node data):
 # "random" draws nodes, usage and count; "headline" is the headline eval's
 # 5,000 empty nodes and 100,000 tasks (remaining 0 after the level);
+# "config5" is BASELINE config 5's placement: 50,000 of those nodes in the
+# 65,536-row bucket and its 10,000 service tasks (penalty 10);
 # "ties" repeats the headline node with 2.5 tasks a node (the burst's
 # 12,500 on 5,000 at N=8192; above it every row is live and 5,001 more
 # tasks cut the boundary inside a block of cluster rank > 0, so the fill
@@ -260,6 +283,7 @@ WF_SHAPES = [(8192, 1, False, False, "random"),
              (131072, 1, False, False, "random"),
              (131072, 8, True, True, "random"),
              (131072, 1, False, False, "ties"),
+             (65536, 1, False, False, "config5"),
              (8192, 2, False, False, "saturated"),
              (8192, 2, False, False, "count0"),
              (8192, 2, False, False, "ineligible"),
@@ -437,7 +461,10 @@ def waterfill_case(rng, n: int, b: int, jd: bool, td: bool, mode: str, dev):
     live = min(n, int(n * 0.61) + 1)
     cols = [[] for _ in range(12)]
     for _ in range(b):
-        if mode in ("headline", "ties"):
+        if mode == "config5":
+            row = headline_arrays(n, min(n, CONFIG5_NODES))
+            count, penalty = CONFIG5_TASKS, 10.0
+        elif mode in ("headline", "ties"):
             nodes = min(n, 5000) if (mode == "headline" or n <= 8192) else n
             row = headline_arrays(n, nodes)
             count = (N_TASKS if mode == "headline" else nodes * 5 // 2
@@ -491,6 +518,7 @@ def check_wf_mode(mode: str, counts, left, count, block_rows: int) -> None:
                                      "the boundary inside a block of rank "
                                      "> 0")
     want = {"headline": bool((left == 0).all()),
+            "config5": bool((left == 0).all()),
             "ties": bool((left == 0).all()),
             "saturated": bool((left > 0).all() and (placed > 0).all()),
             "count0": bool((placed == 0).all() and (left == 0).all()),
@@ -1163,20 +1191,22 @@ def dispatch_widths(before):
     return {w: d for w, d in widths.items() if d}
 
 
-def new_server(dev, **kw):
-    """A started Server (prewarm_shapes on, its default) holding the
-    10,000 nodes, returned once its start-time warmer has warmed them:
-    the warmer's dispatch count is watched, not a sleep."""
+def new_server(dev, nodes=None, **kw):
+    """A started Server (prewarm_shapes on, its default) holding
+    ``nodes`` (the 10,000 nodes by default), returned once its start-time
+    warmer has warmed them: the warmer's dispatch count is watched, not a
+    sleep."""
     from nomad_tpu_torch.server.server import Server, ServerConfig
 
+    nodes = nodes or cluster_nodes()
     srv = Server(ServerConfig(scheduler_backend="tpu", device=str(dev),
                               min_heartbeat_ttl=SERVER_HEARTBEAT_TTL_S,
                               **kw))
     srv.start()
     t0 = time.perf_counter()
-    srv.node_batch_register(cluster_nodes())
+    srv.node_batch_register(nodes)
     t1 = time.perf_counter()
-    log(f"server: {N_NODES} nodes by node_batch_register in "
+    log(f"server: {len(nodes)} nodes by node_batch_register in "
         f"{(t1 - t0) * 1000.0:.1f} ms")
     deadline = t1 + SERVER_WAIT_S
     while srv.warm_dispatches == 0:
@@ -1736,6 +1766,7 @@ def phase_simcluster(dev, card: str, names=SIM_SCENARIOS):
                 f"{off['wall_seconds']}, profiler_overhead "
                 + json.dumps(profiler_overhead(art, off)) + f" [{card}]")
         pl, reg = art["placements"], art["registration"]
+        SIM_NUMBERS[name] = sim_numbers(art)
         rows = [
             f"registration nodes_per_s={reg['nodes_per_sec']} "
             f"seconds={reg['seconds']} batches={reg['batches']}",
@@ -4914,6 +4945,523 @@ def phase_secure(dev, card: str, tmp: str):
     return wf, gr
 
 
+# -- the job-update path (BASELINE config 5), drain, port asks, 100k nodes ----
+
+# bench.py run_config5: 50,000 dc1 nodes (bench.py _mk_nodes, no network),
+# a service job of 10,000 tasks of 100 MHz / 128 MB rolled at max_parallel
+# 1,000 with a 10 s stagger. The mirror pads 50,000 rows to 65,536.
+CONFIG5_NODES = 50_000
+CONFIG5_TASKS = 10_000
+CONFIG5_MAX_PARALLEL = 1_000
+CONFIG5_STAGGER_S = 10.0
+CONFIG5_ROWS = 65_536
+# Depth cut of the roll through a Server: each follow-up eval waits this
+# long in the broker instead of config 5's 10 s, so the ten rounds fit the
+# script's time limit.
+CONFIG5_SERVER_STAGGER_S = 1.0
+# Nodes drained under the count-100 service job, and the port-ask job.
+DRAIN_NODES = 10
+PORT_JOB_COUNT = 20
+PORT_RESERVED = 8080
+NODE_RESERVED_PORT = 22
+UPDATE_SCENARIOS = (("steady-100k-nodes", 131_072),)
+
+
+def config5_nodes(n: int = 0):
+    """bench.py's _mk_nodes(n, with_net=False) as port Nodes."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.structs import Node, Resources
+
+    return [Node(
+        id=f"bench-{i:06d}", datacenter="dc1", name=f"n{i}",
+        attributes={"kernel.name": "linux", "driver.exec": "1"},
+        resources=Resources(cpu=4000, memory_mb=8192, disk_mb=100 * 1024,
+                            iops=150),
+        status=structs.NODE_STATUS_READY,
+    ) for i in range(n or CONFIG5_NODES)]
+
+
+def config5_job(stagger: float):
+    """bench.py run_config5's job (its task group and update strategy)."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.structs import (
+        Job, Resources, RestartPolicy, Task, TaskGroup, UpdateStrategy,
+        generate_uuid,
+    )
+
+    return Job(
+        region="global", id=generate_uuid(), name="bench-roll",
+        type=structs.JOB_TYPE_SERVICE, priority=50, datacenters=["dc1"],
+        update=UpdateStrategy(stagger=stagger,
+                              max_parallel=CONFIG5_MAX_PARALLEL),
+        task_groups=[TaskGroup(
+            name="web", count=CONFIG5_TASKS,
+            restart_policy=RestartPolicy(attempts=2, interval=600.0,
+                                         delay=5.0),
+            tasks=[Task(name="t", driver="exec",
+                        resources=Resources(cpu=100, memory_mb=128))],
+        )],
+    )
+
+
+def bumped(job, cpu: int = 7):
+    """A deep copy of ``job`` with its task's cpu raised (an in-place
+    update: tasks_updated ignores resources)."""
+    import copy
+
+    new = copy.deepcopy(job)
+    new.task_groups[0].tasks[0].resources.cpu += cpu
+    return new
+
+
+def env_changed(job):
+    """A deep copy of ``job`` with a new env (a destructive update)."""
+    import copy
+
+    new = copy.deepcopy(job)
+    new.task_groups[0].tasks[0].env = {"V": "2"}
+    return new
+
+
+class WaterfillCalls:
+    """While active, records each batched water-fill the coalescer hands
+    the wrapper: its rows, width, and (read after the timed section) the
+    largest penalty and job count it was given. Launches stay counted by
+    the wrapper alone."""
+
+    def __init__(self):
+        self._seen = []
+
+    def __enter__(self):
+        from nomad_tpu_torch.ops import coalesce
+
+        self._inner = coalesce.solve_waterfill_batched
+
+        def spy(*args, **kw):
+            self._seen.append((tuple(args[0].shape[:2]), args[3], args[11]))
+            return self._inner(*args, **kw)
+        coalesce.solve_waterfill_batched = spy
+        return self
+
+    def __exit__(self, *exc):
+        from nomad_tpu_torch.ops import coalesce
+
+        coalesce.solve_waterfill_batched = self._inner
+
+    def rows(self):
+        return sorted({shape[1] for shape, _jc, _p in self._seen})
+
+    def penalised(self) -> bool:
+        """Some solve weighed the job's own allocs with a penalty."""
+        return any(float(p.max()) > 0 and int(jc.max()) > 0
+                   for _s, jc, p in self._seen)
+
+
+def live_by_version(snap, job_id: str):
+    """Live tasks of a job by job modify index, from the stored blocks'
+    runs and the object rows."""
+    out = {}
+    for blk in snap.job_alloc_blocks(job_id):
+        n = sum(int(c) for _nid, c in blk.live_node_counts())
+        out[blk.job.modify_index] = out.get(blk.job.modify_index, 0) + n
+    for a in snap.allocs_objects():
+        if a.job_id == job_id and not a.terminal_status():
+            out[a.job.modify_index] = out.get(a.job.modify_index, 0) + 1
+    return {k: v for k, v in out.items() if v}
+
+
+def check_cpu(snap, job_id: str, cpu: int) -> None:
+    """Every live task of the job asks ``cpu``."""
+    for blk in snap.job_alloc_blocks(job_id):
+        if blk.resources.cpu != cpu and any(
+                c for _n, c in blk.live_node_counts()):
+            raise AssertionError(f"a block of {job_id} asks cpu "
+                                 f"{blk.resources.cpu}, want {cpu}")
+    for a in snap.allocs_objects():
+        if (a.job_id == job_id and not a.terminal_status()
+                and a.resources.cpu != cpu):
+            raise AssertionError(f"alloc {a.id} asks cpu {a.resources.cpu},"
+                                 f" want {cpu}")
+
+
+def plan_counts(plans):
+    """(placed, stopped, updated in place) over ``plans``."""
+    placed = stopped = updated = 0
+    for plan in plans:
+        placed += sum(b.n for b in plan.alloc_batches)
+        placed += sum(len(v) for v in plan.node_allocation.values())
+        stopped += sum(len(v) for v in plan.node_update.values())
+        updated += sum(b.n for b in plan.update_batches)
+    return placed, stopped, updated
+
+
+def phase_update_harness(dev, card: str):
+    """Phase 17 (a): config 5 through the harness at full width. Place the
+    job (the water-fill on a 65,536-row mirror), bump its cpu (10,000
+    in-place updates in one AllocUpdateBatch commit, no solve), change its
+    env (the first rolling eval stops and places max_parallel through the
+    water-fill, the penalty weighing the survivors, and creates one
+    follow-up eval of wait = stagger). Returns the water-fill launches."""
+    import torch
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.harness import Harness
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    t0 = time.perf_counter()
+    h = Harness()
+    h.planner = planner = VerifyingPlanner(h.state, 0)
+    for node in config5_nodes():
+        h.state.upsert_node(h.next_index(), node)
+    log(f"update: {CONFIG5_NODES} nodes in the harness in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(job, what):
+        ev = register_eval(h, job)
+        planner.index = h.next_index()
+        n_plans, n_created = len(h.plans), len(h.create_evals)
+        wf0, gr0 = waterfill.LAUNCHES, greedy.LAUNCHES
+        with WaterfillCalls() as calls:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            h.process("tpu-service", ev, device=dev)
+            ms = (time.perf_counter() - t) * 1000.0
+        if h.evals[-1].status != structs.EVAL_STATUS_COMPLETE:
+            raise AssertionError(f"config 5 {what}: eval ended "
+                                 f"{h.evals[-1].status}")
+        return (ms, plan_counts(h.plans[n_plans:]),
+                h.create_evals[n_created:], waterfill.LAUNCHES - wf0,
+                greedy.LAUNCHES - gr0, calls)
+
+    count, mp = CONFIG5_TASKS, CONFIG5_MAX_PARALLEL
+    job = config5_job(CONFIG5_STAGGER_S)
+    ms, (placed, stopped, updated), created, wf, gr, calls = run(job, "place")
+    if (placed, stopped, updated) != (count, 0, 0) or wf == 0:
+        raise AssertionError(f"config 5 place: placed {placed} stopped "
+                             f"{stopped} updated {updated}, {wf} water-fill "
+                             "launches")
+    if calls.rows() != [CONFIG5_ROWS]:
+        raise AssertionError(f"config 5 place: water-fill rows "
+                             f"{calls.rows()}, want [{CONFIG5_ROWS}]")
+    check_committed(h.state.snapshot(), job, count)
+    total_wf = wf
+    log(f"update config5 place: placed={placed} e2e_ms={ms:.2f} "
+        f"waterfill_launches={wf} rows={calls.rows()} [{card}]")
+
+    job2 = bumped(job)
+    ms, (placed, stopped, updated), created, wf, gr, calls = run(
+        job2, "in place")
+    plan = h.plans[-1]
+    if ((placed, stopped, updated) != (0, 0, count) or wf or gr
+            or not plan.update_batches or created):
+        raise AssertionError(f"config 5 in place: placed {placed} stopped "
+                             f"{stopped} updated {updated}, launches "
+                             f"{wf}/{gr}, {len(created)} follow-up evals")
+    snap = h.state.snapshot()
+    check_committed(snap, job2, count)
+    check_cpu(snap, job.id, 107)
+    if live_by_version(snap, job.id) != {job2.modify_index: count}:
+        raise AssertionError("config 5 in place: live tasks by version "
+                             f"{live_by_version(snap, job.id)}")
+    inplace_ms = ms
+    log(f"update config5 in place: inplace_updated={updated} "
+        f"inplace_e2e_ms={ms:.2f} inplace_updates_per_sec="
+        f"{count / (ms / 1000.0):.1f} batches={len(plan.update_batches)} "
+        f"launches 0 [{card}]")
+
+    job3 = env_changed(job2)
+    ms, (placed, stopped, updated), created, wf, gr, calls = run(
+        job3, "roll")
+    if (placed, stopped, updated) != (mp, mp, 0) or wf == 0:
+        raise AssertionError(f"config 5 roll: placed {placed} stopped "
+                             f"{stopped} updated {updated}, {wf} water-fill "
+                             "launches")
+    if (len(created) != 1 or created[0].wait != CONFIG5_STAGGER_S
+            or created[0].triggered_by
+            != structs.EVAL_TRIGGER_ROLLING_UPDATE):
+        raise AssertionError(f"config 5 roll: follow-up evals "
+                             f"{[(e.triggered_by, e.wait) for e in created]}")
+    if calls.rows() != [CONFIG5_ROWS] or not calls.penalised():
+        raise AssertionError(f"config 5 roll: water-fill rows "
+                             f"{calls.rows()}, penalty against the "
+                             f"survivors {calls.penalised()}")
+    snap = h.state.snapshot()
+    check_committed(snap, job3, count)
+    if live_by_version(snap, job.id) != {job2.modify_index: count - mp,
+                                         job3.modify_index: mp}:
+        raise AssertionError("config 5 roll: live tasks by version "
+                             f"{live_by_version(snap, job.id)}")
+    total_wf += wf
+    log(f"update config5 roll: rolled={placed} stopped={stopped} "
+        f"max_parallel={mp} e2e_ms={ms:.2f} rolled_updates_per_sec="
+        f"{placed / (ms / 1000.0):.1f} follow_up_wait_s={created[0].wait} "
+        f"waterfill_launches={wf} rows={calls.rows()} penalised=True "
+        f"[{card}]")
+    log(f"update config5: inplace_e2e_ms={inplace_ms:.2f} "
+        f"inplace_updates_per_sec={count / (inplace_ms / 1000.0):.1f} "
+        f"rolled={placed} e2e_ms={ms:.2f} rolled_updates_per_sec="
+        f"{placed / (ms / 1000.0):.1f} [{card}]")
+    return total_wf
+
+
+def phase_update_server(dev, card: str):
+    """Phase 17 (b): config 5's place, in-place bump and whole roll through
+    one Server, the roll's follow-up evals waiting
+    CONFIG5_SERVER_STAGGER_S in the broker (a depth cut of the 10 s
+    stagger). Every eval of the chain completes once; the store ends with
+    CONFIG5_TASKS live tasks of the new version, none of the old, within
+    every node's capacity. Returns the water-fill launches."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import waterfill
+
+    count, mp = CONFIG5_TASKS, CONFIG5_MAX_PARALLEL
+    srv = new_server(dev, config5_nodes())
+    try:
+        waterfill.LAUNCHES = 0
+        job = config5_job(CONFIG5_SERVER_STAGGER_S)
+        t0 = time.perf_counter()
+        eid, _ = srv.job_register(job)
+        place_ms = (wait_complete(srv, eid) - t0) * 1000.0
+        check_committed(srv.state_store.snapshot(), job, count)
+
+        job2 = bumped(job)
+        t0 = time.perf_counter()
+        eid2, _ = srv.job_register(job2)
+        inplace_ms = (wait_complete(srv, eid2) - t0) * 1000.0
+        snap = srv.state_store.snapshot()
+        check_committed(snap, job2, count)
+        check_cpu(snap, job.id, 107)
+
+        job3 = env_changed(job2)
+        t0 = time.perf_counter()
+        eid3, _ = srv.job_register(job3)
+        chain, round_ms = [eid3], []
+        while True:
+            t = wait_complete(srv, chain[-1])
+            round_ms.append((t - t0) * 1000.0)
+            t0 = t
+            nxt = srv.state_store.eval_by_id(chain[-1]).next_eval
+            if not nxt:
+                break
+            chain.append(nxt)
+            if len(chain) > count // mp + 1:
+                raise AssertionError(f"the roll ran past {len(chain) - 1} "
+                                     "rounds")
+        roll_s = sum(round_ms) / 1000.0
+        snap = srv.state_store.snapshot()
+        want_rounds = -(-count // mp)
+        if len(chain) != want_rounds:
+            raise AssertionError(f"the roll took {len(chain)} evals, want "
+                                 f"{want_rounds}")
+        stored = srv.state_store.job_by_id(job.id)
+        if live_by_version(snap, job.id) != {stored.modify_index: count}:
+            raise AssertionError("after the roll, live tasks by version "
+                                 f"{live_by_version(snap, job.id)}, want "
+                                 f"{count} of {stored.modify_index}")
+        check_committed(snap, job3, count)
+        evals = snap.evals_by_job(job.id)
+        ids = [e.id for e in evals]
+        if (len(ids) != len(set(ids)) or len(ids) != 2 + want_rounds
+                or any(e.status != structs.EVAL_STATUS_COMPLETE
+                       for e in evals)
+                or not {eid, eid2, *chain} == set(ids)):
+            raise AssertionError("the job's evals: " + json.dumps(
+                [(e.id, e.status, e.triggered_by) for e in evals]))
+        wf = waterfill.LAUNCHES
+        if wf == 0:
+            raise AssertionError("the server roll never launched the "
+                                 "water-fill kernel")
+        log(f"update server config5: place_ms={place_ms:.2f} "
+            f"inplace_ms={inplace_ms:.2f} inplace_updates_per_sec="
+            f"{count / (inplace_ms / 1000.0):.1f} [{card}]")
+        log(f"update server roll (stagger {CONFIG5_SERVER_STAGGER_S} s, a "
+            f"depth cut of config 5's {CONFIG5_STAGGER_S} s): "
+            f"rounds={len(chain)} roll_s={roll_s:.3f} "
+            f"rolled_updates_per_sec={count / roll_s:.1f} round_ms="
+            + json.dumps([round(x, 2) for x in round_ms])
+            + f" evals complete once={len(ids)} waterfill_launches={wf} "
+            f"[{card}]")
+        for i, e in enumerate(chain):
+            st = eval_stages(e)
+            log(f"update server roll round {i + 1} stages_ms=" + json.dumps(
+                {k: round(st.get(k, 0.0), 3) for k in SERVER_STAGES}))
+    finally:
+        srv.shutdown()
+    return wf
+
+
+def net_nodes():
+    """cluster_nodes() with a network each: one IP (eth0, 1,000 Mbit) and
+    port 22 reserved, as mock.node() has."""
+    from nomad_tpu_torch.structs import NetworkResource, Resources
+
+    nodes = cluster_nodes()
+    for i, node in enumerate(nodes):
+        ip = f"10.{i >> 16 & 255}.{i >> 8 & 255}.{i & 255}"
+        node.resources.networks = [NetworkResource(
+            device="eth0", cidr=f"{ip}/32", mbits=1000)]
+        node.reserved = Resources(networks=[NetworkResource(
+            device="eth0", ip=ip, reserved_ports=[NODE_RESERVED_PORT],
+            mbits=1)])
+    return nodes
+
+
+def check_ports(snap, job, node_ids) -> None:
+    """Every live alloc of ``job`` holds the reserved port and two dynamic
+    ones outside the reserved set, and no (ip, port) is taken twice on a
+    node (node reservations included)."""
+    for nid in node_ids:
+        node = snap.node_by_id(nid)
+        seen = {(n.ip, p) for n in node.reserved.networks
+                for p in n.reserved_ports}
+        for a in snap.allocs_by_node(nid):
+            if a.terminal_status():
+                continue
+            for r in a.task_resources.values():
+                for net in r.networks:
+                    ports = list(net.reserved_ports)
+                    if a.job_id == job.id:
+                        dyn = ports[len(ports) - len(net.dynamic_ports):]
+                        if (PORT_RESERVED not in ports or len(dyn) != 2
+                                or set(dyn) & {PORT_RESERVED,
+                                               NODE_RESERVED_PORT}):
+                            raise AssertionError(f"alloc {a.id} ports "
+                                                 f"{ports}")
+                    for p in ports:
+                        if (net.ip, p) in seen:
+                            raise AssertionError(f"port {net.ip}:{p} taken "
+                                                 f"twice on {nid}")
+                        seen.add((net.ip, p))
+
+
+def phase_update_drain_ports(dev, card: str):
+    """Phase 17 (c): on phase 6's 10,000 nodes (each given a network),
+    the count-100 service job placed, DRAIN_NODES of its nodes drained
+    (their replacements through the greedy scan, none left on a drained
+    node), then a count-20 service job asking two dynamic ports and one
+    reserved port. Returns (water-fill launches, greedy launches)."""
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.ops import greedy, waterfill
+
+    srv = new_server(dev, net_nodes())
+    try:
+        waterfill.LAUNCHES = greedy.LAUNCHES = 0
+        job = make_job("drain-svc", structs.JOB_TYPE_SERVICE, SERVICE_COUNT,
+                       ["dc1", "dc2"])
+        eid, _ = srv.job_register(job)
+        wait_complete(srv, eid)
+        snap = srv.state_store.snapshot()
+        check_committed(snap, job, SERVICE_COUNT)
+        held = sorted({a.node_id for a in snap.allocs_by_job(job.id)
+                       if not a.terminal_status()})[:DRAIN_NODES]
+        moved = sum(1 for a in snap.allocs_by_job(job.id)
+                    if not a.terminal_status() and a.node_id in held)
+        gr0 = greedy.LAUNCHES
+        t0 = time.perf_counter()
+        eids = []
+        for nid in held:
+            eids += srv.node_update_drain(nid, True)["eval_ids"]
+        for e in eids:
+            wait_complete(srv, e)
+        drain_ms = (time.perf_counter() - t0) * 1000.0
+        gr_drain = greedy.LAUNCHES - gr0
+        snap = srv.state_store.snapshot()
+        check_committed(snap, job, SERVICE_COUNT)
+        left = [a.id for a in snap.allocs_by_job(job.id)
+                if not a.terminal_status() and a.node_id in held]
+        if left or gr_drain == 0 or len(held) != DRAIN_NODES:
+            raise AssertionError(f"drain: {len(left)} allocs left on "
+                                 f"drained nodes, {gr_drain} greedy "
+                                 f"launches, {len(held)} nodes drained")
+        log(f"update drain: {len(held)} nodes drained, {moved} allocs "
+            f"moved by {len(eids)} node-update evals in {drain_ms:.2f} ms, "
+            f"greedy_launches={gr_drain} [{card}]")
+
+        pjob = make_job("ports-svc", structs.JOB_TYPE_SERVICE,
+                        PORT_JOB_COUNT, ["dc1", "dc2"])
+        pjob.task_groups[0].tasks[0].resources.networks = [
+            structs.NetworkResource(mbits=10, dynamic_ports=["http", "https"],
+                                    reserved_ports=[PORT_RESERVED])]
+        gr0 = greedy.LAUNCHES
+        t0 = time.perf_counter()
+        eid, _ = srv.job_register(pjob)
+        ports_ms = (wait_complete(srv, eid) - t0) * 1000.0
+        snap = srv.state_store.snapshot()
+        check_committed(snap, pjob, PORT_JOB_COUNT)
+        nodes = sorted({a.node_id for a in snap.allocs_by_job(pjob.id)
+                        if not a.terminal_status()})
+        if set(nodes) & set(held):
+            raise AssertionError("the port job landed on a drained node")
+        check_ports(snap, pjob, nodes)
+        if greedy.LAUNCHES == gr0:
+            raise AssertionError("the port job never launched the greedy "
+                                 "kernel")
+        log(f"update ports: {PORT_JOB_COUNT} allocs on {len(nodes)} nodes, "
+            f"ports distinct and outside the reserved set, "
+            f"register_complete_ms={ports_ms:.2f} [{card}]")
+        wf, gr = waterfill.LAUNCHES, greedy.LAUNCHES
+    finally:
+        srv.shutdown()
+    return wf, gr
+
+
+# Phase 8's steady-10k numbers, for the 100k-node scenario's log line.
+SIM_NUMBERS = {}
+
+
+def sim_numbers(art) -> dict:
+    return {"nodes_per_s": art["registration"]["nodes_per_sec"],
+            "plan_p50_ms": art["plan_latency_ms"]["p50_ms"],
+            "plan_p95_ms": art["plan_latency_ms"]["p95_ms"]}
+
+
+def phase_update_sim(dev, card: str, names=UPDATE_SCENARIOS):
+    """Phase 17 (d): each (scenario, rows) of ``names`` through
+    run_checked, held to nomad_tpu's digest; its water-fill solves must
+    have reached ``rows``. Returns the water-fill launches."""
+    from nomad_tpu_torch.simcluster.scenario import SCENARIOS
+
+    refs = load_reference_digests()
+    total = 0
+    for name, rows in names:
+        with WaterfillCalls() as calls:
+            art, launches, _stages, compared = run_checked(
+                name, SCENARIOS[name], dev, refs)
+        total += launches
+        if not compared or max(calls.rows(), default=0) != rows:
+            raise AssertionError(f"{name}: digest compared {compared}, "
+                                 f"water-fill rows {calls.rows()}, want "
+                                 f"{rows}")
+        got = sim_numbers(art)
+        base = SIM_NUMBERS.get("steady-10k")
+        log(f"update {name}: digest equals nomad_tpu's, rows={calls.rows()} "
+            f"placed={art['placements']['placed']} "
+            f"registration nodes_per_s={got['nodes_per_s']} "
+            f"plan_latency_ms p50={got['plan_p50_ms']} "
+            f"p95={got['plan_p95_ms']} waterfill_launches={launches} "
+            f"wall_seconds={art['wall_seconds']}; steady-10k "
+            + (json.dumps(base) if base else "not run") + f" [{card}]")
+    return total
+
+
+def phase_update(dev, card: str):
+    """Phase 17. Returns (water-fill launches, greedy launches)."""
+    t0 = time.perf_counter()
+    wf = phase_update_harness(dev, card)
+    t1 = time.perf_counter()
+    wf += phase_update_server(dev, card)
+    t2 = time.perf_counter()
+    w, gr = phase_update_drain_ports(dev, card)
+    wf += w
+    t3 = time.perf_counter()
+    wf += phase_update_sim(dev, card, UPDATE_SCENARIOS)
+    log(f"update: phase {time.perf_counter() - t0:.1f} s (harness "
+        f"{t1 - t0:.1f}, server roll {t2 - t1:.1f}, drain and ports "
+        f"{t3 - t2:.1f}, steady-100k-nodes {time.perf_counter() - t3:.1f}); "
+        f"waterfill_launches={wf} greedy_launches={gr}")
+    return wf, gr
+
+
 def timed(n: int, fn, *args):
     """Run phase ``n`` and log its seconds as ``phase n: <s> s``."""
     t0 = time.perf_counter()
@@ -5038,6 +5586,12 @@ def main() -> int:
     wf_launches += wf
     gr_launches += gr
 
+    # 17. the job-update path: config 5, a roll through a server, a drain,
+    # port asks, and steady-100k-nodes
+    wf, gr = timed(17, phase_update, dev, card)
+    wf_launches += wf
+    gr_launches += gr
+
     wf = kres["waterfill"][MAIN_WF_SHAPE]
     gr = kres["greedy"][MAIN_GREEDY_SHAPE]
     kernels_line = {"kernels": [
@@ -5073,7 +5627,7 @@ def main() -> int:
              "nomad_tpu/ops/binpack.py:115", "greedy_merge", "merge_err"))
     ]}
     log(f"card: {card}")
-    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

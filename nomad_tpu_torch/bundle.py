@@ -337,7 +337,8 @@ def collect(agent=None, last_events: int = 512) -> Dict[str, Any]:
 
     bundle: Dict[str, Any] = {
         "format": BUNDLE_FORMAT,
-        # A user-facing capture timestamp; no interval arithmetic.
+        # nomadlint: allow(DET002) -- user-facing capture timestamp on
+        # an operator artifact; never used in interval arithmetic.
         "captured_at": time.time(),
         "metrics": None,
         "traces": None,

@@ -1754,8 +1754,10 @@ class ScenarioRunner:
         while time.monotonic() < deadline:
             snap = srv.state_store.snapshot()
             if down_needed:
-                # Order-independent filter: only its emptiness is read.
                 down_needed = {
+                    # nomadlint: allow(DET003) -- order-independent
+                    # filter: the result set is only len()/emptiness
+                    # checked.
                     nid for nid in down_needed
                     if (snap.node_by_id(nid) is not None
                         and snap.node_by_id(nid).status

@@ -161,7 +161,8 @@ class AggregateSample:
         self.sum += v
         self.sum_sq += v * v
         self.last = v
-        # Display-only wall stamp of the last sample; no arithmetic.
+        # nomadlint: allow(DET002) -- display-only last-sample wall
+        # stamp (go-metrics AggregateSample parity); no arithmetic.
         self.last_time = time.time()
         # Algorithm R: after the reservoir fills, sample i survives with
         # probability RESERVOIR_SIZE/i.
@@ -242,9 +243,9 @@ class InmemSink:
         self._lock = threading.Lock()
 
     def _current(self) -> IntervalMetrics:
-        # Interval buckets are wall-aligned by design (go-metrics
-        # inmem.go): dump() strftime's them and scrapers correlate them
-        # across hosts.
+        # nomadlint: allow(DET002) -- interval buckets are wall-aligned
+        # by design (go-metrics inmem.go): dump() strftime's them and
+        # scrapers correlate them across hosts.
         now = time.time()
         start = now - (now % self.interval)
         if self.intervals and self.intervals[-1].interval == start:

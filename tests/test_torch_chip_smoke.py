@@ -11,7 +11,9 @@ profiler-off arm and its check of the profiled arm's profile section;
 and the operator phase's Prometheus reader, lock and role deltas, config
 file, and the phase itself on the CPU at a small size; and the secure
 phase's certificates and refusals, its oracle and its native check, and
-the phase itself on the CPU at a small size."""
+the phase itself on the CPU at a small size; and the update phase's
+config 5 shapes, its water-fill row, its port check, and the phase
+itself on the CPU at a small size."""
 
 import json
 import os
@@ -220,6 +222,7 @@ def test_reference_digests_file_is_valid():
     refs = cs.load_reference_digests()
     for name in (cs.SIM_SCENARIOS + cs.PLANE_SCENARIOS
                  + cs.RECOVERY_SCENARIOS
+                 + tuple(n for n, _rows in cs.UPDATE_SCENARIOS)
                  + ("steady-1k", "overdrive-1k", "read-storm-800",
                     "churn-frag-200", "restart-800")):
         assert refs[name]["seed"] == cs.SEED
@@ -238,6 +241,8 @@ def test_reference_digests_file_is_valid():
     assert refs["follower-crash-rejoin"]["placed"] == 10 * 120
     assert refs["steady-10k"]["placed"] == 24 * 420
     assert refs["burst-100k"]["placed"] == 8 * 12_500
+    assert refs["steady-100k-nodes"]["placed"] == 24 * 420
+    assert refs["steady-100k-nodes"]["heartbeat_timers"] == 100_000
     for name in cs.PLANE_SCENARIOS:
         assert "admission_injector" in refs[name], name
     assert refs["overdrive-100k"]["admission_injector"] == {
@@ -307,6 +312,7 @@ def test_check_scenario(art, ref, result):
 @pytest.mark.parametrize("name, seed", [
     *((n, cs.SEED) for n in cs.SIM_SCENARIOS + cs.PLANE_SCENARIOS
       + cs.RECOVERY_SCENARIOS),
+    *((n, cs.SEED) for n, _rows in cs.UPDATE_SCENARIOS),
     ("overdrive-1k", cs.SEED), ("read-storm-800", cs.SEED),
     ("read-storm-800", 11), ("churn-frag-200", cs.SEED),
     ("churn-frag-200", 11), ("restart-800", cs.SEED), ("restart-800", 11),
@@ -829,3 +835,114 @@ def test_secure_phase_at_a_small_size(counted_plain, monkeypatch, capsys):
     assert "a parked blocking query woke" in out
     assert "fit_check on 301 x 4 int32 rows equal to the plain" in out
     assert "60 equal, 0 in the 256-ulp pow band" in out
+
+
+# -- the update phase ----------------------------------------------------------
+
+
+def test_update_phase_runs_config5_and_the_100k_scenario():
+    """Phase 17 is in the script and runs BASELINE config 5 at its shapes
+    (bench.py run_config5: 50,000 nodes, 10,000 tasks, max_parallel
+    1,000, stagger 10 s; the nodes are bench.py's), steady-100k-nodes at
+    the 131,072-row bucket, and the kernel phase times the config-5
+    mirror's water-fill row."""
+    import inspect
+
+    import bench
+    from nomad_tpu.api.codec import to_dict as jax_to_dict
+    from nomad_tpu_torch.api.codec import to_dict
+    from nomad_tpu_torch.ops.binpack import bucket
+
+    assert "\n17. update:" in cs.__doc__
+    assert "timed(17, phase_update, dev, card)" in inspect.getsource(cs.main)
+    assert (cs.CONFIG5_NODES, cs.CONFIG5_TASKS, cs.CONFIG5_MAX_PARALLEL,
+            cs.CONFIG5_STAGGER_S) == (50_000, 10_000, 1_000, 10.0)
+    assert cs.CONFIG5_ROWS == bucket(cs.CONFIG5_NODES) == 65_536
+    assert cs.UPDATE_SCENARIOS == (("steady-100k-nodes", bucket(100_000)),)
+    assert bucket(100_000) == 131_072
+    assert (65_536, 1, False, False, "config5") in cs.WF_SHAPES
+    assert ([to_dict(n) for n in cs.config5_nodes(3)]
+            == [jax_to_dict(n) for n in bench._mk_nodes(3, with_net=False)])
+    job = cs.config5_job(cs.CONFIG5_STAGGER_S)
+    tg = job.task_groups[0]
+    assert (tg.count, job.update.max_parallel, job.update.stagger,
+            tg.tasks[0].resources.cpu, tg.tasks[0].resources.memory_mb,
+            job.type, job.datacenters) == (10_000, 1_000, 10.0, 100, 128,
+                                           "service", ["dc1"])
+
+
+def test_config5_waterfill_row_on_the_cpu():
+    """The kernel phase's config-5 row: 50,000 live identical nodes of
+    65,536 rows take the 10,000 tasks one a node, nothing left."""
+    args = cs.waterfill_case(np.random.default_rng(0), 65_536, 1, False,
+                             False, "config5", torch.device("cpu"))
+    from nomad_tpu_torch.ops import waterfill
+
+    counts, left = waterfill.solve_waterfill_batched_plain(*args)
+    # the block's rows matter to the "ties" mode alone
+    cs.check_wf_mode("config5", counts, left, args[10], 16_384)
+    assert int(counts.sum()) == 10_000 and int(counts.max()) == 1
+    assert int(counts[0, 50_000:].sum()) == 0
+
+
+def test_check_ports_refuses_a_port_taken_twice(monkeypatch):
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.state import StateStore
+
+    monkeypatch.setattr(cs, "N_NODES", 1)
+    node = cs.net_nodes()[0]
+    job = cs.make_job("p", structs.JOB_TYPE_SERVICE, 2, ["dc1"])
+    store = StateStore()
+    store.upsert_node(1, node)
+    store.upsert_job(2, job)
+
+    def alloc(ports):
+        net = structs.NetworkResource(
+            device="eth0", ip="10.0.0.0", mbits=10,
+            reserved_ports=ports, dynamic_ports=["http", "https"])
+        return structs.Allocation(
+            id=structs.generate_uuid(), node_id=node.id, job_id=job.id,
+            job=job, task_group="work", name="p.work[0]",
+            resources=structs.Resources(cpu=100, memory_mb=128),
+            task_resources={"work": structs.Resources(networks=[net])},
+            desired_status=structs.ALLOC_DESIRED_STATUS_RUN)
+
+    store.upsert_allocs(3, [alloc([cs.PORT_RESERVED, 21000, 21001])])
+    cs.check_ports(store.snapshot(), job, [node.id])
+    for ports, error in (([cs.PORT_RESERVED, 21000, 21001], "taken twice"),
+                         ([cs.PORT_RESERVED, 22, 21002], "ports"),
+                         ([21003, 21004], "ports")):
+        bad = store.snapshot()
+        store.upsert_allocs(4, [alloc(ports)])
+        with pytest.raises(AssertionError, match=error):
+            cs.check_ports(store.snapshot(), job, [node.id])
+        store = StateStore()
+        store.upsert_node(1, node)
+        store.upsert_job(2, job)
+        del bad
+
+
+def test_update_phase_at_a_small_size(counted_plain, monkeypatch, capsys):
+    """phase_update on the CPU: config 5 at 2,000 nodes and 800 tasks
+    rolled 200 at a time (through the harness, then a Server to its end
+    with 0.05 s waits), a 4-node drain and the port-ask job on 400 nodes,
+    and steady-1k in place of steady-100k-nodes."""
+    for name, value in (("CONFIG5_NODES", 2000), ("CONFIG5_TASKS", 800),
+                        ("CONFIG5_MAX_PARALLEL", 200), ("CONFIG5_ROWS", 2048),
+                        ("CONFIG5_SERVER_STAGGER_S", 0.05),
+                        ("N_NODES", 400), ("SERVICE_COUNT", 20),
+                        ("DRAIN_NODES", 4),
+                        ("UPDATE_SCENARIOS", (("steady-1k", 1024),))):
+        monkeypatch.setattr(cs, name, value)
+    wf, gr = cs.phase_update(torch.device("cpu"), "cpu")
+    assert wf >= 4 and gr >= 2
+    out = capsys.readouterr().out
+    assert "update config5 place: placed=800" in out
+    assert "update config5 in place: inplace_updated=800" in out
+    assert "launches 0" in out
+    assert "update config5 roll: rolled=200 stopped=200" in out
+    assert "follow_up_wait_s=10.0" in out
+    assert "rounds=4" in out and "evals complete once=6" in out
+    assert "update drain: 4 nodes drained" in out
+    assert "update ports: 20 allocs on 20 nodes" in out
+    assert "update steady-1k: digest equals nomad_tpu's, rows=[1024]" in out

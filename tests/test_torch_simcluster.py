@@ -519,6 +519,23 @@ def test_chaos_family_end_to_end(name):
     assert art["placements"]["placed"] == ref["placed"]
 
 
+@pytest.mark.slow
+def test_steady_100k_nodes_digest_equals_committed_reference():
+    """steady-100k-nodes at its registry size on the CPU (about a minute
+    here; slow, as a 100,000-node fleet is no tier-1 size): the port's
+    digest and counts equal nomad_tpu's committed reference."""
+    art = psc.run_scenario("steady-100k-nodes", seed=42, device="cpu",
+                           attribution_layer=False, contrast=False)
+    ref = committed_reference("steady-100k-nodes")
+    assert art["events"]["truncated"] is False
+    assert art["events"]["digest"] == ref["digest"]
+    assert art["events"]["by_type"] == ref["by_type"]
+    assert art["events"]["groups"] == ref["groups"]
+    assert art["heartbeat"]["timers"] == ref["heartbeat_timers"]
+    for key in ("placed", "evals_injected", "plans_applied"):
+        assert art["placements"][key] == ref[key], key
+
+
 # -- overrides, the registry and the device -----------------------------------
 
 
