@@ -1,7 +1,9 @@
 """End-to-end latency attribution: per-allocation lifecycle timelines.
 
 Port of nomad_tpu/lifecycle.py (host code): the port's spans and events
-carry nomad_tpu's names, so the stitch is the same.
+carry nomad_tpu's names, so the stitch is the same, save one stage:
+``broker_delay``, from the ``broker.delay`` span that only the port's
+delayed evals carry (nomad_tpu counts that wait ``unattributed``).
 
 The north-star artifacts measure plan/eval latency from event timestamps
 and stop there — nobody could say where the rest of a user-visible
@@ -24,6 +26,8 @@ with measured end-to-end latency by construction — ``unattributed``
 holds the thread-handoff/dispatch gaps the spans don't cover):
 
 ==================  =====  ====================================================
+``broker_delay``    queue  a delayed eval's ``wait`` before it is ready (a
+                           rolling update's stagger; ``broker.delay``)
 ``broker_wait``     queue  eval ready/blocked-queue wait (restarts on
                            redelivery — each extra pass is a visible retry
                            segment, not lost time)
@@ -54,6 +58,7 @@ from nomad_tpu_torch import structs, trace
 # Stage partition of submit->placed, in pipeline order. client_ack extends
 # the partition to submit->running.
 STAGES = (
+    "broker_delay",
     "broker_wait",
     "raft_catchup",
     "schedule_solve",
@@ -79,6 +84,7 @@ EXPRESS_STAGES = (
 EXPRESS_ASYNC_STAGES = ("express_commit",)
 
 STAGE_KINDS = {
+    "broker_delay": "queue",
     "broker_wait": "queue",
     "raft_catchup": "service",
     "schedule_solve": "service",
@@ -96,6 +102,7 @@ STAGE_KINDS = {
 # Span name -> stage for the directly-mapped spans. schedule_solve and
 # submit_overhead are derived (parent minus nested children).
 _SPAN_STAGE = {
+    "broker.delay": "broker_delay",
     "broker.wait": "broker_wait",
     "worker.wait_for_index": "raft_catchup",
     "plan.queue_wait": "plan_queue_wait",

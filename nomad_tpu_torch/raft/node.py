@@ -57,7 +57,7 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from nomad_tpu_torch import faults, prng, telemetry
+from nomad_tpu_torch import faults, prng, telemetry, trace
 from nomad_tpu_torch.raft.log_codec import decode_payload, encode_payload
 from nomad_tpu_torch.rpc import ConnPool, RPCError, RPCServer, RemoteError
 
@@ -322,7 +322,11 @@ class RaftNode:
         """Append + replicate + commit + FSM-apply. Resolves with the log
         index; raises NotLeaderError through the future on followers."""
         future: Future = Future()
+        # The write path's submit and persisted anchors, each read beside
+        # the span clock: 'raft.persist' and append_persist measure one
+        # interval.
         t_submit = time.monotonic()
+        s_submit = trace.now()
         with self._lock:
             if self.role != LEADER:
                 future.set_exception(NotLeaderError(self.leader_addr))
@@ -338,6 +342,8 @@ class RaftNode:
             line = json.dumps({"index": index, **entry.to_wire()})
             entry.wire_bytes = len(line)
             self._persist_entry_line(line)
+            t_persisted = time.monotonic()
+            s_persisted = trace.now()
             self.entries_appended += 1
             self.bytes_appended += entry.wire_bytes
             self._wp_open[index] = {
@@ -345,7 +351,7 @@ class RaftNode:
                 "msg_type": msg_type,
                 "bytes": entry.wire_bytes,
                 "anchors": {"submit": t_submit,
-                            "persisted": time.monotonic()},
+                            "persisted": t_persisted},
             }
             if len(self._wp_open) > 4096:
                 # Bound the open table: insertion order is index order,
@@ -353,6 +359,11 @@ class RaftNode:
                 self._wp_open.pop(next(iter(self._wp_open)))
             if len(self.config.peers) == 1:
                 self._advance_commit_locked()
+        # Beside fsm.apply under the applying thread's span (plan.apply).
+        parent = trace.current_span()
+        if parent is not None:
+            parent.record_stages([("persist", s_submit, s_persisted)],
+                                 "raft.")
         self._replicate_now.set()
         return future
 

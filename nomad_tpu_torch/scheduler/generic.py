@@ -11,6 +11,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, List, Optional
 
+from nomad_tpu_torch import trace
 from nomad_tpu_torch.scheduler import SetStatusError
 from nomad_tpu_torch.scheduler.context import EvalContext
 from nomad_tpu_torch.scheduler.stack import GenericStack
@@ -70,6 +71,8 @@ class GenericScheduler:
         self.stack: Optional[GenericStack] = None
         self.limit_reached = False
         self.next_eval: Optional[Evaluation] = None
+        # This attempt's open 'sched.reconcile' span, if the pass is traced.
+        self._reconcile_span = None
 
     # -- stack construction (overridden by the TPU scheduler) -------------
 
@@ -111,6 +114,10 @@ class GenericScheduler:
     def _process(self) -> bool:
         """One scheduling attempt; returns True when done
         (generic_sched.go:116-184)."""
+        parent = trace.current_span()
+        if parent is not None:
+            self._reconcile_span = trace.get_tracer().start_span(
+                parent.trace_id, "sched.reconcile", parent=parent)
         self.job = self.state.job_by_id(self.eval.job_id)
         self.plan = self.eval.make_plan(self.job)
         self.ctx = EvalContext(self.state, self.plan, self.logger)
@@ -118,7 +125,12 @@ class GenericScheduler:
         if self.job is not None:
             self.stack.set_job(self.job)
 
-        self.compute_job_allocs()
+        try:
+            self.compute_job_allocs()
+        finally:
+            # Every path finishes the span before it places; this one
+            # finishes it where the pass raised first.
+            self._reconcile_done("error", 0)
 
         if self.plan.is_noop():
             return True
@@ -175,9 +187,27 @@ class GenericScheduler:
             self.ctx, diff, diff.update, ALLOC_UPDATING, limit
         )
 
+        self._reconcile_done("diff", len(diff.place))
         if not diff.place:
             return
         self.compute_placements(diff.place)
+
+    def _reconcile_done(self, path: str, place: int) -> None:
+        """Finish this attempt's ``sched.reconcile`` span (once), annotated
+        with the path taken and the plan's stops and in-place updates so
+        far and the placements to make."""
+        span, self._reconcile_span = self._reconcile_span, None
+        if span is None:
+            return
+        plan = self.plan
+        span.annotate("path", path)
+        if plan is not None:
+            span.annotate(
+                "stop", sum(len(v) for v in plan.node_update.values()))
+            span.annotate("update", sum(b.n for b in plan.update_batches)
+                          + sum(len(v) for v in plan.node_allocation.values()))
+        span.annotate("place", place)
+        span.finish()
 
     def inplace_updates(self, updates: List[AllocTuple]) -> List[AllocTuple]:
         """In-place update attempt; returns the updates still needing

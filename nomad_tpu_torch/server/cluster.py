@@ -28,7 +28,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from nomad_tpu_torch import prng, trace
+from nomad_tpu_torch import prng, telemetry, trace
 from nomad_tpu_torch.api.codec import from_dict, to_dict
 from nomad_tpu_torch.backoff import Backoff
 from nomad_tpu_torch.raft import NotLeaderError, RaftConfig, RaftNode
@@ -217,6 +217,7 @@ class ClusterServer(Server):
         self.raft_observatory.start()
         self.read_observatory.start()
         self.runtime_observatory.start()
+        self._start_stats()
         for i in range(self.config.scheduler_workers):
             worker = Worker(self, i)
             worker.start()
@@ -227,6 +228,12 @@ class ClusterServer(Server):
         )
         reaper.start()
         self._start_readmission()
+
+    def _stats_tick(self) -> None:
+        """A member publishes only the runtime stats: the gauges go to one
+        sink a process, and a follower's disabled broker and idle plan
+        queue would overwrite the leader's where members share one."""
+        telemetry.GC_BOOKS.publish()
 
     def shutdown(self, drain_timeout: float = 10.0) -> bool:
         """Stop the loop and leave the cluster (raft, RPC listener, peer

@@ -158,6 +158,9 @@ class EvalBroker:
         # birthplace: trace_id IS the eval id.
         self._trace_root: Dict[str, object] = {}
         self._trace_wait: Dict[str, object] = {}
+        # A delayed eval's 'broker.delay' span (enqueue -> its wait timer
+        # fires), so broker.wait keeps to the ready/blocked wait.
+        self._trace_delay: Dict[str, object] = {}
         # eval ID -> raft index the processing worker must observe in ITS
         # local FSM before snapshotting. For a freshly-created eval this is
         # the eval's own apply index (same as modify_index); for an eval
@@ -276,6 +279,12 @@ class EvalBroker:
                     self._trace_root[ev.id] = root
 
         if ev.wait > 0:
+            root = self._trace_root.get(ev.id)
+            if root is not None:
+                self._trace_delay[ev.id] = trace.get_tracer().start_span(
+                    ev.id, "broker.delay", parent=root,
+                    annotations={"wait_s": ev.wait},
+                )
             timer = threading.Timer(ev.wait, self._enqueue_waiting, args=(ev,))
             timer.daemon = True
             timer.start()
@@ -288,6 +297,9 @@ class EvalBroker:
     def _enqueue_waiting(self, ev: Evaluation) -> None:
         with self._lock:
             self._time_wait.pop(ev.id, None)
+            delay = self._trace_delay.pop(ev.id, None)
+            if delay is not None:
+                delay.finish()
             self.stats.total_waiting -= 1
             self._enqueue_locked(ev, ev.type)
 
@@ -636,12 +648,15 @@ class EvalBroker:
                 unack.nack_timer.cancel()
             for timer in self._time_wait.values():
                 timer.cancel()
+            for delay in self._trace_delay.values():
+                delay.annotate("cancelled", True).finish()
             for wait in self._trace_wait.values():
                 wait.finish()
             for root in self._trace_root.values():
                 root.annotate("outcome", "flush").finish()
             self._trace_root = {}
             self._trace_wait = {}
+            self._trace_delay = {}
             self.stats = BrokerStats()
             self._evals = {}
             self._job_evals = {}

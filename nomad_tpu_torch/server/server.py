@@ -351,6 +351,9 @@ class Server:
         # Solve dispatches the start-time warmer has issued (0 until its
         # first pass over registered nodes completes).
         self.warm_dispatches = 0
+        # Whether this server holds the process's collection hook
+        # (telemetry.GC_BOOKS), from start to shutdown.
+        self._gc_hooked = False
 
     def _runtime_rings(self) -> Dict:
         """The bounded rings the byte ledger accounts: event broker, trace
@@ -423,10 +426,7 @@ class Server:
         self.raft_observatory.start()
         self.read_observatory.start()
         self.runtime_observatory.start()
-        emitter = threading.Thread(
-            target=self._emit_stats, daemon=True, name="stats-emitter",
-        )
-        emitter.start()
+        self._start_stats()
         if self.config.prewarm_shapes and self.config.scheduler_backend == "tpu":
             warmer = threading.Thread(
                 target=self._prewarm_solver, daemon=True, name="shape-warmer",
@@ -482,6 +482,15 @@ class Server:
                 if ticket is not None:
                     store.watch.unregister(ticket)
 
+    def _start_stats(self) -> None:
+        """The collection hook and the 1 Hz stats emitter."""
+        telemetry.GC_BOOKS.acquire()
+        self._gc_hooked = True
+        emitter = threading.Thread(
+            target=self._emit_stats, daemon=True, name="stats-emitter",
+        )
+        emitter.start()
+
     def _stop_loop(self) -> None:
         """Stop workers, pipeline, broker and heartbeats (no device
         drain)."""
@@ -499,6 +508,9 @@ class Server:
         self.plan_queue.set_enabled(False)
         self.eval_broker.set_enabled(False)
         self.heartbeat.clear_all()
+        if self._gc_hooked:
+            self._gc_hooked = False
+            telemetry.GC_BOOKS.release()
 
     def _apply_solver_mesh(self) -> None:
         """Configure the process solve mesh from `server { solver_mesh }`
@@ -539,38 +551,44 @@ class Server:
         return self._drain_device(drain_timeout)
 
     def _emit_stats(self) -> None:
-        """Periodic telemetry gauges at 1 Hz (server.go:213-228 EmitStats ->
-        eval_broker.go:557-575, plan_queue.go:198-209, heartbeat.go:135-148)."""
+        """The stats emitter's loop: one ``_stats_tick`` a second."""
         while not self._periodic_stop.wait(1.0):
-            broker = self.eval_broker.snapshot_stats()
-            telemetry.set_gauge(("broker", "total_ready"), broker.total_ready)
+            self._stats_tick()
+
+    def _stats_tick(self) -> None:
+        """Telemetry gauges at 1 Hz (server.go:213-228 EmitStats ->
+        eval_broker.go:557-575, plan_queue.go:198-209, heartbeat.go:135-148),
+        and the runtime stats of the interpreter's collections."""
+        broker = self.eval_broker.snapshot_stats()
+        telemetry.set_gauge(("broker", "total_ready"), broker.total_ready)
+        telemetry.set_gauge(
+            ("broker", "total_unacked"), broker.total_unacked)
+        telemetry.set_gauge(
+            ("broker", "total_blocked"), broker.total_blocked)
+        telemetry.set_gauge(
+            ("broker", "total_waiting"), broker.total_waiting)
+        for queue, stats in broker.by_scheduler.items():
+            telemetry.set_gauge(("broker", queue, "ready"), stats.ready)
             telemetry.set_gauge(
-                ("broker", "total_unacked"), broker.total_unacked)
+                ("broker", queue, "unacked"), stats.unacked)
+        telemetry.set_gauge(
+            ("plan", "queue_depth"), self.plan_queue.depth())
+        telemetry.set_gauge(
+            ("worker", "concurrency"),
+            sum(1 for w in self.workers if w.is_alive()),
+        )
+        telemetry.set_gauge(
+            ("plan", "pipeline_batch_max"), self.plan_applier.max_batch)
+        telemetry.set_gauge(
+            ("heartbeat", "active"), self.heartbeat.num_timers())
+        for name, registry in (("state", self.state_store.watch),
+                               ("events", self.fsm.events.watch)):
+            wstats = registry.stats()
             telemetry.set_gauge(
-                ("broker", "total_blocked"), broker.total_blocked)
+                ("blocking", name, "watchers"), wstats["watchers"])
             telemetry.set_gauge(
-                ("broker", "total_waiting"), broker.total_waiting)
-            for queue, stats in broker.by_scheduler.items():
-                telemetry.set_gauge(("broker", queue, "ready"), stats.ready)
-                telemetry.set_gauge(
-                    ("broker", queue, "unacked"), stats.unacked)
-            telemetry.set_gauge(
-                ("plan", "queue_depth"), self.plan_queue.depth())
-            telemetry.set_gauge(
-                ("worker", "concurrency"),
-                sum(1 for w in self.workers if w.is_alive()),
-            )
-            telemetry.set_gauge(
-                ("plan", "pipeline_batch_max"), self.plan_applier.max_batch)
-            telemetry.set_gauge(
-                ("heartbeat", "active"), self.heartbeat.num_timers())
-            for name, registry in (("state", self.state_store.watch),
-                                   ("events", self.fsm.events.watch)):
-                wstats = registry.stats()
-                telemetry.set_gauge(
-                    ("blocking", name, "watchers"), wstats["watchers"])
-                telemetry.set_gauge(
-                    ("blocking", name, "watch_rejected"), wstats["rejected"])
+                ("blocking", name, "watch_rejected"), wstats["rejected"])
+        telemetry.GC_BOOKS.publish()
 
     def restore_eval_broker(self) -> None:
         """Re-enqueue non-terminal evals after (re)gaining leadership

@@ -26,6 +26,7 @@ from __future__ import annotations
 import bisect
 import collections
 import functools
+import gc
 import math
 import os
 import signal
@@ -36,7 +37,7 @@ import time
 import traceback
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from nomad_tpu_torch import prng
+from nomad_tpu_torch import prng, trace
 
 Key = Tuple[str, ...]
 
@@ -123,6 +124,124 @@ def snapshot() -> Dict[str, Dict]:
         for k, v in rings.items()
     }
     return {"counters": counters, "gauges": gauges, "samples": out}
+
+
+# -- the interpreter's collections ----------------------------------------------
+
+# Pauses the ring keeps. The 50,000-node roll made 6,262 collections in
+# a 50 s window (63.1 s to the end of its last roll, one H100 host) and
+# 9,112 over its whole process; the ring holds the window and what comes
+# before and after it (about 1.5 MB of tuples).
+GC_RING = 16384
+# A pause at least this long becomes a ``runtime.gc`` span.
+GC_SPAN_MIN_S = 0.001
+
+
+class GCBooks:
+    """The interpreter's collections, the counterpart of go-metrics'
+    runtime stats (``runtime.total_gc_runs``, ``runtime.total_gc_pause_ns``,
+    ``runtime.gc_pause_ns``) that upstream Nomad emits.
+
+    One ``gc.callbacks`` hook, installed while any server of the process
+    runs (``acquire``/``release``), keeps per generation the collections
+    and their pause, and a bounded ring of ``(start, end, generation)``
+    pauses on ``trace.now()``'s clock with a count of what it dropped.
+    The hook takes no lock: the collecting thread may hold any lock of the
+    program (``Tracer._lock`` is not reentrant), so it only stamps the
+    clock, appends to deques and adds to plain integers. A pause of at
+    least GC_SPAN_MIN_S on a thread that carries a span is queued, and
+    ``flush_spans`` (the server's stats tick, and release) makes it a
+    ``runtime.gc`` span under that trace's root, so the stage spans stay
+    leaves. The counters run whether or not the tracer is enabled."""
+
+    def __init__(self):
+        self.runs = [0, 0, 0]
+        self.pause_ns = [0, 0, 0]
+        self.ring: "collections.deque" = collections.deque(maxlen=GC_RING)
+        self.dropped = 0
+        # (span, start, end, generation) awaiting flush_spans.
+        self._queued: "collections.deque" = collections.deque(maxlen=GC_RING)
+        self._t0 = 0.0
+        self._users = 0
+        self._install_lock = threading.Lock()
+        # Serializes the emitters of several servers (never the hook).
+        self._publish_lock = threading.Lock()
+        self._published_end = 0.0
+
+    def __call__(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            self._t0 = trace.now()
+            return
+        t0 = self._t0
+        if not t0:
+            return  # installed mid-collection: no start was stamped
+        t1 = trace.now()
+        self._t0 = 0.0
+        gen = info["generation"]
+        self.runs[gen] += 1
+        self.pause_ns[gen] += int((t1 - t0) * 1e9)
+        ring = self.ring
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+        ring.append((t0, t1, gen))
+        if t1 - t0 >= GC_SPAN_MIN_S:
+            # The collecting thread's span, read only for a long pause.
+            span = trace.current_span()
+            if span is not None:
+                self._queued.append((span, t0, t1, gen))
+
+    def acquire(self) -> None:
+        """One more user (a server at start); the first installs the hook."""
+        with self._install_lock:
+            self._users += 1
+            if self._users == 1:
+                gc.callbacks.append(self)
+
+    def release(self) -> None:
+        """One user fewer (a server at shutdown); the last removes the hook.
+        The queued spans are made either way."""
+        with self._install_lock:
+            if self._users > 0:
+                self._users -= 1
+                if self._users == 0:
+                    gc.callbacks.remove(self)
+        self.flush_spans()
+
+    def pauses(self) -> List[Tuple[float, float, int]]:
+        """The ring's pauses, oldest first."""
+        return list(self.ring)
+
+    def flush_spans(self) -> int:
+        """Make the queued pauses ``runtime.gc`` spans, each under the root
+        of the trace its thread was serving; returns how many were made."""
+        made = 0
+        while True:
+            try:
+                span, t0, t1, gen = self._queued.popleft()
+            except IndexError:
+                return made
+            made += span.record_on_root("runtime.gc", t0, t1,
+                                        {"generation": gen})
+
+    def publish(self) -> None:
+        """One stats tick: the totals as gauges, each pause since the last
+        tick as a ``runtime.gc_pause_ns`` sample, the queued spans made."""
+        with self._publish_lock:
+            set_gauge(("runtime", "total_gc_runs"), sum(self.runs))
+            set_gauge(("runtime", "total_gc_pause_ns"), sum(self.pause_ns))
+            ring = self.pauses()
+            new = 0
+            while (new < len(ring)
+                   and ring[-1 - new][1] > self._published_end):
+                new += 1
+            for t0, t1, _gen in ring[len(ring) - new:]:
+                add_sample(("runtime", "gc_pause_ns"), (t1 - t0) * 1e9)
+            if new:
+                self._published_end = ring[-1][1]
+        self.flush_spans()
+
+
+GC_BOOKS = GCBooks()
 
 
 # Bounded reservoir per AggregateSample (Vitter's algorithm R).

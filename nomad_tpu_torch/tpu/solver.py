@@ -805,6 +805,9 @@ class TPUGenericScheduler(GenericScheduler):
             else:
                 small.append((tg, missing))
 
+        self._reconcile_done(
+            "block" if blocked is not None else "fast",
+            sum(len(missing) for _tg, missing in big + small))
         if small:
             place = [
                 AllocTuple(f"{job.name}.{tg.name}[{i}]", tg)

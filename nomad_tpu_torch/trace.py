@@ -8,9 +8,17 @@ traces keyed by evaluation id (the trace id IS the eval id).
 Span taxonomy (producers in parentheses):
 
 - ``eval``                      root; broker enqueue → ack/failed (eval_broker)
+- ``broker.delay``              a delayed eval's ``wait`` (a rolling update's
+                                stagger), enqueue → its timer fires, or
+                                ``cancelled`` at a flush (eval_broker)
 - ``broker.wait``               ready-queue wait, enqueue/nack → dequeue (eval_broker)
 - ``worker.wait_for_index``     FSM catch-up before snapshot (worker)
 - ``worker.invoke_scheduler``   the scheduler pass (worker)
+- ``sched.reconcile``           job read → first solve or the plan's end: the
+                                block/fast reconcile or the object diff and the
+                                evictions, annotated ``path`` and the stop,
+                                update and place counts (scheduler/generic,
+                                tpu/solver)
 - ``solver.staging``            host tensorization: masks + usage (tpu/solver)
 - ``solver.transfer``           per-eval device uploads + dispatch (tpu/solver)
 - ``solver.execute``            device execution wait (ops/binpack, ops/coalesce)
@@ -19,7 +27,13 @@ Span taxonomy (producers in parentheses):
 - ``plan.queue_wait``           plan-queue wait, enqueue → applier dequeue
 - ``plan.evaluate``             plan verification against the snapshot
 - ``plan.apply``                raft apply → commit (plan_pipeline)
+- ``raft.persist``              the entry's encode, ``json.dumps`` and journal
+                                append: the ``submit`` → ``persisted`` anchors
+                                of /v1/agent/raft's ``append_persist`` (raft/node)
 - ``fsm.apply``                 one FSM log-entry apply, annotated msg_type
+- ``runtime.gc``                an interpreter collection of at least 1 ms on a
+                                thread serving the trace, under the root, made
+                                after the pause (telemetry.GCBooks)
 
 A stage timer is live only while the calling thread carries a span
 (``use_span``); the span receives the solver's cuts through
@@ -103,6 +117,14 @@ class Span:
         """Record measured ``(name, start, end)`` cuts as finished child
         spans (StageTimer.emit_spans)."""
         self._tracer.record_batch(self, stages, prefix)
+
+    def record_on_root(self, name: str, start: float, end: float,
+                       annotations: Dict[str, Any]) -> bool:
+        """Record a measured interval of this span's thread as a finished
+        child of its trace's root (a collection pause that stopped the
+        thread while it served this span: telemetry.GCBooks)."""
+        return self._tracer.record_on_root(
+            self.trace_id, name, start, end, annotations, self.thread)
 
     def to_dict(self) -> Dict[str, Any]:
         return {
@@ -256,6 +278,30 @@ class Tracer:
                 else:
                     tr.spans.append(s)
             tr.updated = now()
+
+    def record_on_root(self, trace_id: str, name: str, start: float,
+                       end: float, annotations: Dict[str, Any],
+                       thread: str) -> bool:
+        """Record an already-measured span as a child of the trace's root.
+        False, and nothing recorded, when tracing is disabled or the trace
+        is gone (an evicted trace is not re-admitted for it) or rootless."""
+        if not self.enabled:
+            return False
+        span = Span(self, trace_id, name, "", start, annotations)
+        span.end = end
+        span.thread = thread
+        with self._lock:
+            tr = self._traces.get(trace_id)
+            if tr is None or not tr.root_ctx:
+                return False
+            span.parent_id = tr.root_ctx.get("span_id", "")
+            if len(tr.spans) >= self.max_spans:
+                tr.dropped += 1
+                self.spans_dropped += 1
+            else:
+                tr.spans.append(span)
+            tr.updated = now()
+        return True
 
     def adopt_root(self, trace_id: str, ctx: Dict[str, str]) -> None:
         """Register a REMOTE root context (received over RPC) so local
@@ -461,12 +507,6 @@ class StageTimer:
 
     def stage(self, name: str) -> _StageCtx:
         return _StageCtx(self, name)
-
-    def durations_ms(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for name, t0, t1 in self.stages:
-            out[name] = out.get(name, 0.0) + (t1 - t0) * 1000.0
-        return out
 
     def emit_spans(self, parent, prefix: str = "solver.") -> None:
         if parent is None:

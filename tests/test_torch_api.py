@@ -308,7 +308,13 @@ def test_eval_trace_and_traces(sides):
         assert {e["ph"] for e in doc["traceEvents"]} == {"X", "M"}
         code, text = side.get("/v1/agent/traces?n=2")
         assert code == 200 and len(json.loads(text)) == 2
-    assert names[1] == names[0]
+    # The port's spans of its own (trace.py): sched.reconcile in every
+    # scheduler pass; raft.persist where a raft node journals, runtime.gc
+    # where a collection of 1 ms or more hits, broker.delay for a
+    # delayed eval. nomad_tpu has none of them.
+    own = {"sched.reconcile", "raft.persist", "runtime.gc", "broker.delay"}
+    assert not names[0] & own and "sched.reconcile" in names[1]
+    assert names[1] - own == names[0]
 
 
 def test_alloc_route_answers_as_nomad_tpu(sides):

@@ -125,7 +125,9 @@ def test_port_threads_fall_into_nomad_tpus_roles(tmp_path):
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.agent import Agent, AgentConfig
 
-    before = {t.ident for t in threading.enumerate()}
+    # Thread objects, not idents: a thread of an earlier test that ends
+    # meanwhile frees its ident for one of this server's threads.
+    before = set(threading.enumerate())
     agent = Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0,
                               bootstrap_expect=1, num_schedulers=2,
                               data_dir=str(tmp_path), device="cpu",
@@ -148,7 +150,7 @@ def test_port_threads_fall_into_nomad_tpus_roles(tmp_path):
         deadline = time.monotonic() + 30
         while True:
             names = [t.name for t in threading.enumerate()
-                     if t.ident not in before]
+                     if t not in before]
             roles = {ppo.classify_thread(n) for n in names}
             if (want <= roles and "runtime-profiler" in names
                     or time.monotonic() > deadline):

@@ -10,10 +10,15 @@ Each piece gets the same inputs in both packages, made from a seed:
   ``evaluate_artifact`` and ``evaluate_read_lanes`` over seeded sections;
 - ``lifecycle``: ``scan_events``, ``stitch`` and ``attribution`` over
   seeded synthetic spans and anchors, and over the events and spans of a
-  real run of the port's ``Server``.
+  real run of the port's ``Server``; the port's one stage of its own,
+  ``broker_delay`` (a delayed eval's ``broker.delay``), reads 0 where no
+  eval carries that span and takes the stagger out of ``unattributed``
+  where one does.
 
 Tolerance: exact. These are host computations on identical inputs (at
-most 256 samples per aggregate, so no reservoir draw is involved).
+most 256 samples per aggregate, so no reservoir draw is involved); the
+``broker_delay`` case compares sums of differently grouped floats, to
+``pytest.approx``'s default relative 1e-6.
 """
 
 import random
@@ -349,6 +354,15 @@ def timelines_dict(tls):
     return {k: v.to_dict() for k, v in sorted(tls.items())}
 
 
+def without_delay(att):
+    """The port's attribution less its ``broker_delay`` row, the one stage
+    nomad_tpu has not: it reads 0 where no eval carries a broker.delay."""
+    rows = [r for r in att["waterfall"] if r["stage"] == "broker_delay"]
+    assert all(r["total_ms"] == 0.0 for r in rows), rows
+    return dict(att, waterfall=[r for r in att["waterfall"]
+                                if r["stage"] != "broker_delay"])
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_scan_events_equals_reference(seed):
     ref_events, port_events = lifecycle_stream(seed)
@@ -364,9 +378,67 @@ def test_stitch_and_attribution_equal_reference(seed):
     got = plc.stitch(port_events, tracer=table)
     ref = jlc.stitch(ref_events, tracer=table)
     assert timelines_dict(got) == timelines_dict(ref)
-    assert plc.attribution(got.values()) == jlc.attribution(ref.values())
+    assert (without_delay(plc.attribution(got.values()))
+            == jlc.attribution(ref.values()))
     assert plc.worst_k(got.values(), 5) == jlc.worst_k(ref.values(), 5)
-    assert plc.STAGES == jlc.STAGES and plc.STAGE_KINDS == jlc.STAGE_KINDS
+    assert plc.STAGES == ("broker_delay",) + jlc.STAGES
+    assert plc.STAGE_KINDS == {**jlc.STAGE_KINDS, "broker_delay": "queue"}
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_broker_delay_takes_the_stagger_out_of_unattributed(seed):
+    """Delayed evals (a roll's rounds): the port puts each one's
+    broker.delay in ``broker_delay``, where nomad_tpu leaves it in
+    ``unattributed``; every other stage is the same, and the stage sums
+    still reconcile with submit->placed."""
+    rng = random.Random(seed)
+    rows, spans = [], {}
+    for k in range(12):
+        key = f"round-{seed}-{k}"
+        t = 1_700_000_000.0 + 2.0 * k
+        wait = rng.choice([0.5, 1.0])
+        ready = t + wait + rng.random() * 0.001
+        start = ready + rng.random() * 0.002
+        end = start + 0.02 + rng.random() * 0.1
+        rows.append(("Eval", "EvalUpdated", key,
+                     {"status": structs.EVAL_STATUS_PENDING,
+                      "job_id": "job-roll",
+                      "triggered_by": "rolling-update"}, t))
+        rows.append(("Plan", "PlanApplied", key, {}, end + 0.001))
+        spans[key] = [
+            {"name": "eval", "start": t, "end": end + 0.002,
+             "annotations": {"job_id": "job-roll", "type": "service",
+                             "triggered_by": "rolling-update"}},
+            {"name": "broker.delay", "start": t, "end": ready,
+             "annotations": {"wait_s": wait}},
+            {"name": "broker.wait", "start": ready, "end": start,
+             "annotations": {}},
+            {"name": "worker.invoke_scheduler", "start": start,
+             "end": end, "annotations": {}},
+        ]
+    pairs = [event_pair(i + 1, *row) for i, row in enumerate(rows)]
+    table = SpanTable(spans)
+    got = plc.stitch([p[1] for p in pairs], tracer=table)
+    ref = jlc.stitch([p[0] for p in pairs], tracer=table)
+    assert set(got) == set(ref) == set(spans)
+    for key, tl in got.items():
+        delay = next(s for s in spans[key] if s["name"] == "broker.delay")
+        delay_ms = (delay["end"] - delay["start"]) * 1000.0
+        mine, theirs = tl.stage_ms, ref[key].stage_ms
+        assert mine["broker_delay"] == pytest.approx(delay_ms)
+        assert mine["unattributed"] == pytest.approx(
+            theirs["unattributed"] - delay_ms)
+        assert {k: v for k, v in mine.items()
+                if k not in ("broker_delay", "unattributed")} == {
+            k: v for k, v in theirs.items() if k != "unattributed"}
+        assert sum(mine.values()) == pytest.approx(tl.submit_to_placed_ms)
+    att = plc.attribution(got.values())
+    rows = {r["stage"]: r for r in att["waterfall"]}
+    assert [r["stage"] for r in att["waterfall"]] == list(plc.STAGES)
+    assert rows["broker_delay"]["kind"] == "queue"
+    assert rows["broker_delay"]["share"] > rows["unattributed"]["share"]
+    assert att["reconciliation"]["attributed_fraction"] == pytest.approx(
+        1.0, abs=1e-3)
 
 
 def test_attribution_of_nothing_equals_reference():
@@ -412,7 +484,8 @@ def test_real_run_stitches_like_reference():
         tl = got[eid]
         assert tl.submit_to_placed_ms is not None and tl.spans_seen > 0
         assert tl.stage_ms.get("plan_verify", 0.0) >= 0.0
-    assert plc.attribution(got.values()) == jlc.attribution(ref.values())
+    assert (without_delay(plc.attribution(got.values()))
+            == jlc.attribution(ref.values()))
     one = plc.stitch_from_server(srv, eval_ids[0])
     assert one.to_dict() == got[eval_ids[0]].to_dict()
     assert plc.stitch_from_server(srv, "no-such-eval") is None
