@@ -558,7 +558,8 @@ class Server:
     def _stats_tick(self) -> None:
         """Telemetry gauges at 1 Hz (server.go:213-228 EmitStats ->
         eval_broker.go:557-575, plan_queue.go:198-209, heartbeat.go:135-148),
-        and the runtime stats of the interpreter's collections."""
+        the store's block re-packs, and the runtime stats of the
+        interpreter's collections."""
         broker = self.eval_broker.snapshot_stats()
         telemetry.set_gauge(("broker", "total_ready"), broker.total_ready)
         telemetry.set_gauge(
@@ -588,7 +589,16 @@ class Server:
                 ("blocking", name, "watchers"), wstats["watchers"])
             telemetry.set_gauge(
                 ("blocking", name, "watch_rejected"), wstats["rejected"])
+        self._publish_repacks()
         telemetry.GC_BOOKS.publish()
+
+    def _publish_repacks(self) -> None:
+        """The store's re-packs of half-excluded allocation blocks and the
+        live members they carried, as gauges."""
+        books = self.state_store.repack_books
+        telemetry.set_gauge(("state", "block_repacks"), books.repacks)
+        telemetry.set_gauge(
+            ("state", "block_repack_members"), books.members)
 
     def restore_eval_broker(self) -> None:
         """Re-enqueue non-terminal evals after (re)gaining leadership

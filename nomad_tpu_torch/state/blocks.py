@@ -18,6 +18,10 @@ Invariants:
   arrays (copy-on-write), so snapshots that captured the old table keep a
   consistent view. Lazy caches (id→position, node→run) are shared across
   copies — the columns they index never change.
+- Once half a block's members are excluded, the store replaces it with a
+  re-packed block of its live members (``repacked``): same block id, no
+  exclusions, fresh columns. Live members never leave the columnar form
+  for object rows that way, so a rolling job stays block-wise.
 
 Semantically a block is exactly its ``materialize()`` expansion; the
 differential tests in tests/test_alloc_batch.py and tests/test_state.py
@@ -258,6 +262,47 @@ class StoredAllocBlock(AllocBatch):
         blk._id_pos = self._id_pos
         blk._node_run = self._node_run
         blk._run_ends = self._run_ends
+        return blk
+
+    def repacked(self) -> "StoredAllocBlock":
+        """A fresh block of the live members alone, with no exclusions:
+        the same block id, job, group, resources, metrics, eval and
+        indexes; node runs recomputed over the live positions in run
+        order (adjacent runs on one node merged, emptied runs dropped);
+        name indices and ids gathered. The ids are no longer a prefix of
+        one seed, so the column is explicit hex. A pure function of the
+        block, so every replica applying the same entries re-packs alike."""
+        import numpy as np
+
+        live = np.ones(self.n, dtype=bool)
+        if self.excluded:
+            live[np.fromiter(self.excluded, dtype=np.int64,
+                             count=len(self.excluded))] = False
+        ends = np.cumsum(np.asarray(self.node_counts, dtype=np.int64))
+        live_before = np.concatenate(([0], np.cumsum(live)))
+        per_run = live_before[ends] - live_before[ends - self.node_counts]
+        node_ids: List[str] = []
+        node_counts: List[int] = []
+        for nid, cnt in zip(self.node_ids, per_run.tolist()):
+            if not cnt:
+                continue
+            if node_ids and node_ids[-1] == nid:
+                node_counts[-1] += cnt
+            else:
+                node_ids.append(nid)
+                node_counts.append(cnt)
+        pos = np.flatnonzero(live)
+        ids = np.frombuffer(self.ids_hex.encode("ascii"), dtype="S32")[pos]
+        blk = StoredAllocBlock(
+            eval_id=self.eval_id, job=self.job, tg_name=self.tg_name,
+            resources=self.resources, task_resources=self.task_resources,
+            metrics=self.metrics, node_ids=node_ids, node_counts=node_counts,
+            name_idx=self.name_idx[pos], ids_hex=ids.tobytes().decode("ascii"),
+        )
+        blk.block_id = self.block_id
+        blk.job_id = self.job_id
+        blk.create_index = self.create_index
+        blk.modify_index = self.modify_index
         return blk
 
     # -- persistence (FSM snapshot stream) --------------------------------

@@ -817,18 +817,35 @@ def _insert_alloc_row(t: _Tables, alloc: Allocation) -> None:
     t.allocs_by_eval.setdefault(alloc.eval_id, set()).add(alloc.id)
 
 
-def _exclude_block_members(t: _Tables, members: Dict[str, Set[int]]) -> None:
+class RepackBooks:
+    """The live store's re-packs of half-excluded blocks and the live
+    members they carried (plain integers; read for the stats gauges)."""
+
+    __slots__ = ("repacks", "members")
+
+    def __init__(self) -> None:
+        self.repacks = 0
+        self.members = 0
+
+
+def _exclude_block_members(t: _Tables, members: Dict[str, Set[int]],
+                           books: Optional[RepackBooks] = None) -> None:
     """Replace blocks with COW copies excluding ``members`` ({block_id:
-    positions}). A block whose exclusion set reaches half its size
-    dissolves — remaining members become object rows — so per-member
+    positions}). A block whose exclusion set reaches half its size is
+    re-packed into a fresh block of its live members, so per-member
     promotion cost stays O(n) over a block's whole life instead of the
-    frozenset-union O(n^2)."""
+    frozenset-union O(n^2) (each re-pack at least halves the block), and
+    the job stays columnar: no live member becomes an object row. A block
+    left with no live member is deleted. ``books`` (the live store's)
+    counts the re-packs; optimistic snapshot writes pass None."""
     for bid, positions in members.items():
         blk = t.blocks[bid].with_excluded(positions)
-        dissolve = blk.n_live == 0 or len(blk.excluded) * 2 >= blk.n
-        if dissolve:
-            for alloc in blk.materialize():
-                _insert_alloc_row(t, alloc)
+        if blk.n_live and len(blk.excluded) * 2 >= blk.n:
+            blk = blk.repacked()
+            if books is not None:
+                books.repacks += 1
+                books.members += blk.n
+        if not blk.n_live:
             del t.blocks[bid]
             for idx_map, key in ((t.blocks_by_job, blk.job_id),
                                  (t.blocks_by_eval, blk.eval_id)):
@@ -842,7 +859,8 @@ def _exclude_block_members(t: _Tables, members: Dict[str, Set[int]]) -> None:
 
 
 def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
-                   touched: Optional[Set[str]] = None) -> None:
+                   touched: Optional[Set[str]] = None,
+                   books: Optional[RepackBooks] = None) -> None:
     # ``touched`` (when given) collects the node ids whose usage this
     # write may change — the live store's alloc change-log feed. Optimistic
     # snapshot writes pass None and stay out of the shared log.
@@ -870,7 +888,7 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
                 if alloc.create_index == 0:
                     alloc.create_index = t.blocks[bid].create_index
         if members:
-            _exclude_block_members(t, members)
+            _exclude_block_members(t, members, books)
     for alloc in allocs:
         existing = t.allocs.get(alloc.id)
         if existing is None:
@@ -892,7 +910,9 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
 
 def _apply_update_batches(t: _Tables, index: int, batches,
                           watch: "_Watch" = None,
-                          touched: Optional[Set[str]] = None) -> List[WatchItem]:
+                          touched: Optional[Set[str]] = None,
+                          books: Optional[RepackBooks] = None
+                          ) -> List[WatchItem]:
     """Columnar in-place updates: whole-block field swap when a batch
     covers all live members of a stored block; promotion for partial
     coverage; row re-stamp for object allocs. Returns watch items.
@@ -950,7 +970,7 @@ def _apply_update_batches(t: _Tables, index: int, batches,
             else:
                 for pos in positions:
                     object_rows.append(blk.materialize_pos(pos))
-                _exclude_block_members(t, {bid: positions})
+                _exclude_block_members(t, {bid: positions}, books)
         for existing in object_rows:
             new = existing.copy()
             new.eval_id = b.eval_id
@@ -1038,6 +1058,7 @@ class StateStore(_StateView):
         self._t = _Tables()
         self.watch = _Watch()
         self.store_uid = generate_uuid()
+        self.repack_books = RepackBooks()
 
     # -- snapshot/restore -------------------------------------------------
 
@@ -1255,7 +1276,7 @@ class StateStore(_StateView):
                     ]
                 )
             if block_members:
-                _exclude_block_members(t, block_members)
+                _exclude_block_members(t, block_members, self.repack_books)
             for blk in reaped_blocks:
                 touched.update(blk.node_ids)
             _log_alloc_nodes(t, index, touched)
@@ -1275,7 +1296,8 @@ class StateStore(_StateView):
         items: List[WatchItem] = [item_table("allocs")]
         touched: Set[str] = set()
         with self._lock:
-            _upsert_allocs(self._t, index, allocs, touched=touched)
+            _upsert_allocs(self._t, index, allocs, touched=touched,
+                           books=self.repack_books)
             _log_alloc_nodes(self._t, index, touched)
             for alloc in allocs:
                 items.extend(
@@ -1310,6 +1332,7 @@ class StateStore(_StateView):
         with self._lock:
             items = _apply_update_batches(
                 self._t, index, batches, watch=self.watch, touched=touched,
+                books=self.repack_books,
             )
             _log_alloc_nodes(self._t, index, touched)
         self.watch.notify(items)
@@ -1338,7 +1361,7 @@ class StateStore(_StateView):
                         members.setdefault(bid, set()).add(pos)
                         _insert_alloc_row(t, t.blocks[bid].materialize_pos(pos))
                 if members:
-                    _exclude_block_members(t, members)
+                    _exclude_block_members(t, members, self.repack_books)
             missing: List[str] = []
             for alloc in allocs:
                 existing = t.allocs.get(alloc.id)

@@ -7,8 +7,9 @@
   snapshot and a port ``RaftNode`` restarts from that directory to the
   same FSM state; and the other way round.
 - The port's raft alone: self-election, three-node replication, restart
-  from the journal, and a lagging follower caught up by a chunked
-  InstallSnapshot.
+  from the journal, a lagging follower caught up by a chunked
+  InstallSnapshot, and a roll whose placement block re-packed reaching
+  the same blocks on a second replica of its log.
 
 Tolerance: exact (state tables compared as ``to_dict`` rows). Raft timing
 is widened by the measured scheduling stall of the moment (``load_factor``)
@@ -456,3 +457,129 @@ def test_stops_cross_the_wire_as_ids():
             == {k: [a.id for a in v] for k, v in plan.node_update.items()})
     assert all(a.desired_status == "stop"
                for v in back.node_update.values() for a in v)
+
+
+# -- a re-packed roll on a second replica --------------------------------------
+
+
+def _blocks_view(store):
+    return sorted(
+        (b.block_id, b.eval_id, b.job_id, b.ids_hex, tuple(b.node_ids),
+         tuple(int(c) for c in b.node_counts), tuple(b.name_idx.tolist()),
+         tuple(sorted(b.excluded)), b.create_index, b.modify_index)
+        for b in store.alloc_blocks())
+
+
+def _roll_with_repacks(leader, rounds=4, per_round=8):
+    """A 40-member placement block on 8 nodes, then ``rounds`` rolling
+    rounds, each one entry: the first ``per_round`` live members of the
+    placement block stopped (as id runs on the wire) and a replacement
+    block placed. The placement block re-packs at 16 and at 8 live
+    members. Returns the last index."""
+    from nomad_tpu_torch import mock as port_mock
+
+    job = port_mock.job()
+    job.id = "job-roll"
+    tg = job.task_groups[0].name
+    for i in range(8):
+        nd = port_mock.node()
+        nd.id = f"node-{i}"
+        leader.apply("node_register", {"node": nd}).result(10)
+    leader.apply("job_register", {"job": job}).result(10)
+
+    def batch(eval_id, counts, seed):
+        nodes = [f"node-{i}" for i, c in enumerate(counts) if c]
+        counts = [c for c in counts if c]
+        return pst.AllocBatch(
+            eval_id=eval_id, job=job, tg_name=tg,
+            resources=pst.Resources(cpu=100, memory_mb=128),
+            node_ids=nodes, node_counts=counts,
+            name_idx=list(range(sum(counts))), ids_seed=seed)
+
+    last = leader.apply("alloc_update", {"alloc_batches": [
+        batch("ev-place", [5] * 8, 0x5EED)]}).result(10)
+    placed = leader.fsm.state.job_alloc_blocks(job.id)[0].block_id
+    for r in range(rounds):
+        (blk,) = [b for b in leader.fsm.state.job_alloc_blocks(job.id)
+                  if b.block_id == placed]
+        stops = []
+        for a in blk.materialize_prefix(per_round):
+            a = a.copy()
+            a.desired_status = "stop"
+            a.desired_description = "alloc is being updated due to job update"
+            stops.append(a)
+        counts = [0] * 8
+        for i in range(per_round):
+            counts[(3 * r + i) % 8] += 1
+        last = leader.apply("alloc_update", {
+            "allocs": stops,
+            "alloc_batches": [batch(f"ev-roll-{r}", counts, 0xA000 + r)],
+        }).result(10)
+    return last
+
+
+@pytest.mark.parametrize("replica", ["replay", "snapshot", "follower"])
+def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
+                                                              replica):
+    if replica == "follower":
+        nodes, rpcs = _cluster(3, prefix="p")
+        try:
+            leader = _leader(nodes)
+            last = _roll_with_repacks(leader)
+            assert wait_until(
+                lambda: all(n.applied_index >= last for n in nodes))
+            stores = [n.fsm.state for n in nodes]
+            want = _blocks_view(leader.fsm.state)
+            states = [_state(st, port_to_dict) for st in stores]
+        finally:
+            _stop(nodes, rpcs)
+    else:
+        kw = (dict(snapshot_threshold=8, trailing_logs=2)
+              if replica == "snapshot" else {})
+        fsm = FSM()
+        node, rpc = _start_single(RaftNode, RaftConfig, RPCServer, fsm,
+                                  tmp_path, **kw)
+        try:
+            last = _roll_with_repacks(node)
+            if replica == "snapshot":
+                # A snapshot past the roll carries the re-packed block, the
+                # journal's tail the rest: entries apply until a
+                # compaction (every 8) covers the roll's last.
+                roll_end = last
+                for i in range(64):
+                    if node.snapshot_index >= roll_end:
+                        break
+                    last = node.apply("node_register", {
+                        "node": pst.Node(id=f"pad-{i}", datacenter="dc1",
+                                         name="pad", status="ready"),
+                    }).result(10)
+                    time.sleep(0.02)
+                assert node.snapshot_index >= roll_end
+            want = _blocks_view(fsm.state)
+        finally:
+            node.shutdown()
+            rpc.shutdown()
+        fsm2 = FSM()
+        node2, rpc2 = _start_single(RaftNode, RaftConfig, RPCServer, fsm2,
+                                    tmp_path)
+        try:
+            if replica == "snapshot":
+                assert node2.snapshot_index > 0
+            assert wait_until(lambda: node2.applied_index >= last)
+            stores = [fsm.state, fsm2.state]
+            states = [_state(st, port_to_dict) for st in stores]
+        finally:
+            node2.shutdown()
+            rpc2.shutdown()
+    # The placement block re-packed twice (16 and 8 live members), then
+    # four replacement blocks of 8.
+    assert sorted(len(v[3]) // 32 for v in want) == [8] * 5
+    assert sum(1 for v in want if v[0] == v[1] or v[1] == "ev-place") == 1
+    assert all(not v[7] for v in want)
+    for st in stores:
+        assert _blocks_view(st) == want
+        assert not st.job_has_object_allocs("job-roll")
+    assert all(s == states[0] for s in states)
+    if replica != "snapshot":
+        assert {(st.repack_books.repacks, st.repack_books.members)
+                for st in stores} == {(2, 16 + 8)}

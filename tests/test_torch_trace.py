@@ -264,7 +264,8 @@ def test_a_stats_tick_publishes_the_runtime_stats(books):
 def test_a_cluster_member_tick_publishes_only_the_runtime_stats(
         tmp_path, monkeypatch):
     """A member leaves the broker, plan and worker gauges alone, so a
-    follower sharing the process cannot overwrite the leader's. Only this
+    follower sharing the process cannot overwrite the leader's; it
+    publishes the runtime stats and its store's block re-packs. Only this
     thread's gauges count: other servers of the process tick too."""
     me = threading.current_thread()
     set_here = []
@@ -283,7 +284,8 @@ def test_a_cluster_member_tick_publishes_only_the_runtime_stats(
     set_here.clear()
     Server(config)._stats_tick()
     of_server = set(set_here)
-    runtime = {"runtime.total_gc_runs", "runtime.total_gc_pause_ns"}
+    runtime = {"runtime.total_gc_runs", "runtime.total_gc_pause_ns",
+               "state.block_repacks", "state.block_repack_members"}
     assert of_member == runtime
     assert runtime | {"broker.total_ready", "plan.queue_depth",
                       "worker.concurrency"} <= of_server
@@ -320,7 +322,9 @@ def _inside(child, parent):
 
 
 # 40 tasks stay object rows (the diff); 300 place as a columnar block,
-# which a roll's first round reconciles block-wise.
+# which every round of both rolls reconciles block-wise: the placement
+# block re-packs once, at 100 live members of 300, and each later round
+# evicts one whole 100-member replacement block.
 @pytest.mark.parametrize("count,max_parallel,path", [
     (40, 10, "diff"), (300, 100, "block")])
 def test_a_cluster_roll_traces_reconcile_and_persist(tmp_path, count,
@@ -352,6 +356,8 @@ def test_a_cluster_roll_traces_reconcile_and_persist(tmp_path, count,
             bumped.task_groups[0].tasks[0].env = {"V": v}
             eid, _ = srv.job_register(bumped)
             rounds += _follow(srv, eid)
+        books = srv.state_store.repack_books
+        repacked = (books.repacks, books.members)
     finally:
         srv.shutdown()
     per_roll = count // max_parallel
@@ -385,6 +391,5 @@ def test_a_cluster_roll_traces_reconcile_and_persist(tmp_path, count,
             assert s["name"] not in ("sched.reconcile", "raft.persist",
                                      "broker.delay", "runtime.gc") \
                 or _is_leaf(spans, s)
-    # The first round takes the group's own path; a later one may fall
-    # back to the object diff.
-    assert order[0] == path and set(order) <= {"block", "diff"}, order
+    assert order == [path] * len(order), order
+    assert repacked == ((1, max_parallel) if path == "block" else (0, 0))

@@ -18,6 +18,15 @@ nodes, jobs and allocs) are built with nomad_tpu's structs from a third
 stream and converted for the port, so building them draws from neither
 side's stream.
 
+The two stores differ in one policy: nomad_tpu dissolves a block whose
+exclusions reach half its size into object rows, the port re-packs it
+into a block of its live members. A dissolved job leaves the block path
+for the object diff, which evicts other allocs, so the twin runs
+nomad_tpu's store under the port's rule (``_jax_exclude_repacking``,
+written here from the block's columns) and both sides take the same
+path. ``tests/test_torch_state_blocks.py`` holds the re-pack to the
+expansion of the blocks as they were.
+
 The cases: nomad_tpu's ``test_generic_sched.py`` update cases (modify,
 rolling, in place, drain, retry limit), the update kinds on the mixed
 cluster of ``test_torch_scheduler.py``, network asks with dynamic and
@@ -42,6 +51,7 @@ from nomad_tpu import structs as jst
 from nomad_tpu.api.codec import to_dict
 from nomad_tpu.scheduler import wait_for_device
 from nomad_tpu.server.plan_apply import evaluate_plan as j_evaluate_plan
+from nomad_tpu.state import store as jstore
 from nomad_tpu.tpu import solver as jsolver
 from nomad_tpu_torch import structs as pst
 from nomad_tpu_torch.convert import structs_from_reference
@@ -89,6 +99,56 @@ class SeededOS:
 
     def ids_seed(self):
         return int.from_bytes(self.urandom(16), "little")
+
+
+# -- nomad_tpu's store under the port's re-pack rule ----------------------------
+
+
+def _jax_repacked(blk):
+    """nomad_tpu's block of ``blk``'s live members: its runs in order,
+    emptied runs dropped and neighbours on one node merged, the names and
+    ids of the live positions, no exclusions."""
+    live = blk.live_positions()
+    node_ids, node_counts, start = [], [], 0
+    for nid, cnt in zip(blk.node_ids, blk.node_counts):
+        k = sum(1 for p in range(start, start + cnt)
+                if p not in blk.excluded)
+        start += cnt
+        if k and node_ids and node_ids[-1] == nid:
+            node_counts[-1] += k
+        elif k:
+            node_ids.append(nid)
+            node_counts.append(k)
+    hexes = blk.ids_hex
+    new = type(blk)(
+        eval_id=blk.eval_id, job=blk.job, tg_name=blk.tg_name,
+        resources=blk.resources, task_resources=blk.task_resources,
+        metrics=blk.metrics, node_ids=node_ids, node_counts=node_counts,
+        name_idx=[int(blk.name_idx[p]) for p in live],
+        ids_hex="".join(hexes[32 * p:32 * p + 32] for p in live))
+    new.block_id, new.job_id = blk.block_id, blk.job_id
+    new.create_index, new.modify_index = blk.create_index, blk.modify_index
+    return new
+
+
+def _jax_exclude_repacking(t, members):
+    """nomad_tpu's ``_exclude_block_members`` with the port's rule: a
+    block half excluded is re-packed, one with no live member deleted."""
+    for bid, positions in members.items():
+        blk = t.blocks[bid].with_excluded(positions)
+        if blk.n_live and 2 * len(blk.excluded) >= blk.n:
+            blk = _jax_repacked(blk)
+        if blk.n_live:
+            t.blocks[bid] = blk
+            continue
+        del t.blocks[bid]
+        for idx_map, key in ((t.blocks_by_job, blk.job_id),
+                             (t.blocks_by_eval, blk.eval_id)):
+            ids = idx_map.get(key)
+            if ids is not None:
+                ids.discard(bid)
+                if not ids:
+                    del idx_map[key]
 
 
 # -- views ---------------------------------------------------------------------
@@ -222,6 +282,8 @@ class Twin:
         monkeypatch.setattr(jsolver, "_new_ids_seed", self._jax_os.ids_seed)
         monkeypatch.setattr(psolver, "_new_ids_seed",
                             self._port_os.ids_seed)
+        monkeypatch.setattr(jstore, "_exclude_block_members",
+                            _jax_exclude_repacking)
         self.jobs = {}      # job id -> (nomad_tpu job, port job)
         self.node_ids = []
         self.n_evals = 0
@@ -704,7 +766,9 @@ def block_tainted(tw):
 
 def block_rolling(tw):
     """A destructive change to a rolling job: max_parallel block members a
-    round, rolled to the end, no node overcommitted mid-roll."""
+    round, rolled to the end, no node overcommitted mid-roll, every round
+    on the block path (the placement block re-packs at 150 and 50 live
+    members, no live member becomes an object row)."""
     job = _big_job()
     job.update = jst.UpdateStrategy(stagger=0.01, max_parallel=50)
     tw.job(job)
@@ -712,8 +776,21 @@ def block_rolling(tw):
     tw.update_job(job.id, _env)
     _, got, created = tw.process("tpu-batch", job.id)
     assert len(got["stop"]) == 50 and len(created) == 1
-    rounds = tw.roll("tpu-batch", job.id)
-    assert rounds >= 2
+    rounds = 0
+    while True:
+        created = [e for e in tw.jax.create_evals
+                   if e.triggered_by == jst.EVAL_TRIGGER_ROLLING_UPDATE
+                   and e.job_id == job.id]
+        if len(created) <= rounds:
+            break
+        assert not tw.port.state.job_has_object_allocs(job.id)
+        plans, got, _ = tw.process("tpu-batch", job.id, ev=created[rounds])
+        rounds += 1
+        assert len(got["stop"]) == 50, rounds
+        assert all(not p.node_allocation and p.alloc_batches for p in plans)
+    assert rounds == 5
+    assert tw.port.state.repack_books.repacks == 2
+    assert tw.port.state.repack_books.members == 150 + 50
     check_fits(tw.port.state, tw.node_ids)
     versions = {a.job.modify_index for a in live(tw.port.state, job.id)}
     assert versions == {tw.jobs[job.id][1].modify_index}
