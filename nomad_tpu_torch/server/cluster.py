@@ -230,12 +230,12 @@ class ClusterServer(Server):
         self._start_readmission()
 
     def _stats_tick(self) -> None:
-        """A member publishes only the store's block re-packs and the
-        runtime stats: the gauges go to one sink a process, and a
-        follower's disabled broker and idle plan queue would overwrite the
-        leader's where members share one. Every member applies the same
-        log, so their re-pack counts agree once caught up."""
-        self._publish_repacks()
+        """A member publishes only the store's block books (re-packs and
+        stops) and the runtime stats: the gauges go to one sink a process,
+        and a follower's disabled broker and idle plan queue would
+        overwrite the leader's where members share one. Every member
+        applies the same log, so their books agree once caught up."""
+        self._publish_block_books()
         telemetry.GC_BOOKS.publish()
 
     def shutdown(self, drain_timeout: float = 10.0) -> bool:

@@ -30,7 +30,6 @@ if TYPE_CHECKING:  # injected collaborator; import would be circular
     from nomad_tpu_torch.server.eval_broker import EvalBroker
 from nomad_tpu_torch.events import EventBroker
 from nomad_tpu_torch.state import StateStore
-from nomad_tpu_torch.structs import expand_stop_runs
 
 
 class FSM:
@@ -63,6 +62,9 @@ class FSM:
         # per-table row counts of the most recent restore_bytes, None
         # until one happens.
         self.last_restore: Optional[Dict[str, Any]] = None
+        # The span of the entry being applied (NULL_SPAN outside a traced
+        # apply): handlers annotate it with what the entry did.
+        self._span = trace.NULL_SPAN
         self._handlers: Dict[str, Callable[[int, dict], Any]] = {
             "node_register": self._apply_node_register,
             "node_batch_register": self._apply_node_batch_register,
@@ -98,9 +100,11 @@ class FSM:
             )
             if parent is not None else trace.NULL_SPAN
         )
+        self._span = span
         try:
             return handler(index, payload)
         finally:
+            self._span = trace.NULL_SPAN
             span.finish()
             telemetry.measure_since(("fsm", "apply", msg_type), start)
 
@@ -192,10 +196,26 @@ class FSM:
         allocs = payload.get("allocs") or []
         stopped = payload.get("allocs_stopped")
         if stopped:
-            # Stops that crossed the wire as ids (structs.stop_runs): the
-            # copies are rebuilt from this replica's store, ahead of the
-            # rest as in the plan's own order.
-            allocs = expand_stop_runs(stopped, self.state.alloc_by_id) + allocs
+            # Stops that crossed the wire as ids (structs.stop_runs): live
+            # block members commit as stopped blocks, one a source block
+            # and run; every other id is rebuilt into a stop copy from this
+            # replica's store, ahead of the rest as in the plan's own order.
+            blocks, copies = self.state.stop_block_members(index, stopped)
+            allocs = copies + allocs
+            columnar = sum(b.n_live for b in blocks)
+            self._span.annotate("stops_columnar", columnar)
+            self._span.annotate("stops_rows", len(copies))
+            # One event a stopped member, as for the stop copies below:
+            # the event stream (and the digests that replay it) reads as
+            # the object path's.
+            for b in blocks:
+                for alloc_id, node_id in b.live_members():
+                    self.events.publish(
+                        "Alloc", "AllocUpserted", key=alloc_id,
+                        raft_index=index,
+                        payload={"node_id": node_id, "job_id": b.job_id,
+                                 "desired_status": b.desired_status},
+                    )
         if allocs:
             self.state.upsert_allocs(index, allocs)
             # Per-alloc events only for object rows: bounded by plan size.
@@ -275,6 +295,11 @@ class FSM:
                 t: snap.get_index(t) for t in ("nodes", "jobs", "evals", "allocs")
             },
         }
+        stopped = snap.stopped_alloc_blocks()
+        if stopped:
+            # Only where there are any: nomad_tpu's FSM has no such table,
+            # and a snapshot without one stays readable by it.
+            payload["stopped_blocks"] = stopped
         return pickle.dumps(payload)
 
     def restore_bytes(self, data: bytes) -> None:
@@ -298,10 +323,13 @@ class FSM:
             restore.alloc_restore(alloc)
         for block in payload.get("blocks", []):
             restore.block_restore(block)
+        for block in payload.get("stopped_blocks", []):
+            restore.stopped_block_restore(block)
         for table, index in payload["indexes"].items():
             restore.index_restore(table, index)
         restore.commit()
         blocks = payload.get("blocks", [])
+        stopped = payload.get("stopped_blocks", [])
         self.last_restore = {
             "wall_ms": round((time.perf_counter() - t0) * 1000.0, 3),
             "bytes": len(data),
@@ -310,6 +338,7 @@ class FSM:
             "evals": len(payload["evals"]),
             "allocs": len(payload["allocs"]),
             "blocks": len(blocks),
+            "stopped_blocks": len(stopped),
             # Placements the snapshot re-materialized: object rows plus
             # the columnar blocks' live members.
             "placements": len(payload["allocs"]) + sum(

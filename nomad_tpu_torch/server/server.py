@@ -589,16 +589,22 @@ class Server:
                 ("blocking", name, "watchers"), wstats["watchers"])
             telemetry.set_gauge(
                 ("blocking", name, "watch_rejected"), wstats["rejected"])
-        self._publish_repacks()
+        self._publish_block_books()
         telemetry.GC_BOOKS.publish()
 
-    def _publish_repacks(self) -> None:
+    def _publish_block_books(self) -> None:
         """The store's re-packs of half-excluded allocation blocks and the
-        live members they carried, as gauges."""
+        live members they carried, and its committed stops: the stopped
+        blocks, their members, and the stop copies written as object rows,
+        as gauges."""
         books = self.state_store.repack_books
         telemetry.set_gauge(("state", "block_repacks"), books.repacks)
         telemetry.set_gauge(
             ("state", "block_repack_members"), books.members)
+        stops = self.state_store.stop_books
+        telemetry.set_gauge(("state", "block_stops"), stops.blocks)
+        telemetry.set_gauge(("state", "block_stop_members"), stops.members)
+        telemetry.set_gauge(("state", "stop_rows"), stops.rows)
 
     def restore_eval_broker(self) -> None:
         """Re-enqueue non-terminal evals after (re)gaining leadership

@@ -10,10 +10,19 @@ block, Allocation objects materialized lazily — per node for client
 fetches, per id for individual addressing.
 
 Invariants:
-- Blocks hold only non-terminal, desired=run allocations. Any write that
-  individually addresses a block member (client status update, eviction,
-  re-placement) *promotes* it: the member is excluded from the block and
-  the superseding Allocation object lands in the object table.
+- Live blocks hold only non-terminal, desired=run allocations. Any write
+  that individually addresses a block member (client status update,
+  re-placement, an object-row eviction) *promotes* it: the member is
+  excluded from the block and the superseding Allocation object lands in
+  the object table.
+- Terminal members live in stopped blocks (``StoppedAllocBlock``), a
+  table of their own: a committed stop run of live members of one block
+  moves them there as one block with the run's desired status, never
+  through per-member object rows. Live reads (the block list, the mirror,
+  plan verify) never see a stopped block; reads by id, job, node and eval
+  materialize its members as the stop copies they stand for. A later
+  write addressing a stopped member promotes it to an object row, as for
+  a live member.
 - Stored blocks are immutable; exclusion produces a copy sharing the column
   arrays (copy-on-write), so snapshots that captured the old table keep a
   consistent view. Lazy caches (id→position, node→run) are shared across
@@ -192,6 +201,16 @@ class StoredAllocBlock(AllocBatch):
         excluded = self.excluded
         return [i for i in range(self.n) if i not in excluded]
 
+    def live_members(self) -> Iterator[Tuple[str, str]]:
+        """(alloc id, node id) of each live member, in run order."""
+        excluded = self.excluded
+        pos = 0
+        for nid, cnt in zip(self.node_ids, self.node_counts):
+            for i in range(pos, pos + cnt):
+                if i not in excluded:
+                    yield self.alloc_id(i), nid
+            pos += cnt
+
     def materialize_pos(self, pos: int) -> Allocation:
         out: List[Allocation] = []
         self._materialize_span(
@@ -223,18 +242,13 @@ class StoredAllocBlock(AllocBatch):
         of n row rewrites). Columns, ids, names, and placement stay;
         None/empty update fields preserve the old values, exactly like the
         per-row re-stamp (AllocUpdateBatch.materialize)."""
-        blk = StoredAllocBlock(
+        blk = self._derive(
             eval_id=eval_id, job=job if job is not None else self.job,
-            tg_name=self.tg_name,
             resources=resources if resources is not None else self.resources,
             task_resources=task_resources or self.task_resources,
-            metrics=metrics, node_ids=self.node_ids,
-            node_counts=self.node_counts, name_idx=self.name_idx,
-            ids_hex=self._ids_hex or "", ids_seed=self.ids_seed,
+            metrics=metrics,
         )
-        blk.block_id = self.block_id
         blk.job_id = job.id if job is not None else self.job_id
-        blk.create_index = self.create_index
         blk.modify_index = index
         blk.excluded = self.excluded
         blk._id_pos = self._id_pos
@@ -247,17 +261,7 @@ class StoredAllocBlock(AllocBatch):
     def with_excluded(self, positions) -> "StoredAllocBlock":
         """A copy of this block with ``positions`` additionally excluded.
         Columns and lazy caches are shared — they never change."""
-        blk = StoredAllocBlock(
-            eval_id=self.eval_id, job=self.job, tg_name=self.tg_name,
-            resources=self.resources, task_resources=self.task_resources,
-            metrics=self.metrics, node_ids=self.node_ids,
-            node_counts=self.node_counts, name_idx=self.name_idx,
-            ids_hex=self._ids_hex or "", ids_seed=self.ids_seed,
-        )
-        blk.block_id = self.block_id
-        blk.job_id = self.job_id
-        blk.create_index = self.create_index
-        blk.modify_index = self.modify_index
+        blk = self._derive()
         blk.excluded = self.excluded | frozenset(positions)
         blk._id_pos = self._id_pos
         blk._node_run = self._node_run
@@ -267,10 +271,7 @@ class StoredAllocBlock(AllocBatch):
     def repacked(self) -> "StoredAllocBlock":
         """A fresh block of the live members alone, with no exclusions:
         the same block id, job, group, resources, metrics, eval and
-        indexes; node runs recomputed over the live positions in run
-        order (adjacent runs on one node merged, emptied runs dropped);
-        name indices and ids gathered. The ids are no longer a prefix of
-        one seed, so the column is explicit hex. A pure function of the
+        indexes, the columns of ``_gathered``. A pure function of the
         block, so every replica applying the same entries re-packs alike."""
         import numpy as np
 
@@ -278,9 +279,51 @@ class StoredAllocBlock(AllocBatch):
         if self.excluded:
             live[np.fromiter(self.excluded, dtype=np.int64,
                              count=len(self.excluded))] = False
+        return self._derive(**self._gathered(live))
+
+    def stopped(self, positions, status: str, description: str,
+                index: int) -> "StoppedAllocBlock":
+        """The live members at ``positions`` as one stopped block, the
+        stop copies of a run committed at ``index``: this block's job,
+        eval, group, resources, metrics, create index, names and ids, the
+        run's desired status and description, ``modify_index`` = index.
+        All the live members keep these columns and exclusions as they
+        are (caches shared); a part of them is gathered (``_gathered``).
+        Its id is its first member's alloc id: a member is stopped
+        columnar once, so the id is unique and every replica derives it."""
+        import numpy as np
+
+        if len(positions) == self.n_live:
+            blk = self._derive(StoppedAllocBlock)
+            blk.excluded = self.excluded
+            blk._id_pos = self._id_pos
+            blk._node_run = self._node_run
+            blk._run_ends = self._run_ends
+            blk._live_counts = self._live_counts
+            first = next(i for i in range(self.n) if i not in self.excluded)
+        else:
+            keep = np.zeros(self.n, dtype=bool)
+            keep[np.fromiter(positions, dtype=np.int64,
+                             count=len(positions))] = True
+            blk = self._derive(StoppedAllocBlock, **self._gathered(keep))
+            first = 0
+        blk.block_id = blk.alloc_id(first)
+        blk.modify_index = index
+        blk.desired_status = status
+        blk.desired_description = description
+        return blk
+
+    def _gathered(self, keep) -> dict:
+        """The columns of the positions where ``keep`` (a bool mask over
+        the block) is set, in run order: node runs recomputed (adjacent
+        runs on one node merged, emptied runs dropped), name indices and
+        ids gathered. The ids are no longer a prefix of one seed, so the
+        column is explicit hex."""
+        import numpy as np
+
         ends = np.cumsum(np.asarray(self.node_counts, dtype=np.int64))
-        live_before = np.concatenate(([0], np.cumsum(live)))
-        per_run = live_before[ends] - live_before[ends - self.node_counts]
+        kept_before = np.concatenate(([0], np.cumsum(keep)))
+        per_run = kept_before[ends] - kept_before[ends - self.node_counts]
         node_ids: List[str] = []
         node_counts: List[int] = []
         for nid, cnt in zip(self.node_ids, per_run.tolist()):
@@ -291,19 +334,35 @@ class StoredAllocBlock(AllocBatch):
             else:
                 node_ids.append(nid)
                 node_counts.append(cnt)
-        pos = np.flatnonzero(live)
+        pos = np.flatnonzero(keep)
         ids = np.frombuffer(self.ids_hex.encode("ascii"), dtype="S32")[pos]
-        blk = StoredAllocBlock(
+        return {"node_ids": node_ids, "node_counts": node_counts,
+                "name_idx": self.name_idx[pos],
+                "ids_hex": ids.tobytes().decode("ascii"), "ids_seed": None}
+
+    def _derive(self, cls=None, **cols) -> "StoredAllocBlock":
+        """A block of class ``cls`` (this one's by default) with this
+        block's id, job, indexes and the fields of its kind, over its
+        columns with ``cols`` (AllocBatch fields) swapped in."""
+        kw = dict(
             eval_id=self.eval_id, job=self.job, tg_name=self.tg_name,
             resources=self.resources, task_resources=self.task_resources,
-            metrics=self.metrics, node_ids=node_ids, node_counts=node_counts,
-            name_idx=self.name_idx[pos], ids_hex=ids.tobytes().decode("ascii"),
+            metrics=self.metrics, node_ids=self.node_ids,
+            node_counts=self.node_counts, name_idx=self.name_idx,
+            ids_hex=self._ids_hex or "", ids_seed=self.ids_seed,
         )
+        kw.update(cols)
+        blk = (cls or type(self))(**kw)
         blk.block_id = self.block_id
         blk.job_id = self.job_id
         blk.create_index = self.create_index
         blk.modify_index = self.modify_index
+        self._carry(blk)
         return blk
+
+    def _carry(self, blk: "StoredAllocBlock") -> None:
+        """Copy this kind's own fields onto ``blk`` (none for a live
+        block)."""
 
     # -- persistence (FSM snapshot stream) --------------------------------
 
@@ -361,3 +420,33 @@ class StoredAllocBlock(AllocBatch):
         blk.modify_index = int(d.get("modify_index", 0))
         blk.excluded = frozenset(d.get("excluded") or ())
         return blk
+
+
+class StoppedAllocBlock(StoredAllocBlock):
+    """Terminal members of one stored block, stopped by one run of one
+    committed entry: every member reads as the stop copy the object path
+    would have written (the run's desired status and description, the
+    entry's index as ``modify_index``). Kept in the store's table of
+    stopped blocks, apart from the live ones; ``excluded`` and ``n_live``
+    speak of its members as for a live block."""
+
+    __slots__ = ("desired_status", "desired_description")
+
+    _PICKLE_SLOTS = StoredAllocBlock._PICKLE_SLOTS + (
+        "desired_status", "desired_description",
+    )
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.desired_status = ""
+        self.desired_description = ""
+
+    def _carry(self, blk: "StoredAllocBlock") -> None:
+        blk.desired_status = self.desired_status
+        blk.desired_description = self.desired_description
+
+    def _template(self) -> dict:
+        template = super()._template()
+        template["desired_status"] = self.desired_status
+        template["desired_description"] = self.desired_description
+        return template

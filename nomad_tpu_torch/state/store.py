@@ -23,7 +23,7 @@ import threading
 import zlib
 from typing import Dict, FrozenSet, Iterable, List, Optional, Set, Tuple
 
-from nomad_tpu_torch.state.blocks import StoredAllocBlock
+from nomad_tpu_torch.state.blocks import StoppedAllocBlock, StoredAllocBlock
 from nomad_tpu_torch.structs import (
     ALLOC_CLIENT_STATUS_PENDING,
     ALLOC_DESIRED_STATUS_RUN,
@@ -32,6 +32,7 @@ from nomad_tpu_torch.structs import (
     Evaluation,
     Job,
     Node,
+    expand_stop_runs,
     generate_uuid,
 )
 
@@ -453,6 +454,11 @@ class _Tables:
         # immutable — exclusion replaces the entry with a COW copy — so the
         # snapshot container-copy below stays cheap and consistent.
         self.blocks: Dict[str, StoredAllocBlock] = {}
+        # Stopped blocks: the terminal members a committed stop run took
+        # out of a live block, one row per (source block, run) and never
+        # read as live (state/blocks.py StoppedAllocBlock). Indexed by job
+        # and eval; a read by node asks each block's own node runs.
+        self.stopped_blocks: Dict[str, StoppedAllocBlock] = {}
         # Secondary indexes: id sets keyed by foreign key.
         self.evals_by_job: Dict[str, Set[str]] = {}
         self.allocs_by_job: Dict[str, Set[str]] = {}
@@ -460,6 +466,8 @@ class _Tables:
         self.allocs_by_eval: Dict[str, Set[str]] = {}
         self.blocks_by_job: Dict[str, Set[str]] = {}
         self.blocks_by_eval: Dict[str, Set[str]] = {}
+        self.stopped_by_job: Dict[str, Set[str]] = {}
+        self.stopped_by_eval: Dict[str, Set[str]] = {}
         # Non-terminal OBJECT rows per job — the O(1) gate for block-level
         # reconciles (a rolling update accumulates terminal stop rows that
         # a scan-based gate would re-walk on every eval). Maintained by
@@ -487,6 +495,10 @@ class _Tables:
         new.allocs_by_eval = {k: set(v) for k, v in self.allocs_by_eval.items()}
         new.blocks_by_job = {k: set(v) for k, v in self.blocks_by_job.items()}
         new.blocks_by_eval = {k: set(v) for k, v in self.blocks_by_eval.items()}
+        new.stopped_blocks = dict(self.stopped_blocks)
+        new.stopped_by_job = {k: set(v) for k, v in self.stopped_by_job.items()}
+        new.stopped_by_eval = {
+            k: set(v) for k, v in self.stopped_by_eval.items()}
         new.live_objs_by_job = dict(self.live_objs_by_job)
         # Logs are SHARED by reference: between trims they're append-only
         # (list.append is atomic under the GIL, and readers filter by
@@ -542,35 +554,48 @@ class _StateView:
     # -- allocs -----------------------------------------------------------
 
     def alloc_by_id(self, alloc_id: str) -> Optional[Allocation]:
-        alloc = self._t.allocs.get(alloc_id)
-        if alloc is not None or not self._t.blocks:
+        t = self._t
+        alloc = t.allocs.get(alloc_id)
+        if alloc is not None:
             return alloc
-        for blk in self._t.blocks.values():
-            pos = blk.find(alloc_id)
-            if pos is not None:
-                return blk.materialize_pos(pos)
+        for stopped in (False, True):
+            found = _find_block_member(t, alloc_id, stopped)
+            if found is not None:
+                bid, pos = found
+                return _block_tables(t, stopped)[0][bid].materialize_pos(pos)
         return None
 
     def allocs(self) -> List[Allocation]:
         out = list(self._t.allocs.values())
-        for blk in self._t.blocks.values():
+        for blk in self._all_blocks():
             out.extend(blk.materialize())
         return out
 
     def alloc_count(self) -> int:
         """Cheap table cardinality (used by the solver's clean-state fast
-        path to skip usage tensorization entirely)."""
+        path to skip usage tensorization entirely): object rows and the
+        members of live and stopped blocks, as an object table holding
+        every stop copy would count them."""
         return len(self._t.allocs) + sum(
-            blk.n_live for blk in self._t.blocks.values()
+            blk.n_live for blk in self._all_blocks()
         )
+
+    def _all_blocks(self) -> List[StoredAllocBlock]:
+        return [*self._t.blocks.values(), *self._t.stopped_blocks.values()]
 
     def alloc_blocks(self) -> List[StoredAllocBlock]:
         """Live columnar blocks — the no-materialization read for plan
         verification and the device mirror."""
         return list(self._t.blocks.values())
 
+    def stopped_alloc_blocks(self) -> List[StoppedAllocBlock]:
+        """Stopped blocks: terminal members held columnar, which no live
+        read (alloc_blocks, job_alloc_blocks) returns."""
+        return list(self._t.stopped_blocks.values())
+
     def allocs_objects(self) -> List[Allocation]:
-        """Object-table rows only (the complement of alloc_blocks())."""
+        """Object-table rows only (the complement of alloc_blocks() and
+        stopped_alloc_blocks())."""
         return list(self._t.allocs.values())
 
     def nodes_with_object_allocs(self) -> Set[str]:
@@ -579,19 +604,21 @@ class _StateView:
         return {nid for nid, ids in self._t.allocs_by_node.items() if ids}
 
     def allocs_by_job(self, job_id: str) -> List[Allocation]:
-        ids = self._t.allocs_by_job.get(job_id, set())
-        out = [self._t.allocs[i] for i in ids]
-        for bid in self._t.blocks_by_job.get(job_id, ()):
-            out.extend(self._t.blocks[bid].materialize())
+        t = self._t
+        out = [t.allocs[i] for i in t.allocs_by_job.get(job_id, ())]
+        for bid in t.blocks_by_job.get(job_id, ()):
+            out.extend(t.blocks[bid].materialize())
+        for bid in t.stopped_by_job.get(job_id, ()):
+            out.extend(t.stopped_blocks[bid].materialize())
         return out
 
     def has_allocs_for_job(self, job_id: str) -> bool:
         """Existence check WITHOUT materializing columnar blocks — the
         guard fast paths (fresh-registration detection) need only the
         answer, not 100k Allocation objects."""
-        if self._t.allocs_by_job.get(job_id):
-            return True
-        return bool(self._t.blocks_by_job.get(job_id))
+        t = self._t
+        return bool(t.allocs_by_job.get(job_id) or t.blocks_by_job.get(job_id)
+                    or t.stopped_by_job.get(job_id))
 
     def job_has_object_allocs(self, job_id: str) -> bool:
         """Whether any NON-TERMINAL allocations of the job live as object
@@ -609,7 +636,7 @@ class _StateView:
 
     def allocs_by_node(self, node_id: str) -> List[Allocation]:
         out = self.allocs_by_node_objects(node_id)
-        for blk in self._t.blocks.values():
+        for blk in self._all_blocks():
             if blk.node_runs().get(node_id) is not None:
                 out = out + blk.materialize_node(node_id)
         return out
@@ -622,10 +649,12 @@ class _StateView:
         return [self._t.allocs[i] for i in ids]
 
     def allocs_by_eval(self, eval_id: str) -> List[Allocation]:
-        ids = self._t.allocs_by_eval.get(eval_id, set())
-        out = [self._t.allocs[i] for i in ids]
-        for bid in self._t.blocks_by_eval.get(eval_id, ()):
-            out.extend(self._t.blocks[bid].materialize())
+        t = self._t
+        out = [t.allocs[i] for i in t.allocs_by_eval.get(eval_id, ())]
+        for bid in t.blocks_by_eval.get(eval_id, ()):
+            out.extend(t.blocks[bid].materialize())
+        for bid in t.stopped_by_eval.get(eval_id, ()):
+            out.extend(t.stopped_blocks[bid].materialize())
         return out
 
     # -- change logs (delta consumers: the device mirror) -----------------
@@ -779,6 +808,13 @@ class StateRestore:
             t.indexes.get("allocs", 0), block.modify_index
         )
 
+    def stopped_block_restore(self, block: StoppedAllocBlock) -> None:
+        t = self._tables
+        _index_block(t, block, stopped=True)
+        t.indexes["allocs"] = max(
+            t.indexes.get("allocs", 0), block.modify_index
+        )
+
     def index_restore(self, table: str, index: int) -> None:
         self._tables.indexes[table] = index
 
@@ -786,13 +822,66 @@ class StateRestore:
         self._store._install(self._tables)
 
 
-def _find_block_member(t: _Tables, alloc_id: str):
-    """(block_id, pos) of a live block member, or None."""
-    for bid, blk in t.blocks.items():
+def _find_block_member(t: _Tables, alloc_id: str, stopped: bool = False):
+    """(block_id, pos) of a live block member (of a stopped block's member
+    with ``stopped``), or None."""
+    for bid, blk in _block_tables(t, stopped)[0].items():
         pos = blk.find(alloc_id)
         if pos is not None:
             return bid, pos
     return None
+
+
+def _block_tables(t: _Tables, stopped: bool):
+    """(blocks, by job, by eval) of the live or the stopped table."""
+    if stopped:
+        return t.stopped_blocks, t.stopped_by_job, t.stopped_by_eval
+    return t.blocks, t.blocks_by_job, t.blocks_by_eval
+
+
+def _index_block(t: _Tables, blk: StoredAllocBlock,
+                 stopped: bool = False) -> None:
+    blocks, by_job, by_eval = _block_tables(t, stopped)
+    blocks[blk.block_id] = blk
+    by_job.setdefault(blk.job_id, set()).add(blk.block_id)
+    by_eval.setdefault(blk.eval_id, set()).add(blk.block_id)
+
+
+def _unindex_block(t: _Tables, blk: StoredAllocBlock,
+                   stopped: bool = False) -> None:
+    blocks, by_job, by_eval = _block_tables(t, stopped)
+    del blocks[blk.block_id]
+    for idx_map, key in ((by_job, blk.job_id), (by_eval, blk.eval_id)):
+        ids = idx_map.get(key)
+        if ids is not None:
+            ids.discard(blk.block_id)
+            if not ids:
+                del idx_map[key]
+
+
+def _promote_stopped_members(t: _Tables, alloc_ids,
+                             touched: Optional[Set[str]] = None) -> None:
+    """Move the stopped-block members among ``alloc_ids`` (ids that are
+    neither object rows nor live block members) to object rows, each as
+    the stop copy it reads as, ahead of a write that addresses them: a
+    client update, a second stop, an in-place re-stamp."""
+    if not t.stopped_blocks:
+        return
+    members: Dict[str, Set[int]] = {}
+    for alloc_id in alloc_ids:
+        found = _find_block_member(t, alloc_id, stopped=True)
+        if found is None:
+            continue
+        bid, pos = found
+        if pos in members.get(bid, ()):
+            continue
+        members.setdefault(bid, set()).add(pos)
+        alloc = t.stopped_blocks[bid].materialize_pos(pos)
+        _insert_alloc_row(t, alloc)
+        if touched is not None:
+            touched.add(alloc.node_id)
+    if members:
+        _exclude_block_members(t, members, stopped=True)
 
 
 def _decr_live_objs(t: _Tables, job_id: str) -> None:
@@ -828,34 +917,45 @@ class RepackBooks:
         self.members = 0
 
 
+class StopBooks:
+    """The live store's committed stops (plain integers; read for the
+    stats gauges): the stopped blocks written, the members they carried,
+    and the stop copies of ``stop_block_members`` that took the object
+    path instead."""
+
+    __slots__ = ("blocks", "members", "rows")
+
+    def __init__(self) -> None:
+        self.blocks = 0
+        self.members = 0
+        self.rows = 0
+
+
 def _exclude_block_members(t: _Tables, members: Dict[str, Set[int]],
-                           books: Optional[RepackBooks] = None) -> None:
+                           books: Optional[RepackBooks] = None,
+                           stopped: bool = False) -> None:
     """Replace blocks with COW copies excluding ``members`` ({block_id:
     positions}). A block whose exclusion set reaches half its size is
     re-packed into a fresh block of its live members, so per-member
     promotion cost stays O(n) over a block's whole life instead of the
     frozenset-union O(n^2) (each re-pack at least halves the block), and
     the job stays columnar: no live member becomes an object row. A block
-    left with no live member is deleted. ``books`` (the live store's)
-    counts the re-packs; optimistic snapshot writes pass None."""
+    left with no live member is deleted. ``stopped`` addresses the table
+    of stopped blocks, under the same rules. ``books`` (the live store's)
+    counts the re-packs of live blocks; optimistic snapshot writes pass
+    None."""
+    blocks = _block_tables(t, stopped)[0]
     for bid, positions in members.items():
-        blk = t.blocks[bid].with_excluded(positions)
+        blk = blocks[bid].with_excluded(positions)
         if blk.n_live and len(blk.excluded) * 2 >= blk.n:
             blk = blk.repacked()
             if books is not None:
                 books.repacks += 1
                 books.members += blk.n
         if not blk.n_live:
-            del t.blocks[bid]
-            for idx_map, key in ((t.blocks_by_job, blk.job_id),
-                                 (t.blocks_by_eval, blk.eval_id)):
-                ids = idx_map.get(key)
-                if ids is not None:
-                    ids.discard(bid)
-                    if not ids:
-                        del idx_map[key]
+            _unindex_block(t, blk, stopped)
         else:
-            t.blocks[bid] = blk
+            blocks[bid] = blk
 
 
 def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
@@ -871,14 +971,18 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
             if existing is not None and existing.node_id != alloc.node_id:
                 touched.add(existing.node_id)
     # An object row superseding a block member (eviction, re-placement,
-    # client-side restamp) promotes it out of the block.
-    if t.blocks:
+    # client-side restamp) promotes it out of the block; a stopped member
+    # becomes the object row it reads as first.
+    if t.blocks or t.stopped_blocks:
         members: Dict[str, Set[int]] = {}
+        unfound: List[str] = []
         for alloc in allocs:
             if alloc.id in t.allocs:
                 continue
             found = _find_block_member(t, alloc.id)
-            if found is not None:
+            if found is None:
+                unfound.append(alloc.id)
+            else:
                 bid, pos = found
                 members.setdefault(bid, set()).add(pos)
                 if touched is not None:
@@ -889,6 +993,7 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
                     alloc.create_index = t.blocks[bid].create_index
         if members:
             _exclude_block_members(t, members, books)
+        _promote_stopped_members(t, unfound, touched)
     for alloc in allocs:
         existing = t.allocs.get(alloc.id)
         if existing is None:
@@ -936,6 +1041,11 @@ def _apply_update_batches(t: _Tables, index: int, batches,
             found = _find_block_member(t, aid)
             if found is not None:
                 members.setdefault(found[0], set()).add(found[1])
+                continue
+            _promote_stopped_members(t, [aid], touched)
+            row = t.allocs.get(aid)
+            if row is not None:
+                object_rows.append(row)
             # Unknown ids: removed while the plan was in flight — exactly
             # the staleness plan evaluation tolerates.
         for bid, positions in members.items():
@@ -1034,9 +1144,7 @@ def _upsert_alloc_blocks(t: _Tables, index: int, batches,
         if batch.n == 0:
             continue
         blk = StoredAllocBlock.from_batch(batch, index)
-        t.blocks[blk.block_id] = blk
-        t.blocks_by_job.setdefault(blk.job_id, set()).add(blk.block_id)
-        t.blocks_by_eval.setdefault(blk.eval_id, set()).add(blk.block_id)
+        _index_block(t, blk)
         items.append(item_alloc_job(blk.job_id))
         items.append(item_alloc_eval(blk.eval_id))
         committed.append(blk)
@@ -1059,6 +1167,7 @@ class StateStore(_StateView):
         self.watch = _Watch()
         self.store_uid = generate_uuid()
         self.repack_books = RepackBooks()
+        self.stop_books = StopBooks()
 
     # -- snapshot/restore -------------------------------------------------
 
@@ -1218,43 +1327,43 @@ class StateStore(_StateView):
                         if not ids:
                             del t.evals_by_job[ev.job_id]
                     items.append(item_eval(eval_id))
-                # A reaped eval takes its columnar blocks with it wholesale.
-                for bid in list(t.blocks_by_eval.get(eval_id, ())):
-                    blk = t.blocks.pop(bid, None)
-                    if blk is None:
-                        continue
-                    ids = t.blocks_by_job.get(blk.job_id)
-                    if ids is not None:
-                        ids.discard(bid)
-                        if not ids:
-                            del t.blocks_by_job[blk.job_id]
-                    items.append(item_alloc_job(blk.job_id))
-                    items.append(item_alloc_eval(blk.eval_id))
-                    reaped_blocks.append(blk)
-                t.blocks_by_eval.pop(eval_id, None)
-            block_members: Dict[str, Set[int]] = {}
+                # A reaped eval takes its columnar blocks, live and
+                # stopped, with it wholesale.
+                for stopped in (False, True):
+                    blocks, _by_job, by_eval = _block_tables(t, stopped)
+                    for bid in sorted(by_eval.get(eval_id, ())):
+                        blk = blocks[bid]
+                        _unindex_block(t, blk, stopped)
+                        items.append(item_alloc_job(blk.job_id))
+                        items.append(item_alloc_eval(blk.eval_id))
+                        reaped_blocks.append(blk)
+            block_members: Dict[Tuple[bool, str], Set[int]] = {}
             for alloc_id in alloc_ids:
                 alloc = t.allocs.pop(alloc_id, None)
                 if alloc is not None and not alloc.terminal_status():
                     _decr_live_objs(t, alloc.job_id)
                 if alloc is None:
-                    if t.blocks:
-                        found = _find_block_member(t, alloc_id)
-                        if found is not None:
-                            bid, pos = found
-                            block_members.setdefault(bid, set()).add(pos)
-                            # Watchers see block-member deletions exactly
-                            # like object-row deletions.
-                            blk = t.blocks[bid]
-                            touched.add(blk.node_of_pos(pos))
-                            items.extend(
-                                [
-                                    item_alloc(alloc_id),
-                                    item_alloc_job(blk.job_id),
-                                    item_alloc_node(blk.node_of_pos(pos)),
-                                    item_alloc_eval(blk.eval_id),
-                                ]
-                            )
+                    stopped = False
+                    found = _find_block_member(t, alloc_id)
+                    if found is None:
+                        stopped = True
+                        found = _find_block_member(t, alloc_id, stopped)
+                    if found is not None:
+                        bid, pos = found
+                        blk = _block_tables(t, stopped)[0][bid]
+                        block_members.setdefault(
+                            (stopped, bid), set()).add(pos)
+                        # Watchers see block-member deletions exactly
+                        # like object-row deletions.
+                        touched.add(blk.node_of_pos(pos))
+                        items.extend(
+                            [
+                                item_alloc(alloc_id),
+                                item_alloc_job(blk.job_id),
+                                item_alloc_node(blk.node_of_pos(pos)),
+                                item_alloc_eval(blk.eval_id),
+                            ]
+                        )
                     continue
                 for idx_map, key in (
                     (t.allocs_by_job, alloc.job_id),
@@ -1275,8 +1384,10 @@ class StateStore(_StateView):
                         item_alloc_eval(alloc.eval_id),
                     ]
                 )
-            if block_members:
-                _exclude_block_members(t, block_members, self.repack_books)
+            for (stopped, bid), positions in block_members.items():
+                _exclude_block_members(
+                    t, {bid: positions},
+                    None if stopped else self.repack_books, stopped)
             for blk in reaped_blocks:
                 touched.update(blk.node_ids)
             _log_alloc_nodes(t, index, touched)
@@ -1309,6 +1420,75 @@ class StateStore(_StateView):
                     ]
                 )
         self.watch.notify(items)
+
+    def stop_block_members(self, index: int, runs
+                           ) -> Tuple[List[StoppedAllocBlock],
+                                      List[Allocation]]:
+        """Commit the stop runs of an ``alloc_update`` entry
+        (``structs.stop_runs``: desired status, description, ids). The ids
+        that are live block members commit as stopped blocks, one per
+        source block and run, and leave their block under the exclusion
+        rules (``_exclude_block_members``). Every other id is rebuilt,
+        after that, into a stop copy from this store
+        (``structs.expand_stop_runs``: an object row, a stopped member, an
+        id named twice; one the store no longer holds is skipped). Returns
+        (the stopped blocks, the stop copies): the copies are for the
+        caller's ``upsert_allocs``. The watch items and the alloc log name
+        what the copies' upsert would: the members' nodes, jobs and evals."""
+        stopped: List[StoppedAllocBlock] = []
+        touched: Set[str] = set()
+        rest = []
+        with self._lock:
+            t = self._t
+            # (block id, run number) -> positions, in the runs' order.
+            groups: Dict[Tuple[str, int], List[int]] = {}
+            taken: Set[Tuple[str, int]] = set()
+            stop_ids: List[str] = []
+            for k, run in enumerate(runs):
+                left = []
+                for alloc_id in run["ids"]:
+                    found = (None if alloc_id in t.allocs
+                             else _find_block_member(t, alloc_id))
+                    if found is None or found in taken:
+                        left.append(alloc_id)
+                        continue
+                    taken.add(found)
+                    stop_ids.append(alloc_id)
+                    groups.setdefault((found[0], k), []).append(found[1])
+                if left:
+                    rest.append({**run, "ids": left})
+            if groups:
+                members: Dict[str, Set[int]] = {}
+                for (bid, k), positions in groups.items():
+                    blk = t.blocks[bid].stopped(
+                        positions, runs[k]["desired_status"],
+                        runs[k]["desired_description"], index)
+                    _index_block(t, blk, stopped=True)
+                    stopped.append(blk)
+                    touched.update(blk.live_counts_map())
+                    members.setdefault(bid, set()).update(positions)
+                _exclude_block_members(t, members, self.repack_books)
+                _log_alloc_nodes(t, index, touched)
+                t.indexes["allocs"] = index
+                books = self.stop_books
+                books.blocks += len(stopped)
+                books.members += len(stop_ids)
+                items: List[WatchItem] = [item_table("allocs")]
+                items.extend(item_alloc_job(j)
+                             for j in sorted({b.job_id for b in stopped}))
+                items.extend(item_alloc_eval(e)
+                             for e in sorted({b.eval_id for b in stopped}))
+                # Per-member items only where someone waits on one, sampled
+                # after the write (Watch.has_waiters_for).
+                if self.watch.has_waiters_for("alloc_node"):
+                    items.extend(item_alloc_node(n) for n in sorted(touched))
+                if self.watch.has_waiters_for("alloc"):
+                    items.extend(item_alloc(i) for i in stop_ids)
+        if stopped:
+            self.watch.notify(items)
+        copies = expand_stop_runs(rest, self.alloc_by_id)
+        self.stop_books.rows += len(copies)
+        return stopped, copies
 
     def upsert_alloc_blocks(self, index: int, batches: List[AllocBatch]) -> None:
         """Commit columnar placement batches natively (no per-Allocation
@@ -1350,18 +1530,22 @@ class StateStore(_StateView):
         items: List[WatchItem] = [item_table("allocs")]
         with self._lock:
             t = self._t
-            if t.blocks:
+            if t.blocks or t.stopped_blocks:
                 members: Dict[str, Set[int]] = {}
+                unfound: List[str] = []
                 for alloc in allocs:
                     if alloc.id in t.allocs:
                         continue
                     found = _find_block_member(t, alloc.id)
-                    if found is not None:
-                        bid, pos = found
-                        members.setdefault(bid, set()).add(pos)
-                        _insert_alloc_row(t, t.blocks[bid].materialize_pos(pos))
+                    if found is None:
+                        unfound.append(alloc.id)
+                        continue
+                    bid, pos = found
+                    members.setdefault(bid, set()).add(pos)
+                    _insert_alloc_row(t, t.blocks[bid].materialize_pos(pos))
                 if members:
                     _exclude_block_members(t, members, self.repack_books)
+                _promote_stopped_members(t, unfound)
             missing: List[str] = []
             for alloc in allocs:
                 existing = t.allocs.get(alloc.id)

@@ -470,6 +470,15 @@ def _blocks_view(store):
         for b in store.alloc_blocks())
 
 
+def _stopped_view(store):
+    return sorted(
+        (b.block_id, b.eval_id, b.job_id, b.ids_hex, tuple(b.node_ids),
+         tuple(int(c) for c in b.node_counts), tuple(b.name_idx.tolist()),
+         tuple(sorted(b.excluded)), b.desired_status, b.desired_description,
+         b.create_index, b.modify_index)
+        for b in store.stopped_alloc_blocks())
+
+
 def _roll_with_repacks(leader, rounds=4, per_round=8):
     """A 40-member placement block on 8 nodes, then ``rounds`` rolling
     rounds, each one entry: the first ``per_round`` live members of the
@@ -530,6 +539,7 @@ def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
                 lambda: all(n.applied_index >= last for n in nodes))
             stores = [n.fsm.state for n in nodes]
             want = _blocks_view(leader.fsm.state)
+            want_stopped = _stopped_view(leader.fsm.state)
             states = [_state(st, port_to_dict) for st in stores]
         finally:
             _stop(nodes, rpcs)
@@ -556,6 +566,7 @@ def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
                     time.sleep(0.02)
                 assert node.snapshot_index >= roll_end
             want = _blocks_view(fsm.state)
+            want_stopped = _stopped_view(fsm.state)
         finally:
             node.shutdown()
             rpc.shutdown()
@@ -576,9 +587,18 @@ def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
     assert sorted(len(v[3]) // 32 for v in want) == [8] * 5
     assert sum(1 for v in want if v[0] == v[1] or v[1] == "ev-place") == 1
     assert all(not v[7] for v in want)
+    # Each round's stops (id runs on the wire) became one stopped block of
+    # the placement block's first 8 live members, at the round's index.
+    assert len(want_stopped) == 4
+    assert {(v[8], v[9]) for v in want_stopped} == {
+        ("stop", "alloc is being updated due to job update")}
+    assert sorted(len(v[3]) // 32 for v in want_stopped) == [8] * 4
+    assert all(v[10] < v[11] for v in want_stopped)
     for st in stores:
         assert _blocks_view(st) == want
+        assert _stopped_view(st) == want_stopped
         assert not st.job_has_object_allocs("job-roll")
+        assert not [a for a in st.allocs_objects() if a.terminal_status()]
     assert all(s == states[0] for s in states)
     if replica != "snapshot":
         assert {(st.repack_books.repacks, st.repack_books.members)

@@ -285,7 +285,9 @@ def test_a_cluster_member_tick_publishes_only_the_runtime_stats(
     Server(config)._stats_tick()
     of_server = set(set_here)
     runtime = {"runtime.total_gc_runs", "runtime.total_gc_pause_ns",
-               "state.block_repacks", "state.block_repack_members"}
+               "state.block_repacks", "state.block_repack_members",
+               "state.block_stops", "state.block_stop_members",
+               "state.stop_rows"}
     assert of_member == runtime
     assert runtime | {"broker.total_ready", "plan.queue_depth",
                       "worker.concurrency"} <= of_server
@@ -358,10 +360,22 @@ def test_a_cluster_roll_traces_reconcile_and_persist(tmp_path, count,
             rounds += _follow(srv, eid)
         books = srv.state_store.repack_books
         repacked = (books.repacks, books.members)
+        stops = srv.state_store.stop_books
+        stop_books = (stops.blocks, stops.members, stops.rows)
+        terminal_rows = [a for a in srv.state_store.allocs_objects()
+                         if a.terminal_status()]
     finally:
         srv.shutdown()
     per_roll = count // max_parallel
     assert len(rounds) == 2 * per_roll
+    # The block roll's stops all commit as stopped blocks, one a round;
+    # the object roll's all as terminal object rows.
+    if path == "block":
+        assert stop_books == (2 * per_roll, count * 2, 0)
+        assert terminal_rows == []
+    else:
+        assert stop_books == (0, 0, 2 * count)
+        assert len(terminal_rows) == 2 * count
     tracer = trace.get_tracer()
     order = []
     for i, eval_id in enumerate(rounds):
@@ -385,6 +399,12 @@ def test_a_cluster_roll_traces_reconcile_and_persist(tmp_path, count,
             assert any(f["parent_id"] == persist["parent_id"]
                        and f["start"] >= persist["end"]
                        for f in _by_name(spans, "fsm.apply"))
+        # The entry's fsm.apply counts its stops by the path they took.
+        (applied,) = [f for f in _by_name(spans, "fsm.apply")
+                      if "stops_columnar" in f["annotations"]]
+        ann = applied["annotations"]
+        assert (ann["stops_columnar"], ann["stops_rows"]) == (
+            (max_parallel, 0) if path == "block" else (0, max_parallel))
         delays = _by_name(spans, "broker.delay")
         assert len(delays) == (1 if i % per_roll else 0)
         for s in spans:

@@ -57,6 +57,7 @@ from nomad_tpu_torch import structs as pst
 from nomad_tpu_torch.convert import structs_from_reference
 from nomad_tpu_torch.harness import Harness as PortHarness
 from nomad_tpu_torch.harness import RejectPlan as PortRejectPlan
+from nomad_tpu_torch.server.fsm import FSM as PortFSM
 from nomad_tpu_torch.server.plan_apply import evaluate_plan as p_evaluate_plan
 from nomad_tpu_torch.state import StateStore as PortStore
 from nomad_tpu_torch.tpu import solver as psolver
@@ -199,10 +200,33 @@ def plan_view(plans, known):
 
 def store_view(state, job_id):
     return sorted(
-        (a.id, a.node_id, a.name, a.desired_status, res(a.resources),
+        (a.id, a.node_id, a.name, a.desired_status, a.desired_description,
+         a.client_status, a.create_index, a.modify_index, res(a.resources),
          a.job.modify_index if a.job is not None else None, a.eval_id,
          ports(a))
         for a in state.allocs_by_job(job_id))
+
+
+def unpaired(view):
+    """``plan_view`` without the pairing of names and ids with nodes: per
+    kind the (node, what) rows and, apart, the names. A job's object rows
+    are walked in the order of a set of their ids, which the rows a store
+    holds decide; stores that hold stops in other forms may pair names
+    with nodes in another order."""
+    out = {"failed": view["failed"]}
+    for key in ("place", "stop", "inplace"):
+        rows = [r for r in view[key] if r[0] != "block"]
+        out[key] = (sorted((r[0],) + tuple(r[3:]) for r in rows),
+                    sorted(r[1] for r in rows),
+                    sorted(r for r in view[key] if r[0] == "block"))
+    return out
+
+
+def unpaired_store_view(state, job_id):
+    """``store_view`` without the pairing of names and ids with nodes."""
+    rows = store_view(state, job_id)
+    return (sorted((r[1],) + r[3:] for r in rows),
+            sorted((r[2], r[3]) for r in rows))
 
 
 def live(state, job_id):
@@ -225,12 +249,17 @@ class ColumnarCommit:
     ``upsert_alloc_blocks``, in-place batches through
     ``apply_update_batches``; ``columnar=False`` materializes everything
     to object rows, as nomad_tpu's lifecycle fuzz does for its object
-    world."""
+    world. With ``fsm`` (the port's), each plan is one ``alloc_update``
+    entry applied by that FSM over the harness's store, its stops as id
+    runs, as a raft replica applies it: block members stop columnar."""
 
-    def __init__(self, harness, evaluate_plan, columnar=True):
+    def __init__(self, harness, evaluate_plan, columnar=True, fsm=None):
         self.h = harness
         self.evaluate_plan = evaluate_plan
         self.columnar = columnar
+        self.fsm = fsm
+        if fsm is not None:
+            fsm.state = harness.state
 
     def submit_plan(self, plan):
         index = self.h.next_index()
@@ -240,6 +269,13 @@ class ColumnarCommit:
         allocs = [a for lst in result.node_update.values() for a in lst]
         allocs += [a for lst in result.node_allocation.values() for a in lst]
         allocs += result.failed_allocs
+        if self.fsm is not None:
+            runs, rest = pst.stop_runs(allocs)
+            self.fsm.apply(index, "alloc_update", {
+                "allocs": rest, "allocs_stopped": runs,
+                "alloc_batches": result.alloc_batches,
+                "update_batches": result.update_batches})
+            return result, None
         if not self.columnar:
             for b in result.alloc_batches:
                 allocs.extend(b.materialize())
@@ -265,15 +301,18 @@ class Twin:
     """nomad_tpu's harness and the port's, fed the same objects; every
     ``process`` compares the two evals' decisions."""
 
-    def __init__(self, monkeypatch, seed, planner=None):
+    def __init__(self, monkeypatch, seed, planner=None, paired=True):
+        self.paired = paired
         self.jax = JaxHarness()
         self.port = PortHarness()
         if planner == "reject":
             self.jax.planner = JaxRejectPlan(self.jax)
             self.port.planner = PortRejectPlan(self.port)
-        elif planner == "columnar":
+        elif planner in ("columnar", "fsm"):
             self.jax.planner = ColumnarCommit(self.jax, j_evaluate_plan)
-            self.port.planner = ColumnarCommit(self.port, p_evaluate_plan)
+            self.port.planner = ColumnarCommit(
+                self.port, p_evaluate_plan,
+                fsm=PortFSM() if planner == "fsm" else None)
         self._fixture_os = SeededOS(("fixture", seed).__repr__())
         self._jax_os = SeededOS(("ids", seed).__repr__())
         self._port_os = SeededOS(("ids", seed).__repr__())
@@ -384,6 +423,8 @@ class Twin:
         assert len(jplans) == len(pplans), (kw["id"], len(jplans),
                                             len(pplans))
         ref, got = plan_view(jplans, known_j), plan_view(pplans, known_p)
+        if not self.paired:
+            ref, got = unpaired(ref), unpaired(got)
         for key in ("place", "stop", "inplace", "failed"):
             assert got[key] == ref[key], f"{kw['id']}: {key} differs"
         jev = (self.jax.evals[nej:], self.jax.create_evals[ncj:])
@@ -396,7 +437,8 @@ class Twin:
             (e.id, e.triggered_by, e.wait, e.previous_eval,
              e.job_modify_index) for e in jev[1]]
         if job_id:
-            assert store_view(self.port.state, job_id) == store_view(
+            view = store_view if self.paired else unpaired_store_view
+            assert view(self.port.state, job_id) == view(
                 self.jax.state, job_id), f"{kw['id']}: the stores differ"
         return pplans, got, jev[1]
 
@@ -791,6 +833,12 @@ def block_rolling(tw):
     assert rounds == 5
     assert tw.port.state.repack_books.repacks == 2
     assert tw.port.state.repack_books.members == 150 + 50
+    # Every stop of the roll committed as a stopped block: the port holds
+    # no terminal object row, where nomad_tpu's store holds one a stop.
+    assert not [a for a in tw.port.state.allocs_objects()
+                if a.terminal_status()]
+    assert tw.port.state.stop_books.rows == 0
+    assert tw.port.state.stop_books.members == BATCH
     check_fits(tw.port.state, tw.node_ids)
     versions = {a.job.modify_index for a in live(tw.port.state, job.id)}
     assert versions == {tw.jobs[job.id][1].modify_index}
@@ -798,11 +846,11 @@ def block_rolling(tw):
 
 
 BLOCK_CASES = {
-    "in_place": (block_in_place, 10, "columnar"),
-    "same_version": (block_same_version, 10, "columnar"),
-    "overflow": (block_overflow, 4, "columnar"),
-    "tainted": (block_tainted, 10, "columnar"),
-    "rolling": (block_rolling, 10, "columnar"),
+    "in_place": (block_in_place, 10, "fsm"),
+    "same_version": (block_same_version, 10, "fsm"),
+    "overflow": (block_overflow, 4, "fsm"),
+    "tainted": (block_tainted, 10, "fsm"),
+    "rolling": (block_rolling, 10, "fsm"),
 }
 
 
@@ -855,6 +903,23 @@ def test_block_vs_object_lifecycle_matches_jax(seed, monkeypatch):
     equals nomad_tpu's columnar world decision for decision, and the
     port's object world gives the same totals, spread, usage and version
     as its columnar one; the live-object counter equals a scan."""
+    _lifecycle(seed, monkeypatch, "columnar", paired=True)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_block_vs_object_lifecycle_through_the_fsm_matches_jax(
+        seed, monkeypatch):
+    """The same lifecycle with the port's plans applied by its FSM, stops
+    as id runs, so block members stop into stopped blocks: every eval
+    places, stops and updates on the same nodes with the same names as
+    nomad_tpu, and the worlds agree as above. A name's node may differ:
+    after a stop the port's store holds the job's terminal members in a
+    stopped block, nomad_tpu's as object rows, and each walks the job's
+    object rows in the order of a set of their ids."""
+    _lifecycle(seed, monkeypatch, "fsm", paired=False)
+
+
+def _lifecycle(seed, monkeypatch, planner, paired):
     rng = np.random.default_rng(31_000 + seed)
     n_nodes = int(rng.choice([6, 10, 16]))
     count = int(rng.choice([BATCH, BATCH + 50]))
@@ -863,7 +928,7 @@ def test_block_vs_object_lifecycle_matches_jax(seed, monkeypatch):
     obj = PortHarness()
     obj.planner = ColumnarCommit(obj, p_evaluate_plan, columnar=False)
     obj_os = SeededOS(("object world", seed).__repr__())
-    tw = Twin(monkeypatch, seed, planner="columnar")
+    tw = Twin(monkeypatch, seed, planner=planner, paired=paired)
     _block_cluster(tw, n_nodes)
     for nid in tw.node_ids:
         obj.state.upsert_node(obj.next_index(),
