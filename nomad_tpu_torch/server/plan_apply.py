@@ -528,13 +528,8 @@ def _block_rows_cached(table, blk):
     if entry is not None and entry[0] is blk:
         return entry[1], entry[2]
     get = table.rows.get
-    if blk.excluded:
-        pairs = list(blk.live_node_counts())
-        nids = [p[0] for p in pairs]
-        counts = np.asarray([p[1] for p in pairs], dtype=np.int64)
-    else:
-        nids = blk.node_ids
-        counts = np.asarray(blk.node_counts, dtype=np.int64)
+    nids, counts = blk.live_runs()
+    counts = np.asarray(counts, dtype=np.int64)
     rows = np.fromiter(
         (get(nid, -1) for nid in nids), dtype=np.int64, count=len(nids)
     )

@@ -25,25 +25,90 @@ Invariants:
   a live member.
 - Stored blocks are immutable; exclusion produces a copy sharing the column
   arrays (copy-on-write), so snapshots that captured the old table keep a
-  consistent view. Lazy caches (id→position, node→run) are shared across
-  copies — the columns they index never change.
+  consistent view.
+- ``excluded`` is the one fact kept (pickled, sent) about which members
+  are live. Every live read derives from it and two structures: the run
+  layout (``_RunLayout``), built once per set of columns and shared by
+  every copy over them, and the live members per run (None while nothing
+  is excluded), which ``with_excluded`` derives from its parent's by
+  binning the newly excluded positions. ``_derive`` decides what a copy
+  shares.
 - Once half a block's members are excluded, the store replaces it with a
   re-packed block of its live members (``repacked``): same block id, no
   exclusions, fresh columns. Live members never leave the columnar form
   for object rows that way, so a rolling job stays block-wise.
 
 Semantically a block is exactly its ``materialize()`` expansion; the
-differential tests in tests/test_alloc_batch.py and tests/test_state.py
-hold the two forms equal.
+differential tests in tests/test_torch_state_blocks.py and
+tests/test_torch_state_stops.py hold the two forms equal.
 """
 
 from __future__ import annotations
 
 import bisect
-import itertools
 from typing import Dict, FrozenSet, Iterator, List, Optional, Tuple
 
+import numpy as np
+
 from nomad_tpu_torch.structs import AllocBatch, Allocation, generate_uuid
+
+
+class _RunLayout:
+    """Each run's start and end, each node's total count (read-only) and
+    every run of each node, of one set of columns: shared by every block
+    over them, so by every snapshot and thread that reads one. The lazy
+    per-node map is built whole, then published by one assignment."""
+
+    __slots__ = ("node_ids", "counts", "ends", "start_of", "end_of",
+                 "totals", "_by_node")
+
+    def __init__(self, node_ids: List[str], node_counts: List[int]):
+        self.node_ids = node_ids
+        self.counts = np.asarray(node_counts, dtype=np.int64).reshape(-1)
+        self.ends = np.cumsum(self.counts)
+        # Python lists for the scalar reads (a bisection, a node's runs).
+        self.end_of: List[int] = self.ends.tolist()
+        self.start_of: List[int] = (self.ends - self.counts).tolist()
+        self.totals = _summed(zip(node_ids, self.counts.tolist()))
+        self._by_node: Optional[Dict[str, List[int]]] = None
+
+    def runs_of(self, node_id: str) -> Optional[List[int]]:
+        """Every run index of ``node_id``, ascending, or None. The map
+        builds on the first per-node read: the placement and stop paths,
+        which run every round of a roll, never ask."""
+        by_node = self._by_node
+        if by_node is None:
+            by_node = {}
+            for r, nid in enumerate(self.node_ids):
+                by_node.setdefault(nid, []).append(r)
+            self._by_node = by_node
+        return by_node.get(node_id)
+
+    def less(self, live: np.ndarray, positions) -> np.ndarray:
+        """``live`` (members per run) less ``positions``, binned by run:
+        O(positions × log runs) besides the subtraction."""
+        pos = np.fromiter(positions, dtype=np.int64, count=len(positions))
+        runs = np.searchsorted(self.ends, pos, side="right")
+        return live - np.bincount(runs, minlength=len(live))
+
+
+def _fields(batch: AllocBatch) -> dict:
+    """The constructor fields of ``batch``, its columns shared."""
+    return dict(
+        eval_id=batch.eval_id, job=batch.job, tg_name=batch.tg_name,
+        resources=batch.resources, task_resources=batch.task_resources,
+        metrics=batch.metrics, node_ids=batch.node_ids,
+        node_counts=batch.node_counts, name_idx=batch.name_idx,
+        ids_hex=batch._ids_hex or "", ids_seed=batch.ids_seed,
+    )
+
+
+def _summed(pairs) -> Dict[str, int]:
+    """(node id, count) pairs summed per node."""
+    out: Dict[str, int] = {}
+    for nid, cnt in pairs:
+        out[nid] = out.get(nid, 0) + cnt
+    return out
 
 
 class StoredAllocBlock(AllocBatch):
@@ -52,8 +117,7 @@ class StoredAllocBlock(AllocBatch):
 
     __slots__ = (
         "block_id", "job_id", "create_index", "modify_index", "excluded",
-        "_id_pos", "_node_run", "_live_counts", "_materialized",
-        "_run_ends",
+        "_id_pos", "_layout", "_live", "_materialized",
     )
 
     def __init__(self, *args, **kwargs):
@@ -63,21 +127,18 @@ class StoredAllocBlock(AllocBatch):
         self.create_index = 0
         self.modify_index = 0
         self.excluded: FrozenSet[int] = frozenset()
+        self._no_caches()
+
+    def _no_caches(self) -> None:
+        # Derived from the fields above, each built on first use.
         self._id_pos: Optional[Dict[str, int]] = None
-        self._node_run: Optional[Dict[str, Tuple[int, int]]] = None
-        self._live_counts: Optional[Dict[str, int]] = None
+        self._layout: Optional[_RunLayout] = None
+        self._live: Optional[np.ndarray] = None
         self._materialized: Optional[List[Allocation]] = None
-        self._run_ends: Optional[List[int]] = None
 
     @classmethod
     def from_batch(cls, batch: AllocBatch, index: int) -> "StoredAllocBlock":
-        blk = cls(
-            eval_id=batch.eval_id, job=batch.job, tg_name=batch.tg_name,
-            resources=batch.resources, task_resources=batch.task_resources,
-            metrics=batch.metrics, node_ids=batch.node_ids,
-            node_counts=batch.node_counts, name_idx=batch.name_idx,
-            ids_hex=batch._ids_hex or "", ids_seed=batch.ids_seed,
-        )
+        blk = cls(**_fields(batch))
         # Deterministic across replicas: every FSM applying this log entry
         # derives the same block id (the first member's alloc id —
         # alloc_id(0) expands only the seed's 16-byte prefix, so a
@@ -87,66 +148,99 @@ class StoredAllocBlock(AllocBatch):
         blk.modify_index = index
         return blk
 
-    # -- liveness ---------------------------------------------------------
+    # -- the live view ----------------------------------------------------
 
     @property
     def n_live(self) -> int:
         return self.n - len(self.excluded)
 
-    def node_runs(self) -> Dict[str, Tuple[int, int]]:
-        """node_id → (start, count) over the run-length encoding."""
-        runs = self._node_run
-        if runs is None:
-            runs = {}
-            pos = 0
-            for nid, cnt in zip(self.node_ids, self.node_counts):
-                runs[nid] = (pos, cnt)
-                pos += cnt
-            self._node_run = runs
-        return runs
+    def _runs(self) -> _RunLayout:
+        if self._layout is None:
+            self._layout = _RunLayout(self.node_ids, self.node_counts)
+        return self._layout
 
-    def node_of_pos(self, pos: int) -> str:
-        """Node id owning position ``pos`` of the run-length encoding: a
-        bisection over the runs' cumulative ends (cached), so promoting
-        every member of a block to an object row (a job's stop) costs
-        O(n log runs), not O(n runs)."""
-        ends = self._run_ends
-        if ends is None:
-            ends = list(itertools.accumulate(int(c) for c in self.node_counts))
-            self._run_ends = ends
-        if pos < 0 or not ends or pos >= ends[-1]:
-            return ""
-        return self.node_ids[bisect.bisect_right(ends, pos)]
+    def _live_per_run(self) -> np.ndarray:
+        """Live members per run: the layout's counts less ``excluded``."""
+        if not self.excluded:
+            return self._runs().counts
+        live = self._live
+        if live is None:
+            layout = self._runs()
+            live = self._live = layout.less(layout.counts, self.excluded)
+        return live
 
-    def live_counts_map(self) -> Dict[str, int]:
-        """node_id → total live member count, duplicate runs summed
-        (``node_runs`` keeps only a node's LAST run). Cached — blocks are
-        immutable, exclusion replaces the object — so per-node usage
-        recomputes (the mirror's base-usage roll forward) pay one O(runs)
-        build per block, then dict hits."""
-        counts = self._live_counts
-        if counts is None:
-            counts = {}
-            for nid, cnt in self.live_node_counts():
-                counts[nid] = counts.get(nid, 0) + cnt
-            self._live_counts = counts
-        return counts
+    def _live_mask(self) -> np.ndarray:
+        live = np.ones(self.n, dtype=bool)
+        if self.excluded:
+            live[np.fromiter(self.excluded, dtype=np.int64,
+                             count=len(self.excluded))] = False
+        return live
+
+    def _spans(self, runs=None) -> Iterator[Tuple[str, int, int]]:
+        """(node id, start, end) of each run holding a live member, in run
+        order: of every run, or of the run indices ``runs``. Lazy: a
+        reader that stops early walks only the runs it takes."""
+        layout = self._runs()
+        live = self._live_per_run()
+        node_ids, start_of, end_of = self.node_ids, layout.start_of, \
+            layout.end_of
+        for r in range(len(end_of)) if runs is None else runs:
+            if live[r]:
+                yield node_ids[r], start_of[r], end_of[r]
+
+    def live_runs(self) -> Tuple[List[str], List[int]]:
+        """(node ids, live counts) of the runs holding a live member, in
+        run order, as two columns — the form the vectorised readers (plan
+        verification's row cache, in-place admission) take. A block with
+        no exclusion hands back its columns themselves (empty runs
+        included), not copies."""
+        if not self.excluded:
+            return self.node_ids, self.node_counts
+        live = self._live_per_run()
+        keep = np.flatnonzero(live)
+        return ([self.node_ids[r] for r in keep.tolist()],
+                live[keep].tolist())
 
     def live_node_counts(self) -> Iterator[Tuple[str, int]]:
-        """(node_id, live placement count) per run — the columnar usage
-        feed for plan verification and the device mirror."""
+        """``live_runs`` as (node_id, live count) pairs — the form the
+        per-run folds and the benchmark's observers read."""
+        return zip(*self.live_runs())
+
+    def live_counts_map(self) -> Dict[str, int]:
+        """node_id → total live member count, a node's runs summed.
+        Read-only: a block with no exclusion hands back its layout's map,
+        built once and shared by the copies over its columns."""
         if not self.excluded:
-            yield from zip(self.node_ids, self.node_counts)
-            return
-        pos = 0
-        for nid, cnt in zip(self.node_ids, self.node_counts):
-            # nomadlint: allow(DET003) -- commutative membership count
-            # (sum of 1s): the iteration order of the set cannot change
-            # the result.
-            live = cnt - sum(1 for p in self.excluded if pos <= p < pos + cnt)
-            if live:
-                yield nid, live
-            pos += cnt
+            return self._runs().totals
+        return _summed(self.live_node_counts())
+
+    def live_positions(self) -> List[int]:
+        """Run-ordered positions of live (non-excluded) members."""
+        return np.flatnonzero(self._live_mask()).tolist()
+
+    def live_name_idx(self) -> np.ndarray:
+        """Name indices of the live members, run-ordered: the column
+        itself for a block with no exclusion."""
+        if not self.excluded:
+            return self.name_idx
+        return self.name_idx[self._live_mask()]
+
+    def live_members(self) -> Iterator[Tuple[str, str]]:
+        """(alloc id, node id) of each live member, in run order."""
+        excluded = self.excluded
+        for nid, start, end in self._spans():
+            for i in range(start, end):
+                if i not in excluded:
+                    yield self.alloc_id(i), nid
+
+    def node_of_pos(self, pos: int) -> str:
+        """Node id owning position ``pos``: a bisection over the layout's
+        run ends, so promoting every member of a block to an object row
+        (a job's stop) costs O(n log runs), not O(n runs)."""
+        end_of = self._runs().end_of
+        if pos < 0 or not end_of or pos >= end_of[-1]:
+            return ""
+        return self.node_ids[bisect.bisect_right(end_of, pos)]
 
     # -- lookup -----------------------------------------------------------
 
@@ -165,12 +259,14 @@ class StoredAllocBlock(AllocBatch):
     # -- materialization (template/span logic inherited from AllocBatch) --
 
     def materialize_node(self, node_id: str) -> List[Allocation]:
-        run = self.node_runs().get(node_id)
-        if run is None:
+        """The live members on ``node_id``, from every run of the node."""
+        runs = self._runs().runs_of(node_id)
+        if runs is None:
             return []
         out: List[Allocation] = []
-        start, cnt = run
-        self._materialize_span(self._template(), node_id, start, start + cnt, out)
+        template = self._template()
+        for nid, start, end in self._spans(runs):
+            self._materialize_span(template, nid, start, end, out)
         return out
 
     def materialize_prefix(self, k: int) -> List[Allocation]:
@@ -180,36 +276,16 @@ class StoredAllocBlock(AllocBatch):
         materializes past k: O(k + excluded-in-prefix + runs touched)."""
         out: List[Allocation] = []
         template = self._template()
-        pos = 0
-        for nid, cnt in zip(self.node_ids, self.node_counts):
+        for nid, start, end_run in self._spans():
             if len(out) >= k:
                 break
-            start, end_run = pos, pos + cnt
             while start < end_run and len(out) < k:
                 # Each chunk asks for exactly the remaining need; excluded
                 # positions inside it yield fewer, and the loop advances.
                 end = min(end_run, start + (k - len(out)))
                 self._materialize_span(template, nid, start, end, out)
                 start = end
-            pos = end_run
         return out
-
-    def live_positions(self) -> List[int]:
-        """Run-ordered positions of live (non-excluded) members."""
-        if not self.excluded:
-            return list(range(self.n))
-        excluded = self.excluded
-        return [i for i in range(self.n) if i not in excluded]
-
-    def live_members(self) -> Iterator[Tuple[str, str]]:
-        """(alloc id, node id) of each live member, in run order."""
-        excluded = self.excluded
-        pos = 0
-        for nid, cnt in zip(self.node_ids, self.node_counts):
-            for i in range(pos, pos + cnt):
-                if i not in excluded:
-                    yield self.alloc_id(i), nid
-            pos += cnt
 
     def materialize_pos(self, pos: int) -> Allocation:
         out: List[Allocation] = []
@@ -227,10 +303,8 @@ class StoredAllocBlock(AllocBatch):
         if cached is None:
             cached = []
             template = self._template()
-            pos = 0
-            for nid, cnt in zip(self.node_ids, self.node_counts):
-                self._materialize_span(template, nid, pos, pos + cnt, cached)
-                pos += cnt
+            for nid, start, end in self._spans():
+                self._materialize_span(template, nid, start, end, cached)
             self._materialized = cached
         return cached
 
@@ -250,36 +324,21 @@ class StoredAllocBlock(AllocBatch):
         )
         blk.job_id = job.id if job is not None else self.job_id
         blk.modify_index = index
-        blk.excluded = self.excluded
-        blk._id_pos = self._id_pos
-        blk._node_run = self._node_run
-        blk._live_counts = self._live_counts  # same members, same counts
         return blk
 
     # -- copy-on-write exclusion ------------------------------------------
 
     def with_excluded(self, positions) -> "StoredAllocBlock":
-        """A copy of this block with ``positions`` additionally excluded.
-        Columns and lazy caches are shared — they never change."""
-        blk = self._derive()
-        blk.excluded = self.excluded | frozenset(positions)
-        blk._id_pos = self._id_pos
-        blk._node_run = self._node_run
-        blk._run_ends = self._run_ends
-        return blk
+        """A copy of this block with ``positions`` additionally excluded,
+        over the same columns."""
+        return self._derive(exclude=frozenset(positions) - self.excluded)
 
     def repacked(self) -> "StoredAllocBlock":
         """A fresh block of the live members alone, with no exclusions:
         the same block id, job, group, resources, metrics, eval and
         indexes, the columns of ``_gathered``. A pure function of the
         block, so every replica applying the same entries re-packs alike."""
-        import numpy as np
-
-        live = np.ones(self.n, dtype=bool)
-        if self.excluded:
-            live[np.fromiter(self.excluded, dtype=np.int64,
-                             count=len(self.excluded))] = False
-        return self._derive(**self._gathered(live))
+        return self._derive(columns=self._gathered(self._live_mask()))
 
     def stopped(self, positions, status: str, description: str,
                 index: int) -> "StoppedAllocBlock":
@@ -288,24 +347,18 @@ class StoredAllocBlock(AllocBatch):
         eval, group, resources, metrics, create index, names and ids, the
         run's desired status and description, ``modify_index`` = index.
         All the live members keep these columns and exclusions as they
-        are (caches shared); a part of them is gathered (``_gathered``).
+        are; a part of them is gathered (``_gathered``).
         Its id is its first member's alloc id: a member is stopped
         columnar once, so the id is unique and every replica derives it."""
-        import numpy as np
-
         if len(positions) == self.n_live:
             blk = self._derive(StoppedAllocBlock)
-            blk.excluded = self.excluded
-            blk._id_pos = self._id_pos
-            blk._node_run = self._node_run
-            blk._run_ends = self._run_ends
-            blk._live_counts = self._live_counts
             first = next(i for i in range(self.n) if i not in self.excluded)
         else:
             keep = np.zeros(self.n, dtype=bool)
             keep[np.fromiter(positions, dtype=np.int64,
                              count=len(positions))] = True
-            blk = self._derive(StoppedAllocBlock, **self._gathered(keep))
+            blk = self._derive(StoppedAllocBlock,
+                               columns=self._gathered(keep))
             first = 0
         blk.block_id = blk.alloc_id(first)
         blk.modify_index = index
@@ -319,11 +372,8 @@ class StoredAllocBlock(AllocBatch):
         runs on one node merged, emptied runs dropped), name indices and
         ids gathered. The ids are no longer a prefix of one seed, so the
         column is explicit hex."""
-        import numpy as np
-
-        ends = np.cumsum(np.asarray(self.node_counts, dtype=np.int64))
         kept_before = np.concatenate(([0], np.cumsum(keep)))
-        per_run = kept_before[ends] - kept_before[ends - self.node_counts]
+        per_run = np.diff(kept_before[self._runs().ends], prepend=0)
         node_ids: List[str] = []
         node_counts: List[int] = []
         for nid, cnt in zip(self.node_ids, per_run.tolist()):
@@ -340,24 +390,33 @@ class StoredAllocBlock(AllocBatch):
                 "name_idx": self.name_idx[pos],
                 "ids_hex": ids.tobytes().decode("ascii"), "ids_seed": None}
 
-    def _derive(self, cls=None, **cols) -> "StoredAllocBlock":
+    def _derive(self, cls=None, columns=None, exclude=frozenset(),
+                **fields) -> "StoredAllocBlock":
         """A block of class ``cls`` (this one's by default) with this
-        block's id, job, indexes and the fields of its kind, over its
-        columns with ``cols`` (AllocBatch fields) swapped in."""
-        kw = dict(
-            eval_id=self.eval_id, job=self.job, tg_name=self.tg_name,
-            resources=self.resources, task_resources=self.task_resources,
-            metrics=self.metrics, node_ids=self.node_ids,
-            node_counts=self.node_counts, name_idx=self.name_idx,
-            ids_hex=self._ids_hex or "", ids_seed=self.ids_seed,
-        )
-        kw.update(cols)
+        block's id, job, indexes and kind's fields, ``fields`` (AllocBatch
+        fields) swapped in: the one place that decides what a copy shares.
+        Over new ``columns`` (``_gathered``), nothing; over these, the
+        layout (built first, so every copy holds the one) and the id
+        index, with ``exclude`` (live positions) excluded besides."""
+        kw = _fields(self)
+        kw.update(columns or {})
+        kw.update(fields)
         blk = (cls or type(self))(**kw)
         blk.block_id = self.block_id
         blk.job_id = self.job_id
         blk.create_index = self.create_index
         blk.modify_index = self.modify_index
         self._carry(blk)
+        if columns is None:
+            blk._layout = self._runs()
+            blk._id_pos = self._id_pos
+            blk.excluded, blk._live = self.excluded, self._live
+            if exclude:
+                blk.excluded = self.excluded | exclude
+                live = self._live_per_run()
+                # A block left with no live member is deleted unread.
+                blk._live = (blk._layout.less(live, exclude) if blk.n_live
+                             else np.zeros_like(live))
         return blk
 
     def _carry(self, blk: "StoredAllocBlock") -> None:
@@ -391,11 +450,7 @@ class StoredAllocBlock(AllocBatch):
         self._ids_hex = state.get("_ids_hex", state.get("ids_hex"))
         if self._ids_hex is None and self.ids_seed is None:
             self._ids_hex = ""
-        self._id_pos = None
-        self._node_run = None
-        self._live_counts = None
-        self._materialized = None
-        self._run_ends = None
+        self._no_caches()
 
     def to_wire(self) -> dict:
         d = super().to_wire()
@@ -407,14 +462,7 @@ class StoredAllocBlock(AllocBatch):
 
     @staticmethod
     def from_wire(d: dict) -> "StoredAllocBlock":
-        base = AllocBatch.from_wire(d)
-        blk = StoredAllocBlock(
-            eval_id=base.eval_id, job=base.job, tg_name=base.tg_name,
-            resources=base.resources, task_resources=base.task_resources,
-            metrics=base.metrics, node_ids=base.node_ids,
-            node_counts=base.node_counts, name_idx=base.name_idx,
-            ids_hex=base._ids_hex or "", ids_seed=base.ids_seed,
-        )
+        blk = StoredAllocBlock.from_batch(AllocBatch.from_wire(d), 0)
         blk.block_id = d.get("block_id") or generate_uuid()
         blk.create_index = int(d.get("create_index", 0))
         blk.modify_index = int(d.get("modify_index", 0))

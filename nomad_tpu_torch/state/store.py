@@ -450,24 +450,17 @@ class _Tables:
         self.evals: Dict[str, Evaluation] = {}
         self.allocs: Dict[str, Allocation] = {}
         # Columnar allocation blocks (state/blocks.py): one row per
-        # (eval, task group) block instead of one per placement. Blocks are
-        # immutable — exclusion replaces the entry with a COW copy — so the
-        # snapshot container-copy below stays cheap and consistent.
-        self.blocks: Dict[str, StoredAllocBlock] = {}
-        # Stopped blocks: the terminal members a committed stop run took
-        # out of a live block, one row per (source block, run) and never
-        # read as live (state/blocks.py StoppedAllocBlock). Indexed by job
-        # and eval; a read by node asks each block's own node runs.
-        self.stopped_blocks: Dict[str, StoppedAllocBlock] = {}
+        # (eval, task group) block instead of one per placement. ``live``
+        # holds the live blocks; ``stopped`` the terminal members a
+        # committed stop run took out of a live block, one row per (source
+        # block, run), never read as live (StoppedAllocBlock).
+        self.live = _BlockTable()
+        self.stopped = _BlockTable()
         # Secondary indexes: id sets keyed by foreign key.
         self.evals_by_job: Dict[str, Set[str]] = {}
         self.allocs_by_job: Dict[str, Set[str]] = {}
         self.allocs_by_node: Dict[str, Set[str]] = {}
         self.allocs_by_eval: Dict[str, Set[str]] = {}
-        self.blocks_by_job: Dict[str, Set[str]] = {}
-        self.blocks_by_eval: Dict[str, Set[str]] = {}
-        self.stopped_by_job: Dict[str, Set[str]] = {}
-        self.stopped_by_eval: Dict[str, Set[str]] = {}
         # Non-terminal OBJECT rows per job — the O(1) gate for block-level
         # reconciles (a rolling update accumulates terminal stop rows that
         # a scan-based gate would re-walk on every eval). Maintained by
@@ -488,17 +481,12 @@ class _Tables:
         new.jobs = dict(self.jobs)
         new.evals = dict(self.evals)
         new.allocs = dict(self.allocs)
-        new.blocks = dict(self.blocks)
+        new.live = self.live.copy()
+        new.stopped = self.stopped.copy()
         new.evals_by_job = {k: set(v) for k, v in self.evals_by_job.items()}
         new.allocs_by_job = {k: set(v) for k, v in self.allocs_by_job.items()}
         new.allocs_by_node = {k: set(v) for k, v in self.allocs_by_node.items()}
         new.allocs_by_eval = {k: set(v) for k, v in self.allocs_by_eval.items()}
-        new.blocks_by_job = {k: set(v) for k, v in self.blocks_by_job.items()}
-        new.blocks_by_eval = {k: set(v) for k, v in self.blocks_by_eval.items()}
-        new.stopped_blocks = dict(self.stopped_blocks)
-        new.stopped_by_job = {k: set(v) for k, v in self.stopped_by_job.items()}
-        new.stopped_by_eval = {
-            k: set(v) for k, v in self.stopped_by_eval.items()}
         new.live_objs_by_job = dict(self.live_objs_by_job)
         # Logs are SHARED by reference: between trims they're append-only
         # (list.append is atomic under the GIL, and readers filter by
@@ -558,11 +546,11 @@ class _StateView:
         alloc = t.allocs.get(alloc_id)
         if alloc is not None:
             return alloc
-        for stopped in (False, True):
-            found = _find_block_member(t, alloc_id, stopped)
+        for table in (t.live, t.stopped):
+            found = table.find(alloc_id)
             if found is not None:
                 bid, pos = found
-                return _block_tables(t, stopped)[0][bid].materialize_pos(pos)
+                return table.by_id[bid].materialize_pos(pos)
         return None
 
     def allocs(self) -> List[Allocation]:
@@ -581,17 +569,17 @@ class _StateView:
         )
 
     def _all_blocks(self) -> List[StoredAllocBlock]:
-        return [*self._t.blocks.values(), *self._t.stopped_blocks.values()]
+        return [*self._t.live.by_id.values(), *self._t.stopped.by_id.values()]
 
     def alloc_blocks(self) -> List[StoredAllocBlock]:
         """Live columnar blocks — the no-materialization read for plan
         verification and the device mirror."""
-        return list(self._t.blocks.values())
+        return list(self._t.live.by_id.values())
 
     def stopped_alloc_blocks(self) -> List[StoppedAllocBlock]:
         """Stopped blocks: terminal members held columnar, which no live
         read (alloc_blocks, job_alloc_blocks) returns."""
-        return list(self._t.stopped_blocks.values())
+        return list(self._t.stopped.by_id.values())
 
     def allocs_objects(self) -> List[Allocation]:
         """Object-table rows only (the complement of alloc_blocks() and
@@ -606,10 +594,9 @@ class _StateView:
     def allocs_by_job(self, job_id: str) -> List[Allocation]:
         t = self._t
         out = [t.allocs[i] for i in t.allocs_by_job.get(job_id, ())]
-        for bid in t.blocks_by_job.get(job_id, ()):
-            out.extend(t.blocks[bid].materialize())
-        for bid in t.stopped_by_job.get(job_id, ()):
-            out.extend(t.stopped_blocks[bid].materialize())
+        for table in (t.live, t.stopped):
+            for bid in table.by_job.get(job_id, ()):
+                out.extend(table.by_id[bid].materialize())
         return out
 
     def has_allocs_for_job(self, job_id: str) -> bool:
@@ -617,8 +604,8 @@ class _StateView:
         guard fast paths (fresh-registration detection) need only the
         answer, not 100k Allocation objects."""
         t = self._t
-        return bool(t.allocs_by_job.get(job_id) or t.blocks_by_job.get(job_id)
-                    or t.stopped_by_job.get(job_id))
+        return bool(t.allocs_by_job.get(job_id) or t.live.by_job.get(job_id)
+                    or t.stopped.by_job.get(job_id))
 
     def job_has_object_allocs(self, job_id: str) -> bool:
         """Whether any NON-TERMINAL allocations of the job live as object
@@ -631,14 +618,13 @@ class _StateView:
 
     def job_alloc_blocks(self, job_id: str) -> List["StoredAllocBlock"]:
         """The job's stored columnar blocks, un-materialized."""
-        return [self._t.blocks[bid]
-                for bid in self._t.blocks_by_job.get(job_id, ())]
+        live = self._t.live
+        return [live.by_id[bid] for bid in live.by_job.get(job_id, ())]
 
     def allocs_by_node(self, node_id: str) -> List[Allocation]:
         out = self.allocs_by_node_objects(node_id)
         for blk in self._all_blocks():
-            if blk.node_runs().get(node_id) is not None:
-                out = out + blk.materialize_node(node_id)
+            out.extend(blk.materialize_node(node_id))
         return out
 
     def allocs_by_node_objects(self, node_id: str) -> List[Allocation]:
@@ -651,10 +637,9 @@ class _StateView:
     def allocs_by_eval(self, eval_id: str) -> List[Allocation]:
         t = self._t
         out = [t.allocs[i] for i in t.allocs_by_eval.get(eval_id, ())]
-        for bid in t.blocks_by_eval.get(eval_id, ()):
-            out.extend(t.blocks[bid].materialize())
-        for bid in t.stopped_by_eval.get(eval_id, ()):
-            out.extend(t.stopped_blocks[bid].materialize())
+        for table in (t.live, t.stopped):
+            for bid in table.by_eval.get(eval_id, ()):
+                out.extend(table.by_id[bid].materialize())
         return out
 
     # -- change logs (delta consumers: the device mirror) -----------------
@@ -800,17 +785,15 @@ class StateRestore:
         )
 
     def block_restore(self, block: StoredAllocBlock) -> None:
-        t = self._tables
-        t.blocks[block.block_id] = block
-        t.blocks_by_job.setdefault(block.job_id, set()).add(block.block_id)
-        t.blocks_by_eval.setdefault(block.eval_id, set()).add(block.block_id)
-        t.indexes["allocs"] = max(
-            t.indexes.get("allocs", 0), block.modify_index
-        )
+        self._block_restore(self._tables.live, block)
 
     def stopped_block_restore(self, block: StoppedAllocBlock) -> None:
+        self._block_restore(self._tables.stopped, block)
+
+    def _block_restore(self, table: "_BlockTable",
+                       block: StoredAllocBlock) -> None:
+        table.add(block)
         t = self._tables
-        _index_block(t, block, stopped=True)
         t.indexes["allocs"] = max(
             t.indexes.get("allocs", 0), block.modify_index
         )
@@ -822,66 +805,30 @@ class StateRestore:
         self._store._install(self._tables)
 
 
-def _find_block_member(t: _Tables, alloc_id: str, stopped: bool = False):
-    """(block_id, pos) of a live block member (of a stopped block's member
-    with ``stopped``), or None."""
-    for bid, blk in _block_tables(t, stopped)[0].items():
-        pos = blk.find(alloc_id)
-        if pos is not None:
-            return bid, pos
-    return None
-
-
-def _block_tables(t: _Tables, stopped: bool):
-    """(blocks, by job, by eval) of the live or the stopped table."""
-    if stopped:
-        return t.stopped_blocks, t.stopped_by_job, t.stopped_by_eval
-    return t.blocks, t.blocks_by_job, t.blocks_by_eval
-
-
-def _index_block(t: _Tables, blk: StoredAllocBlock,
-                 stopped: bool = False) -> None:
-    blocks, by_job, by_eval = _block_tables(t, stopped)
-    blocks[blk.block_id] = blk
-    by_job.setdefault(blk.job_id, set()).add(blk.block_id)
-    by_eval.setdefault(blk.eval_id, set()).add(blk.block_id)
-
-
-def _unindex_block(t: _Tables, blk: StoredAllocBlock,
-                   stopped: bool = False) -> None:
-    blocks, by_job, by_eval = _block_tables(t, stopped)
-    del blocks[blk.block_id]
-    for idx_map, key in ((by_job, blk.job_id), (by_eval, blk.eval_id)):
-        ids = idx_map.get(key)
-        if ids is not None:
-            ids.discard(blk.block_id)
-            if not ids:
-                del idx_map[key]
-
-
 def _promote_stopped_members(t: _Tables, alloc_ids,
                              touched: Optional[Set[str]] = None) -> None:
     """Move the stopped-block members among ``alloc_ids`` (ids that are
     neither object rows nor live block members) to object rows, each as
     the stop copy it reads as, ahead of a write that addresses them: a
     client update, a second stop, an in-place re-stamp."""
-    if not t.stopped_blocks:
+    stopped = t.stopped
+    if not stopped.by_id:
         return
     members: Dict[str, Set[int]] = {}
     for alloc_id in alloc_ids:
-        found = _find_block_member(t, alloc_id, stopped=True)
+        found = stopped.find(alloc_id)
         if found is None:
             continue
         bid, pos = found
         if pos in members.get(bid, ()):
             continue
         members.setdefault(bid, set()).add(pos)
-        alloc = t.stopped_blocks[bid].materialize_pos(pos)
+        alloc = stopped.by_id[bid].materialize_pos(pos)
         _insert_alloc_row(t, alloc)
         if touched is not None:
             touched.add(alloc.node_id)
     if members:
-        _exclude_block_members(t, members, stopped=True)
+        stopped.exclude(members)
 
 
 def _decr_live_objs(t: _Tables, job_id: str) -> None:
@@ -931,31 +878,86 @@ class StopBooks:
         self.rows = 0
 
 
-def _exclude_block_members(t: _Tables, members: Dict[str, Set[int]],
-                           books: Optional[RepackBooks] = None,
-                           stopped: bool = False) -> None:
-    """Replace blocks with COW copies excluding ``members`` ({block_id:
-    positions}). A block whose exclusion set reaches half its size is
-    re-packed into a fresh block of its live members, so per-member
-    promotion cost stays O(n) over a block's whole life instead of the
-    frozenset-union O(n^2) (each re-pack at least halves the block), and
-    the job stays columnar: no live member becomes an object row. A block
-    left with no live member is deleted. ``stopped`` addresses the table
-    of stopped blocks, under the same rules. ``books`` (the live store's)
-    counts the re-packs of live blocks; optimistic snapshot writes pass
-    None."""
-    blocks = _block_tables(t, stopped)[0]
-    for bid, positions in members.items():
-        blk = blocks[bid].with_excluded(positions)
-        if blk.n_live and len(blk.excluded) * 2 >= blk.n:
-            blk = blk.repacked()
-            if books is not None:
-                books.repacks += 1
-                books.members += blk.n
-        if not blk.n_live:
-            _unindex_block(t, blk, stopped)
-        else:
-            blocks[bid] = blk
+class _BlockTable:
+    """Stored blocks by id, indexed by job and by eval. The store keeps
+    two under the same rules: its live blocks and its stopped ones.
+    Blocks are immutable — a write replaces the entry — so a snapshot's
+    copy is one dict copy and two dicts of set copies."""
+
+    __slots__ = ("by_id", "by_job", "by_eval")
+
+    def __init__(self) -> None:
+        self.by_id: Dict[str, StoredAllocBlock] = {}
+        self.by_job: Dict[str, Set[str]] = {}
+        self.by_eval: Dict[str, Set[str]] = {}
+
+    def copy(self) -> "_BlockTable":
+        new = _BlockTable()
+        new.by_id = dict(self.by_id)
+        new.by_job = {k: set(v) for k, v in self.by_job.items()}
+        new.by_eval = {k: set(v) for k, v in self.by_eval.items()}
+        return new
+
+    def find(self, alloc_id: str) -> Optional[Tuple[str, int]]:
+        """(block_id, pos) of a member not excluded, or None."""
+        for bid, blk in self.by_id.items():
+            pos = blk.find(alloc_id)
+            if pos is not None:
+                return bid, pos
+        return None
+
+    def add(self, blk: StoredAllocBlock,
+            old: Optional[StoredAllocBlock] = None) -> None:
+        """Store ``blk`` under its id, in the place of ``old`` (the block
+        it updates) where given, re-keyed where its job or eval moved."""
+        bid = blk.block_id
+        if old is not None:
+            if old.job_id != blk.job_id:
+                _discard(self.by_job, old.job_id, bid)
+            if old.eval_id != blk.eval_id:
+                _discard(self.by_eval, old.eval_id, bid)
+        self.by_id[bid] = blk
+        self.by_job.setdefault(blk.job_id, set()).add(bid)
+        self.by_eval.setdefault(blk.eval_id, set()).add(bid)
+
+    def remove(self, blk: StoredAllocBlock) -> None:
+        del self.by_id[blk.block_id]
+        _discard(self.by_job, blk.job_id, blk.block_id)
+        _discard(self.by_eval, blk.eval_id, blk.block_id)
+
+    def exclude(self, members: Dict[str, Set[int]],
+                books: Optional[RepackBooks] = None) -> None:
+        """Replace blocks with COW copies excluding ``members``
+        ({block_id: positions}). A block whose exclusion set reaches half
+        its size is re-packed into a fresh block of its live members, so
+        per-member promotion cost stays O(n) over a block's whole life
+        instead of the frozenset-union O(n^2) (each re-pack at least
+        halves the block), and the job stays columnar: no live member
+        becomes an object row. A block left with no live member is
+        deleted. ``books`` (the live store's) counts the re-packs of live
+        blocks; optimistic snapshot writes and the stopped table pass
+        None."""
+        for bid, positions in members.items():
+            blk = self.by_id[bid].with_excluded(positions)
+            if blk.n_live and len(blk.excluded) * 2 >= blk.n:
+                blk = blk.repacked()
+                if books is not None:
+                    books.repacks += 1
+                    books.members += blk.n
+            if not blk.n_live:
+                self.remove(blk)
+            else:
+                self.by_id[bid] = blk
+
+
+def _discard(index: Dict[str, Set[str]], key: str, id_: str) -> None:
+    """Take ``id_`` out of a secondary index's set under ``key``, and the
+    set with it once empty."""
+    ids = index.get(key)
+    if ids is not None:
+        ids.discard(id_)
+        if not ids:
+            del index[key]
 
 
 def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
@@ -973,13 +975,13 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
     # An object row superseding a block member (eviction, re-placement,
     # client-side restamp) promotes it out of the block; a stopped member
     # becomes the object row it reads as first.
-    if t.blocks or t.stopped_blocks:
+    if t.live.by_id or t.stopped.by_id:
         members: Dict[str, Set[int]] = {}
         unfound: List[str] = []
         for alloc in allocs:
             if alloc.id in t.allocs:
                 continue
-            found = _find_block_member(t, alloc.id)
+            found = t.live.find(alloc.id)
             if found is None:
                 unfound.append(alloc.id)
             else:
@@ -988,11 +990,11 @@ def _upsert_allocs(t: _Tables, index: int, allocs: List[Allocation],
                 if touched is not None:
                     # A superseded member's OLD node loses its block
                     # usage — a cross-node restamp must dirty both ends.
-                    touched.add(t.blocks[bid].node_of_pos(pos))
+                    touched.add(t.live.by_id[bid].node_of_pos(pos))
                 if alloc.create_index == 0:
-                    alloc.create_index = t.blocks[bid].create_index
+                    alloc.create_index = t.live.by_id[bid].create_index
         if members:
-            _exclude_block_members(t, members, books)
+            t.live.exclude(members, books)
         _promote_stopped_members(t, unfound, touched)
     for alloc in allocs:
         existing = t.allocs.get(alloc.id)
@@ -1038,7 +1040,7 @@ def _apply_update_batches(t: _Tables, index: int, batches,
             if row is not None:
                 object_rows.append(row)
                 continue
-            found = _find_block_member(t, aid)
+            found = t.live.find(aid)
             if found is not None:
                 members.setdefault(found[0], set()).add(found[1])
                 continue
@@ -1049,30 +1051,14 @@ def _apply_update_batches(t: _Tables, index: int, batches,
             # Unknown ids: removed while the plan was in flight — exactly
             # the staleness plan evaluation tolerates.
         for bid, positions in members.items():
-            blk = t.blocks[bid]
+            blk = t.live.by_id[bid]
             if len(positions) == blk.n_live:
                 # Whole block: O(1) field swap, re-keyed by eval/job.
                 new_blk = blk.with_update(
                     b.job, b.resources, b.task_resources,
                     b.metrics, b.eval_id, index,
                 )
-                t.blocks[bid] = new_blk
-                if new_blk.eval_id != blk.eval_id:
-                    ids = t.blocks_by_eval.get(blk.eval_id)
-                    if ids is not None:
-                        ids.discard(bid)
-                        if not ids:
-                            del t.blocks_by_eval[blk.eval_id]
-                    t.blocks_by_eval.setdefault(
-                        new_blk.eval_id, set()).add(bid)
-                if new_blk.job_id != blk.job_id:
-                    ids = t.blocks_by_job.get(blk.job_id)
-                    if ids is not None:
-                        ids.discard(bid)
-                        if not ids:
-                            del t.blocks_by_job[blk.job_id]
-                    t.blocks_by_job.setdefault(
-                        new_blk.job_id, set()).add(bid)
+                t.live.add(new_blk, old=blk)
                 items.append(item_alloc_job(new_blk.job_id))
                 items.append(item_alloc_eval(blk.eval_id))
                 items.append(item_alloc_eval(new_blk.eval_id))
@@ -1080,7 +1066,7 @@ def _apply_update_batches(t: _Tables, index: int, batches,
             else:
                 for pos in positions:
                     object_rows.append(blk.materialize_pos(pos))
-                _exclude_block_members(t, {bid: positions}, books)
+                t.live.exclude({bid: positions}, books)
         for existing in object_rows:
             new = existing.copy()
             new.eval_id = b.eval_id
@@ -1144,7 +1130,7 @@ def _upsert_alloc_blocks(t: _Tables, index: int, batches,
         if batch.n == 0:
             continue
         blk = StoredAllocBlock.from_batch(batch, index)
-        _index_block(t, blk)
+        t.live.add(blk)
         items.append(item_alloc_job(blk.job_id))
         items.append(item_alloc_eval(blk.eval_id))
         committed.append(blk)
@@ -1318,41 +1304,36 @@ class StateStore(_StateView):
         touched: Set[str] = set()
         with self._lock:
             t = self._t
+            tables = (t.live, t.stopped)
             for eval_id in eval_ids:
                 ev = t.evals.pop(eval_id, None)
                 if ev is not None:
-                    ids = t.evals_by_job.get(ev.job_id)
-                    if ids is not None:
-                        ids.discard(eval_id)
-                        if not ids:
-                            del t.evals_by_job[ev.job_id]
+                    _discard(t.evals_by_job, ev.job_id, eval_id)
                     items.append(item_eval(eval_id))
                 # A reaped eval takes its columnar blocks, live and
                 # stopped, with it wholesale.
-                for stopped in (False, True):
-                    blocks, _by_job, by_eval = _block_tables(t, stopped)
-                    for bid in sorted(by_eval.get(eval_id, ())):
-                        blk = blocks[bid]
-                        _unindex_block(t, blk, stopped)
+                for table in tables:
+                    for bid in sorted(table.by_eval.get(eval_id, ())):
+                        blk = table.by_id[bid]
+                        table.remove(blk)
                         items.append(item_alloc_job(blk.job_id))
                         items.append(item_alloc_eval(blk.eval_id))
                         reaped_blocks.append(blk)
-            block_members: Dict[Tuple[bool, str], Set[int]] = {}
+            # Per table: block id -> the positions of deleted members.
+            block_members: Tuple[Dict[str, Set[int]], ...] = ({}, {})
             for alloc_id in alloc_ids:
                 alloc = t.allocs.pop(alloc_id, None)
                 if alloc is not None and not alloc.terminal_status():
                     _decr_live_objs(t, alloc.job_id)
                 if alloc is None:
-                    stopped = False
-                    found = _find_block_member(t, alloc_id)
-                    if found is None:
-                        stopped = True
-                        found = _find_block_member(t, alloc_id, stopped)
+                    for table, members in zip(tables, block_members):
+                        found = table.find(alloc_id)
+                        if found is not None:
+                            break
                     if found is not None:
                         bid, pos = found
-                        blk = _block_tables(t, stopped)[0][bid]
-                        block_members.setdefault(
-                            (stopped, bid), set()).add(pos)
+                        blk = table.by_id[bid]
+                        members.setdefault(bid, set()).add(pos)
                         # Watchers see block-member deletions exactly
                         # like object-row deletions.
                         touched.add(blk.node_of_pos(pos))
@@ -1370,11 +1351,7 @@ class StateStore(_StateView):
                     (t.allocs_by_node, alloc.node_id),
                     (t.allocs_by_eval, alloc.eval_id),
                 ):
-                    ids = idx_map.get(key)
-                    if ids is not None:
-                        ids.discard(alloc_id)
-                        if not ids:
-                            del idx_map[key]
+                    _discard(idx_map, key, alloc_id)
                 touched.add(alloc.node_id)
                 items.extend(
                     [
@@ -1384,10 +1361,8 @@ class StateStore(_StateView):
                         item_alloc_eval(alloc.eval_id),
                     ]
                 )
-            for (stopped, bid), positions in block_members.items():
-                _exclude_block_members(
-                    t, {bid: positions},
-                    None if stopped else self.repack_books, stopped)
+            t.live.exclude(block_members[0], self.repack_books)
+            t.stopped.exclude(block_members[1])
             for blk in reaped_blocks:
                 touched.update(blk.node_ids)
             _log_alloc_nodes(t, index, touched)
@@ -1428,7 +1403,7 @@ class StateStore(_StateView):
         (``structs.stop_runs``: desired status, description, ids). The ids
         that are live block members commit as stopped blocks, one per
         source block and run, and leave their block under the exclusion
-        rules (``_exclude_block_members``). Every other id is rebuilt,
+        rules (``_BlockTable.exclude``). Every other id is rebuilt,
         after that, into a stop copy from this store
         (``structs.expand_stop_runs``: an object row, a stopped member, an
         id named twice; one the store no longer holds is skipped). Returns
@@ -1448,7 +1423,7 @@ class StateStore(_StateView):
                 left = []
                 for alloc_id in run["ids"]:
                     found = (None if alloc_id in t.allocs
-                             else _find_block_member(t, alloc_id))
+                             else t.live.find(alloc_id))
                     if found is None or found in taken:
                         left.append(alloc_id)
                         continue
@@ -1460,14 +1435,14 @@ class StateStore(_StateView):
             if groups:
                 members: Dict[str, Set[int]] = {}
                 for (bid, k), positions in groups.items():
-                    blk = t.blocks[bid].stopped(
+                    blk = t.live.by_id[bid].stopped(
                         positions, runs[k]["desired_status"],
                         runs[k]["desired_description"], index)
-                    _index_block(t, blk, stopped=True)
+                    t.stopped.add(blk)
                     stopped.append(blk)
                     touched.update(blk.live_counts_map())
                     members.setdefault(bid, set()).update(positions)
-                _exclude_block_members(t, members, self.repack_books)
+                t.live.exclude(members, self.repack_books)
                 _log_alloc_nodes(t, index, touched)
                 t.indexes["allocs"] = index
                 books = self.stop_books
@@ -1530,21 +1505,22 @@ class StateStore(_StateView):
         items: List[WatchItem] = [item_table("allocs")]
         with self._lock:
             t = self._t
-            if t.blocks or t.stopped_blocks:
+            if t.live.by_id or t.stopped.by_id:
                 members: Dict[str, Set[int]] = {}
                 unfound: List[str] = []
                 for alloc in allocs:
                     if alloc.id in t.allocs:
                         continue
-                    found = _find_block_member(t, alloc.id)
+                    found = t.live.find(alloc.id)
                     if found is None:
                         unfound.append(alloc.id)
                         continue
                     bid, pos = found
                     members.setdefault(bid, set()).add(pos)
-                    _insert_alloc_row(t, t.blocks[bid].materialize_pos(pos))
+                    _insert_alloc_row(
+                        t, t.live.by_id[bid].materialize_pos(pos))
                 if members:
-                    _exclude_block_members(t, members, self.repack_books)
+                    t.live.exclude(members, self.repack_books)
                 _promote_stopped_members(t, unfound)
             missing: List[str] = []
             for alloc in allocs:

@@ -1274,19 +1274,12 @@ class TPUGenericScheduler(GenericScheduler):
                     return None  # tainted node: migrations needed
             # Excluded positions are promoted members whose object rows
             # are terminal (the live-object gate above ruled out
-            # non-terminal ones): only the LIVE view participates. The
-            # common exclusion-free block stays fully vectorized.
-            idx = blk.name_idx
+            # non-terminal ones): only the LIVE view participates.
+            idx = blk.live_name_idx()
+            if idx.size and int(idx.max()) >= tg.count:
+                return None  # scale-down: stops needed
             occ = occupied.setdefault(blk.tg_name, set())
-            if blk.excluded:
-                live_idx = [int(idx[i]) for i in blk.live_positions()]
-                if live_idx and max(live_idx) >= tg.count:
-                    return None  # scale-down: stops needed
-                occ.update(live_idx)
-            else:
-                if idx.size and int(idx.max()) >= tg.count:
-                    return None  # scale-down: stops needed
-                occ.update(idx.tolist())
+            occ.update(idx.tolist())
             live_total[blk.tg_name] = (
                 live_total.get(blk.tg_name, 0) + blk.n_live
             )
@@ -1350,12 +1343,7 @@ class TPUGenericScheduler(GenericScheduler):
                     a, ALLOC_DESIRED_STATUS_STOP, ALLOC_UPDATING
                 )
             occ = occupied[blk.tg_name]
-            if blk.excluded:
-                for p in blk.live_positions()[:k]:
-                    occ.discard(int(blk.name_idx[p]))
-            else:
-                for i in blk.name_idx[:k].tolist():
-                    occ.discard(i)
+            occ.difference_update(blk.live_name_idx()[:k].tolist())
             limit -= k
             if k < blk.n_live:
                 self.limit_reached = True
@@ -1401,17 +1389,8 @@ class TPUGenericScheduler(GenericScheduler):
                 if blk.resources is not None
                 else np.zeros(4, dtype=np.int64)
             )
-            # Live run-length view: identical to the raw columns for
-            # exclusion-free blocks, filtered otherwise.
-            if blk.excluded:
-                live_runs = list(blk.live_node_counts())
-                live_nids = [nid for nid, _ in live_runs]
-                live_counts = [c for _, c in live_runs]
-                live_ids = [blk.alloc_id(i) for i in blk.live_positions()]
-            else:
-                live_nids = list(blk.node_ids)
-                live_counts = list(blk.node_counts)
-                live_ids = [blk.alloc_id(i) for i in range(blk.n)]
+            live_nids, live_counts = blk.live_runs()
+            live_ids = [blk.alloc_id(i) for i in blk.live_positions()]
             delta = new_vec - old_vec
             if np.any(delta > 0):
                 rows = np.fromiter(

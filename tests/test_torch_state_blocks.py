@@ -122,7 +122,7 @@ def test_block_whose_last_live_member_is_excluded_leaves_no_block(how):
     assert store.alloc_blocks() == []
     assert store.job_alloc_blocks(job.id) == []
     t = store._t
-    assert job.id not in t.blocks_by_job and "ev-1" not in t.blocks_by_eval
+    assert job.id not in t.live.by_job and "ev-1" not in t.live.by_eval
     assert store.repack_books.repacks == 2
     assert store.repack_books.members == 3 + 1
     assert store.alloc_count() == (0 if how == "delete" else 7)
@@ -197,6 +197,170 @@ def test_repacked_store_reads_as_the_expansion(seed):
         check()
     assert blocks.alloc_blocks() == []
     assert blocks.repack_books.repacks >= 1
+
+
+# -- the live view of one block ------------------------------------------------
+
+
+@pytest.mark.parametrize("deleted", [(), (1, 4)])
+def test_a_node_named_in_two_runs_reads_whole(deleted):
+    """Runs [a:2, b:1, a:3]: every per-node read of node a sees both of
+    its runs, before and after deletes that hit each of them."""
+    store, job = _store(2)
+    batch = _batch(job, ["node-0", "node-1", "node-0"], [2, 1, 3])
+    store.upsert_alloc_blocks(100, [batch])
+    ids = [batch.alloc_id(i) for i in range(6)]
+    if deleted:
+        store.delete_eval(101, [], [ids[p] for p in deleted])
+    (blk,) = store.alloc_blocks()
+    live = [p for p in range(6) if p not in deleted]
+    on_a = [ids[p] for p in live if p != 2]
+    assert [a.id for a in blk.materialize_node("node-0")] == on_a
+    assert [a.id for a in store.allocs_by_node("node-0")] == on_a
+    assert [a.id for a in store.allocs_by_node("node-1")] == [ids[2]]
+    assert blk.live_counts_map() == {"node-0": len(on_a), "node-1": 1}
+    assert [blk.node_of_pos(p) for p in range(6)] == [
+        "node-0", "node-0", "node-1", "node-0", "node-0", "node-0"]
+    assert blk.live_positions() == live
+
+
+def test_first_per_node_reads_from_many_threads_see_every_run():
+    """A block's run layout is shared by its copies and by every snapshot
+    that holds one, and read from scheduler, verify, client and HTTP
+    threads at once: a thread that reads while another is building the
+    per-node map still finds every node's run."""
+    import sys
+    import threading
+
+    from nomad_tpu_torch.state.blocks import StoredAllocBlock
+
+    _, job = _store(0)
+    nodes = [f"node-{i}" for i in range(2_000)]
+    batch = _batch(job, nodes, [1] * len(nodes), seed=77)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for trial in range(40):
+            blk = StoredAllocBlock.from_batch(batch, 100)
+            gate = threading.Barrier(4)
+            got = []
+
+            def read(nid):
+                gate.wait()
+                got.append(len(blk.materialize_node(nid)))
+
+            threads = [threading.Thread(target=read, args=(nodes[-1 - k],))
+                       for k in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            assert got == [1] * 4, trial
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_copies_over_one_set_of_columns_share_one_layout():
+    """Copies made before any read of the block (an exclusion, an
+    in-place update, a whole stop) hold the one run layout; a re-pack,
+    over new columns, builds its own."""
+    from nomad_tpu_torch.state.blocks import StoredAllocBlock
+
+    _, job = _store(0)
+    batch = _batch(job, ["node-0", "node-1", "node-0"], [2, 1, 3], seed=5)
+    blk = StoredAllocBlock.from_batch(batch, 100)
+    copies = [
+        blk.with_update(job, None, None, None, "ev-2", 101),
+        blk.stopped(range(6), structs.ALLOC_DESIRED_STATUS_STOP, "", 102),
+        blk.with_excluded([0]),
+    ]
+    copies.append(copies[2].with_excluded([3]))
+    assert all(c._runs() is blk._runs() for c in copies)
+    assert copies[3].repacked()._runs() is not blk._runs()
+
+
+def _views(blk):
+    """Every live read of ``blk``, each beside the same read recounted
+    from its expansion."""
+    mat = blk.materialize()
+    prefix = f"{blk.job.name}.{blk.tg_name}["
+    by_node = {}
+    for a in mat:
+        by_node[a.node_id] = by_node.get(a.node_id, 0) + 1
+    runs = list(blk.live_node_counts())
+    nodes = set(blk.node_ids)
+    return [
+        (blk.n_live, len(mat)),
+        ([blk.alloc_id(p) for p in blk.live_positions()],
+         [a.id for a in mat]),
+        ([f"{prefix}{i}]" for i in blk.live_name_idx().tolist()],
+         [a.name for a in mat]),
+        ([n for n, c in runs for _ in range(c)], [a.node_id for a in mat]),
+        ({n: c for n, c in blk.live_counts_map().items() if c}, by_node),
+        (list(blk.live_members()), [(a.id, a.node_id) for a in mat]),
+        ([blk.node_of_pos(p) for p in blk.live_positions()],
+         [a.node_id for a in mat]),
+        ([blk.find(a.id) for a in mat], blk.live_positions()),
+        ({n: [_key(a) for a in blk.materialize_node(n)] for n in nodes},
+         {n: [_key(a) for a in mat if a.node_id == n] for n in nodes}),
+        ([[a.id for a in blk.materialize_prefix(k)]
+          for k in (0, 1, len(mat) // 2, len(mat))],
+         [[a.id for a in mat[:k]] for k in (0, 1, len(mat) // 2, len(mat))]),
+    ]
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_every_live_view_recounts_the_expansion(seed):
+    """Seeded random blocks whose nodes repeat across runs, put through a
+    random sequence of exclusions, re-packs, whole and part stops and
+    in-place updates: after each step every live read of the block, and
+    of its pickled copy, equals a plain recount of ``materialize()``, and
+    the expansion is the members the steps left."""
+    import pickle
+
+    from nomad_tpu_torch.state.blocks import StoredAllocBlock
+
+    rng = np.random.default_rng(9_100 + seed)
+    _, job = _store(0)
+    runs = int(rng.integers(3, 12))
+    node_ids = [f"node-{int(rng.integers(4))}" for _ in range(runs)]
+    counts = [int(rng.integers(0, 6)) for _ in range(runs)]
+    counts[0] += 1
+    batch = _batch(job, node_ids, counts,
+                   seed=int(rng.integers(1 << 62)) if seed % 2 else None)
+    blk = StoredAllocBlock.from_batch(batch, 100)
+    model = [a.id for a in batch.materialize()]
+    for step in range(8):
+        assert [a.id for a in blk.materialize()] == model, step
+        for copy_ in (blk, pickle.loads(pickle.dumps(blk))):
+            for got, want in _views(copy_):
+                assert got == want, (step, type(copy_).__name__)
+        if not model:
+            break
+        op = rng.choice(["exclude", "exclude", "repack", "stop", "part",
+                         "update"])
+        if op in ("exclude", "part"):
+            k = int(rng.integers(1, len(model) + 1))
+            pick = set(rng.choice(len(model), size=k, replace=False).tolist())
+            positions = [blk.find(model[i]) for i in sorted(pick)]
+            if op == "exclude":
+                blk = blk.with_excluded(positions)
+                model = [m for i, m in enumerate(model) if i not in pick]
+            else:
+                blk = blk.stopped(positions, structs.ALLOC_DESIRED_STATUS_STOP,
+                                  "", 101 + step)
+                model = [m for i, m in enumerate(model) if i in pick]
+        elif op == "repack":
+            blk = blk.repacked()
+        elif op == "stop":
+            blk = blk.stopped([blk.find(m) for m in model],
+                              structs.ALLOC_DESIRED_STATUS_STOP, "",
+                              101 + step)
+        else:
+            job2 = copy.deepcopy(job)
+            job2.modify_index += step + 1
+            blk = blk.with_update(job2, None, None, None, f"ev-u{step}",
+                                  101 + step)
 
 
 # -- a rolling update through the scheduler, committed columnar ----------------

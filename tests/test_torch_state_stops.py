@@ -266,7 +266,7 @@ def test_eval_gc_takes_stopped_blocks_and_members():
     assert store.stopped_alloc_blocks() == [] and store.alloc_blocks() == []
     assert store.allocs_by_job(job.id) == [] and store.alloc_count() == 0
     assert not store.has_allocs_for_job(job.id)
-    assert store._t.stopped_by_job == {} and store._t.stopped_by_eval == {}
+    assert store._t.stopped.by_job == {} and store._t.stopped.by_eval == {}
 
 
 def test_a_snapshot_carries_stopped_blocks_only_where_there_are_any():
