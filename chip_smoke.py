@@ -729,6 +729,7 @@ class FixedStatePlanner:
             node_allocation=plan.node_allocation,
             alloc_batches=plan.alloc_batches,
             update_batches=plan.update_batches,
+            block_stops=plan.block_stops,
             alloc_index=self.harness.next_index(),
         ), None
 
@@ -2206,6 +2207,10 @@ class VerifyingPlanner:
         result.alloc_index = self.index
         allocs = [a for lst in result.node_update.values() for a in lst]
         allocs += [a for lst in result.node_allocation.values() for a in lst]
+        if result.block_stops:
+            _stopped, copies = self.state.stop_block_members(
+                self.index, result.block_stops)
+            allocs = copies + allocs
         if allocs:
             self.state.upsert_allocs(self.index, allocs)
         if result.alloc_batches:
@@ -5091,6 +5096,7 @@ def plan_counts(plans):
         placed += sum(b.n for b in plan.alloc_batches)
         placed += sum(len(v) for v in plan.node_allocation.values())
         stopped += sum(len(v) for v in plan.node_update.values())
+        stopped += sum(r.n for r in plan.block_stops)
         updated += sum(b.n for b in plan.update_batches)
     return placed, stopped, updated
 

@@ -65,10 +65,13 @@ class Harness:
                 node_allocation=plan.node_allocation,
                 alloc_batches=plan.alloc_batches,
                 update_batches=plan.update_batches,
+                block_stops=plan.block_stops,
                 alloc_index=index,
             )
 
             allocs: List[Allocation] = []
+            for run in plan.block_stops:
+                allocs.extend(run.materialize())
             for update_list in plan.node_update.values():
                 allocs.extend(update_list)
             for alloc_list in plan.node_allocation.values():

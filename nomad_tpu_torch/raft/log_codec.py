@@ -6,9 +6,10 @@ with a 1-byte MessageType (nomad/structs/structs.go:1586-1591); here each
 message type maps its payload fields to dataclass types and round-trips
 through the JSON codec. The encoded form is nomad_tpu's, field for field,
 so a journal or an AppendEntries frame of either package decodes in the
-other — with one difference: the stop copies of an ``alloc_update`` ride
-as id runs (``allocs_stopped``, structs.stop_runs) that the FSM rebuilds
-from its own store, where nomad_tpu sends whole objects.
+other — with one difference: the stops of an ``alloc_update`` (its stop
+copies and its block stop runs) ride as id runs (``allocs_stopped``,
+structs.stop_id_runs) that the FSM resolves against its own store, where
+nomad_tpu sends whole objects.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from nomad_tpu_torch.structs import (
     Evaluation,
     Job,
     Node,
-    stop_runs,
+    stop_id_runs,
 )
 
 # msg_type -> {payload_field: element_dataclass or None for plain values}
@@ -45,10 +46,13 @@ _SCHEMAS: Dict[str, Dict[str, Any]] = {
 
 def encode_payload(msg_type: str, payload: dict) -> dict:
     out = {}
-    if msg_type == "alloc_update" and payload.get("allocs"):
-        runs, rest = stop_runs(payload["allocs"])
+    if msg_type == "alloc_update" and (payload.get("allocs")
+                                       or payload.get("block_stops")):
+        runs, rest = stop_id_runs(payload.get("block_stops") or (),
+                                  payload.get("allocs") or [])
+        payload = {k: v for k, v in payload.items() if k != "block_stops"}
         if runs:
-            payload = {**payload, "allocs": rest, "allocs_stopped": runs}
+            payload.update(allocs=rest, allocs_stopped=runs)
     for k, v in payload.items():
         spec = _SCHEMAS.get(msg_type, {}).get(k)
         if spec in ("blocks", "ubatches"):

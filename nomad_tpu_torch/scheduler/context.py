@@ -74,6 +74,10 @@ class EvalContext:
         existing = filter_terminal_allocs(existing)
         update = self._plan.node_update.get(node_id, [])
         proposed = remove_allocs(existing, update) if update else existing
+        if self._plan.block_stops:
+            stopped = self._plan.block_stop_ids().get(node_id)
+            if stopped:
+                proposed = [a for a in proposed if a.id not in stopped]
         return proposed + self._plan.node_allocation.get(node_id, [])
 
     def proposed_allocs(self, node_id: str) -> List[Allocation]:

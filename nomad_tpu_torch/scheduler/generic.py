@@ -194,16 +194,20 @@ class GenericScheduler:
 
     def _reconcile_done(self, path: str, place: int) -> None:
         """Finish this attempt's ``sched.reconcile`` span (once), annotated
-        with the path taken and the plan's stops and in-place updates so
-        far and the placements to make."""
+        with the path taken, the plan's stops (and of them those carried
+        as block stop runs) and in-place updates so far and the
+        placements to make."""
         span, self._reconcile_span = self._reconcile_span, None
         if span is None:
             return
         plan = self.plan
         span.annotate("path", path)
         if plan is not None:
+            stop_run = sum(r.n for r in plan.block_stops)
             span.annotate(
-                "stop", sum(len(v) for v in plan.node_update.values()))
+                "stop", sum(len(v) for v in plan.node_update.values())
+                + stop_run)
+            span.annotate("stop_run", stop_run)
             span.annotate("update", sum(b.n for b in plan.update_batches)
                           + sum(len(v) for v in plan.node_allocation.values()))
         span.annotate("place", place)

@@ -52,7 +52,7 @@ from nomad_tpu_torch.structs import (
     PlanResult,
     expand_stop_runs,
     parse_reject,
-    stop_runs,
+    stop_id_runs,
 )
 
 
@@ -437,7 +437,7 @@ class ClusterServer(Server):
         if self.raft.is_leader:
             return self.plan_queue.enqueue(plan).wait()
         out = self._forward("Plan.Submit", {"plan": _stops_to_wire(plan)})
-        return _stops_from_wire(PlanResult, out, self.state_store.alloc_by_id)
+        return _stops_from_wire(PlanResult, out, self.state_store)
 
     def confirmed_read_index(self, timeout: float = 2.0) -> int:
         """The linearizable lane's read index: the leader confirms through
@@ -618,8 +618,7 @@ class ClusterServer(Server):
         ]}
 
     def _rpc_plan_submit(self, args: dict):
-        plan = _stops_from_wire(Plan, args["plan"],
-                                self.state_store.alloc_by_id)
+        plan = _stops_from_wire(Plan, args["plan"], self.state_store)
         return _stops_to_wire(self.plan_submit(plan))
 
     def _rpc_job_register(self, args: dict):
@@ -1006,24 +1005,29 @@ class ClusterServer(Server):
 
 
 def _stops_to_wire(obj) -> dict:
-    """A Plan or PlanResult as its wire dict, with the stop copies of
-    ``node_update`` as id runs (structs.stop_runs), so a deregister of a
-    100,000-task job fits one RPC frame."""
+    """A Plan or PlanResult as its wire dict, with its block stop runs and
+    the stop copies of ``node_update`` as id runs (structs.stop_id_runs),
+    so a deregister of a 100,000-task job fits one RPC frame."""
     flat = [a for allocs in obj.node_update.values() for a in allocs]
-    runs, rest = stop_runs(flat)
+    runs, rest = stop_id_runs(obj.block_stops, flat)
     node_update: Dict[str, List[Allocation]] = {}
     for a in rest:
         node_update.setdefault(a.node_id, []).append(a)
-    out = to_dict(dataclasses.replace(obj, node_update=node_update))
+    out = to_dict(dataclasses.replace(obj, node_update=node_update,
+                                      block_stops=[]))
     if runs:
         out["node_update_stopped"] = runs
     return out
 
 
-def _stops_from_wire(cls, data: dict, lookup):
-    """Inverse of _stops_to_wire against the receiver's store."""
+def _stops_from_wire(cls, data: dict, state):
+    """Inverse of _stops_to_wire against the receiver's store ``state``:
+    ids of live block members come back as block stop runs, every other
+    id as a stop copy."""
     obj = from_dict(cls, data)
-    for a in expand_stop_runs(data.get("node_update_stopped") or [], lookup):
+    runs, rest = state.block_stop_runs(data.get("node_update_stopped") or [])
+    obj.block_stops = runs
+    for a in expand_stop_runs(rest, state.alloc_by_id):
         obj.node_update.setdefault(a.node_id, []).append(a)
     return obj
 

@@ -194,12 +194,15 @@ class FSM:
 
     def _apply_alloc_update(self, index: int, payload: dict) -> None:
         allocs = payload.get("allocs") or []
-        stopped = payload.get("allocs_stopped")
+        stopped = [*(payload.get("block_stops") or ()),
+                   *(payload.get("allocs_stopped") or ())]
         if stopped:
-            # Stops that crossed the wire as ids (structs.stop_runs): live
-            # block members commit as stopped blocks, one a source block
-            # and run; every other id is rebuilt into a stop copy from this
-            # replica's store, ahead of the rest as in the plan's own order.
+            # Block stop runs (an in-process raft hands the plan's over as
+            # they are) and stops that crossed the wire as ids
+            # (structs.stop_id_runs): live block members commit as stopped
+            # blocks, one a source block and run; every other id is
+            # rebuilt into a stop copy from this replica's store, ahead of
+            # the rest as in the plan's own order.
             blocks, copies = self.state.stop_block_members(index, stopped)
             allocs = copies + allocs
             columnar = sum(b.n_live for b in blocks)

@@ -49,6 +49,10 @@ def evaluate_node_plan(snap, plan: Plan, node_id: str,
     remove = list(plan.node_update.get(node_id, []))
     remove.extend(plan.node_allocation.get(node_id, []))
     proposed = remove_allocs(existing, remove)
+    if plan.block_stops:
+        stopped = plan.block_stop_ids().get(node_id)
+        if stopped:
+            proposed = [a for a in proposed if a.id not in stopped]
     proposed = proposed + plan.node_allocation.get(node_id, [])
     if batch_res is not None:
         pseudo = Allocation(resources=batch_res)
@@ -560,6 +564,20 @@ def _accumulate_block_usage(table, blocks, usage, net_rows):
     return usage, net_rows
 
 
+def block_stop_credit(snap, block_stops, n: int, row_of):
+    """The usage the block stop runs give back, as int64[n,4] over the
+    rows ``row_of(node id, -1)`` names (BlockStopRun.live_rows): the
+    members still live in ``snap``'s blocks; one gone or promoted since
+    gives nothing."""
+    import numpy as np
+
+    credit = np.zeros((n, 4), dtype=np.int64)
+    for run in block_stops:
+        rows, counts = run.live_rows(snap, row_of)
+        np.add.at(credit, rows, counts[:, None] * _res_vec(run.resources))
+    return credit
+
+
 def _existing_block_usage_rows(snap, table):
     """Vectorized block usage over node-table rows: (usage[N,4] int64 or
     None, net_rows bool[N] or None, blocks).
@@ -635,6 +653,11 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
 
     block_usage, net_rows, blocks = _existing_block_usage_rows(snap, table)
     obj_nodes = snap.nodes_with_object_allocs()
+    # Block stop runs give their live members' usage back on the rows
+    # they touch, as columns: the fast path below holds with them.
+    stop_credit = (block_stop_credit(snap, plan.block_stops, table.n,
+                                     table.rows.get)
+                   if plan.block_stops else None)
 
     if not plan.node_allocation and not plan.node_update and not obj_nodes:
         # Pure-columnar fast path (the fresh-registration headline): no
@@ -672,6 +695,8 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
                 used += block_usage[rows_arr]
             if ask_arr is not None:
                 used += ask_arr[rows_arr]
+            if stop_credit is not None:
+                used -= stop_credit[rows_arr]
             fit, _exhausted = native.fit_check(
                 np.minimum(used, 2**31 - 1).astype(np.int32),
                 table.totals[rows_arr],
@@ -727,6 +752,9 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
             )
             removed = {a.id for a in plan.node_update.get(nid, ())}
             removed.update(a.id for a in placements)
+            if plan.block_stops:
+                # Run members promoted to object rows since the solve.
+                removed.update(plan.block_stop_ids().get(nid, ()))
             ex_vec, bail = cache.sum_counted(existing, removed)
             if bail:
                 continue
@@ -753,6 +781,8 @@ def _prevaluate_nodes_bulk_rows(snap, plan: Plan, ask: _AskAccum, table):
         used += block_usage[rows_arr]
     if ask_arr is not None:
         used += ask_arr[rows_arr]
+    if stop_credit is not None:
+        used -= stop_credit[rows_arr]
     for pos, extra in adjust.items():
         used[pos] += extra
     fit, _exhausted = native.fit_check(
@@ -784,11 +814,20 @@ def _prevaluate_nodes_bulk_dict(snap, plan: Plan, batch_ask=None):
         read_objects = snap.allocs_by_node
         block_usage, block_net_nodes, blocks = {}, set(), []
 
+    stop_credit = {}
+    if blocks and plan.block_stops:
+        # Node id -> the int64[4] the runs give back there.
+        row = {nid: i for i, nid in enumerate(
+            {nid for run in plan.block_stops for nid in run.node_ids})}
+        credit = block_stop_credit(snap, plan.block_stops, len(row), row.get)
+        stop_credit = {nid: credit[i] for nid, i in row.items()
+                       if credit[i].any()}
+
     def evicted_block_vec(nid):
         """Resource sum of this plan's evictions that live in blocks (the
         object walk below can't see them); stale eviction ids subtract
         nothing."""
-        total = None
+        total = stop_credit.get(nid)
         for a in plan.node_update.get(nid, ()):
             if any(blk.find(a.id) is not None for blk in blocks):
                 vec = _res_vec(a.resources)
@@ -818,7 +857,7 @@ def _prevaluate_nodes_bulk_dict(snap, plan: Plan, batch_ask=None):
         blk_used = block_usage.get(nid)
         if blk_used is not None:
             base = base + blk_used
-            if plan.node_update.get(nid):
+            if plan.node_update.get(nid) or nid in stop_credit:
                 evicted = evicted_block_vec(nid)
                 if evicted is not None:
                     base = base - evicted
@@ -826,6 +865,8 @@ def _prevaluate_nodes_bulk_dict(snap, plan: Plan, batch_ask=None):
         if existing:
             removed = {a.id for a in plan.node_update.get(nid, [])}
             removed.update(a.id for a in placements)
+            if plan.block_stops:
+                removed.update(plan.block_stop_ids().get(nid, ()))
             ex_vec, bail = cache.sum_counted(existing, removed)
             if bail:
                 continue
@@ -943,6 +984,8 @@ def evaluate_plan(snap, plan: Plan, reservations=None) -> PlanResult:
         # bounce a plan that asked nothing of it).
         touched = (set(plan.node_allocation) | set(plan.node_update)
                    | set(batch_ask.node_ids) | upd_nodes)
+        for run in plan.block_stops:
+            touched.update(run.node_ids)
         for nid, vec in reservations.items():
             if nid in touched:
                 batch_ask.add_delta(nid, vec)
@@ -978,7 +1021,10 @@ def evaluate_plan(snap, plan: Plan, reservations=None) -> PlanResult:
         # per-node answer map or the id-set union at all.
         result.alloc_batches = [b for b in plan.alloc_batches if b.n]
         result.update_batches = [b for b in plan.update_batches if b.n]
+        result.block_stops = list(plan.block_stops)
         return result
+    # A node only a block stop run touches has nothing to check: stops
+    # alone always fit (the evict-only rule of evaluate_node_plan).
     node_ids = (set(plan.node_update) | set(plan.node_allocation)
                 | batch_ask.node_ids | upd_nodes)
     if (bulk_fit and len(bulk_fit) == len(node_ids)
@@ -992,6 +1038,7 @@ def evaluate_plan(snap, plan: Plan, reservations=None) -> PlanResult:
         }
         result.alloc_batches = [b for b in plan.alloc_batches if b.n]
         result.update_batches = [b for b in plan.update_batches if b.n]
+        result.block_stops = list(plan.block_stops)
         return result
     for node_id in node_ids:
         fit = bulk_fit.get(node_id)
@@ -1002,7 +1049,8 @@ def evaluate_plan(snap, plan: Plan, reservations=None) -> PlanResult:
                     and not plan.node_update.get(node_id)):
                 fit = _node_live(snap, node_id)
             else:
-                fit = evaluate_node_plan(snap, plan, node_id, batch_res(node_id))
+                fit = evaluate_node_plan(snap, plan, node_id,
+                                         batch_res(node_id))
                 if fit and node_id in upd_nodes:
                     # evaluate_node_plan's evict-only shortcut skips the
                     # liveness check; re-stamped allocs need a live node.
@@ -1030,6 +1078,12 @@ def evaluate_plan(snap, plan: Plan, reservations=None) -> PlanResult:
         kept = b.filter_nodes(fits)
         if kept.n:
             result.update_batches.append(kept)
+    # A node that does not fit loses its stops with its placements.
+    failed = {nid for nid, fit in fits.items() if not fit}
+    for run in plan.block_stops:
+        kept = run.without_nodes(failed)
+        if kept.n:
+            result.block_stops.append(kept)
     return result
 
 

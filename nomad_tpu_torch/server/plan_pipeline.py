@@ -109,6 +109,8 @@ def _plan_touched_nodes(plan: Plan) -> set:
     granularity (Omega's per-machine transaction footprint)."""
     nodes = set(plan.node_allocation)
     nodes.update(plan.node_update)
+    for run in plan.block_stops:
+        nodes.update(run.node_ids)
     for b in plan.alloc_batches:
         nodes.update(b.node_ids)
     for b in plan.update_batches:
@@ -123,8 +125,12 @@ def apply_result_to_snapshot(snap, result: PlanResult, index: int) -> None:
     """Roll one plan's committed subset into ``snap`` — the ONE optimistic
     mutation shared by the batched verifier (sequential-equivalence rolls)
     and the pipeline's cross-batch optimistic snapshot, so the two can
-    never drift."""
+    never drift. Block stop runs commit as the FSM commits them
+    (``stop_block_members``), ahead of the object rows."""
     allocs = _object_allocs(result)
+    if result.block_stops:
+        _stopped, copies = snap.stop_block_members(index, result.block_stops)
+        allocs = copies + allocs
     if allocs:
         snap.upsert_allocs(index, allocs)
     if result.alloc_batches:
@@ -154,7 +160,8 @@ def _fused_eligible(plan: Plan) -> bool:
     semantics), and no network-carrying batches (sequential port
     semantics — and a committed net batch flips later plans' nodes to the
     scalar path, which the cumulative-ask trick can't express)."""
-    if plan.node_allocation or plan.node_update or plan.update_batches:
+    if (plan.node_allocation or plan.node_update or plan.update_batches
+            or plan.block_stops):
         return False
     return all(not _block_has_net(b) for b in plan.alloc_batches)
 
@@ -629,6 +636,10 @@ class PlanPipeline(threading.Thread):
         t0 = time.perf_counter()
         allocs = _object_allocs(result)
         payload = {"allocs": allocs}
+        if result.block_stops:
+            # The raft codec writes them as stop id runs; an in-process
+            # raft hands the runs to the FSM as they are.
+            payload["block_stops"] = result.block_stops
         if result.alloc_batches:
             payload["alloc_batches"] = result.alloc_batches
         if result.update_batches:
@@ -637,7 +648,7 @@ class PlanPipeline(threading.Thread):
         # FSM publishes exactly one PlanApplied per committed plan.
         payload["plan"] = {
             "eval_id": plan.eval_id,
-            "allocs": len(allocs),
+            "allocs": len(allocs) + sum(r.n for r in result.block_stops),
             "alloc_batches": len(result.alloc_batches),
             "update_batches": len(result.update_batches),
         }

@@ -249,7 +249,7 @@ class StoredAllocBlock(AllocBatch):
         The id→pos dict builds lazily on first individual addressing."""
         idx = self._id_pos
         if idx is None:
-            idx = {self.alloc_id(i): i for i in range(self.n)}
+            idx = dict(zip(self.alloc_ids(), range(self.n)))
             self._id_pos = idx
         pos = idx.get(alloc_id)
         if pos is None or pos in self.excluded:
@@ -286,6 +286,38 @@ class StoredAllocBlock(AllocBatch):
                 self._materialize_span(template, nid, start, end, out)
                 start = end
         return out
+
+    def stop_prefix(self, k: int, status: str,
+                    description: str) -> "BlockStopRun":
+        """The first ``k`` live members (``materialize_prefix(k)``'s, in
+        its order) as one stop run of this block: positions and their
+        node runs from the run layout, no Allocation built."""
+        if self.excluded:
+            positions = np.flatnonzero(self._live_mask())[:k]
+        else:
+            positions = np.arange(min(k, self.n), dtype=np.int64)
+        return self.stop_run(positions, status, description)
+
+    def stop_run(self, positions, status: str,
+                 description: str) -> "BlockStopRun":
+        """The live members at ``positions`` (in the order given) as one
+        stop run of this block."""
+        positions = np.asarray(positions, dtype=np.int64)
+        runs = np.searchsorted(self._runs().ends, positions, side="right")
+        # One entry a run touched: its node and the members it gives.
+        starts = np.flatnonzero(np.diff(runs, prepend=-1))
+        counts = np.diff(starts, append=positions.size)
+        node_ids = self.node_ids
+        return BlockStopRun(self, positions,
+                            [node_ids[r] for r in runs[starts].tolist()],
+                            counts.tolist(), status, description)
+
+    def same_columns(self, other: "StoredAllocBlock") -> bool:
+        """Whether ``other`` is over this block's columns (a copy that
+        excluded members or swapped fields), so positions name the same
+        members in both; a re-packed or rebuilt block is not."""
+        return (self.name_idx is other.name_idx
+                and self.node_ids is other.node_ids)
 
     def materialize_pos(self, pos: int) -> Allocation:
         out: List[Allocation] = []
@@ -498,3 +530,133 @@ class StoppedAllocBlock(StoredAllocBlock):
         template["desired_status"] = self.desired_status
         template["desired_description"] = self.desired_description
         return template
+
+
+class BlockStopRun:
+    """A plan's stops of live members of one stored block, carried as one
+    run from the reconcile to the FSM: the source block, the members'
+    positions in it (run order) and, an entry a node run they fall in,
+    the node and the members it gives; the desired status and
+    description of every member's stop copy. Semantically the run is its
+    ``materialize()`` expansion, the stop copies ``Plan.append_update``
+    would have made. Readers account it as columns; the wire and the
+    journal carry it as an id run (``id_run``), which the FSM resolves
+    against its own store as it does any stop ids."""
+
+    __slots__ = ("block", "positions", "node_ids", "node_counts",
+                 "desired_status", "desired_description")
+
+    def __init__(self, block: StoredAllocBlock, positions: np.ndarray,
+                 node_ids: List[str], node_counts: List[int],
+                 desired_status: str, desired_description: str):
+        self.block = block
+        self.positions = positions
+        self.node_ids = node_ids
+        self.node_counts = node_counts
+        self.desired_status = desired_status
+        self.desired_description = desired_description
+
+    @property
+    def n(self) -> int:
+        return int(self.positions.size)
+
+    @property
+    def block_id(self) -> str:
+        return self.block.block_id
+
+    @property
+    def job_id(self) -> str:
+        return self.block.job_id
+
+    @property
+    def tg_name(self) -> str:
+        return self.block.tg_name
+
+    @property
+    def resources(self):
+        return self.block.resources
+
+    @property
+    def task_resources(self):
+        return self.block.task_resources
+
+    def members(self) -> Iterator[Tuple[int, str]]:
+        """(position, node id) of each member, in run order."""
+        pos = self.positions.tolist()
+        i = 0
+        for nid, cnt in zip(self.node_ids, self.node_counts):
+            for p in pos[i:i + cnt]:
+                yield p, nid
+            i += cnt
+
+    def alloc_ids(self) -> List[str]:
+        """The members' alloc ids, from the block's id column."""
+        return self.block.alloc_ids(self.positions)
+
+    def id_run(self) -> dict:
+        """The run as ``structs.stop_runs`` writes stop copies' ids: the
+        form of the raft entry and the RPC tier."""
+        return {"desired_status": self.desired_status,
+                "desired_description": self.desired_description,
+                "ids": self.alloc_ids()}
+
+    def materialize(self) -> List[Allocation]:
+        """The stop copies the run stands for, for the readers that take
+        objects (the scheduler's per-node view, test harnesses)."""
+        blk = self.block
+        template = blk._template()
+        template["desired_status"] = self.desired_status
+        template["desired_description"] = self.desired_description
+        out: List[Allocation] = []
+        for p, nid in self.members():
+            blk._materialize_span(template, nid, p, p + 1, out)
+        return out
+
+    def without_nodes(self, nodes) -> "BlockStopRun":
+        """The run less its members on ``nodes`` (a partial commit's
+        failed nodes): self where none is there."""
+        keep = [nid not in nodes for nid in self.node_ids]
+        if all(keep):
+            return self
+        mask = np.repeat(np.asarray(keep, dtype=bool),
+                         np.asarray(self.node_counts, dtype=np.int64))
+        return BlockStopRun(
+            self.block, self.positions[mask],
+            [nid for nid, k in zip(self.node_ids, keep) if k],
+            [cnt for cnt, k in zip(self.node_counts, keep) if k],
+            self.desired_status, self.desired_description)
+
+    def live_counts(self, state) -> np.ndarray:
+        """Members per entry still live in ``state``'s blocks: all of them
+        while the state holds the source block itself; members a later
+        write excluded (promoted, stopped) count nothing, and in a
+        re-packed block each member is found by its id."""
+        counts = np.asarray(self.node_counts, dtype=np.int64)
+        blk = state.alloc_block_by_id(self.block_id)
+        if blk is self.block:
+            return counts
+        if blk is None:
+            return np.zeros_like(counts)
+        if blk.same_columns(self.block):
+            excluded = blk.excluded
+            live = [p not in excluded for p in self.positions.tolist()]
+        else:
+            alloc_id = self.block.alloc_id
+            live = [blk.find(alloc_id(p)) is not None
+                    for p in self.positions.tolist()]
+        if not counts.size:
+            return counts
+        starts = np.cumsum(counts) - counts
+        return np.add.reduceat(np.asarray(live, dtype=np.int64), starts)
+
+
+    def live_rows(self, state, row_of) -> Tuple[np.ndarray, np.ndarray]:
+        """Where the run gives usage back: (rows, members) of each entry
+        with a member still live in ``state``'s blocks (``live_counts``)
+        and a row, ``row_of(node id, -1)``; both int64. Staging and every
+        verify path scatter the run's usage from this one reader."""
+        rows = np.fromiter((row_of(nid, -1) for nid in self.node_ids),
+                           dtype=np.int64, count=len(self.node_ids))
+        counts = self.live_counts(state)
+        keep = (rows >= 0) & (counts > 0)
+        return rows[keep], counts[keep]

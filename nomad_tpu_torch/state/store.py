@@ -576,6 +576,11 @@ class _StateView:
         verification and the device mirror."""
         return list(self._t.live.by_id.values())
 
+    def alloc_block_by_id(self, block_id: str
+                          ) -> Optional[StoredAllocBlock]:
+        """The live block of ``block_id``, or None."""
+        return self._t.live.by_id.get(block_id)
+
     def stopped_alloc_blocks(self) -> List[StoppedAllocBlock]:
         """Stopped blocks: terminal members held columnar, which no live
         read (alloc_blocks, job_alloc_blocks) returns."""
@@ -749,6 +754,13 @@ class StateSnapshot(_StateView):
         self.optimistic = True
         _apply_update_batches(self._t, index, batches)
 
+    def stop_block_members(self, index: int, runs):
+        """The live store's ``stop_block_members`` on these private
+        tables: (the stopped blocks, the stop copies for upsert_allocs)."""
+        self.optimistic = True
+        stopped, rest = _stop_block_members(self._t, index, runs)
+        return stopped, expand_stop_runs(rest, self.alloc_by_id)
+
 
 class StateRestore:
     """Bulk loader used by FSM snapshot restore
@@ -851,6 +863,82 @@ def _insert_alloc_row(t: _Tables, alloc: Allocation) -> None:
     t.allocs_by_job.setdefault(alloc.job_id, set()).add(alloc.id)
     t.allocs_by_node.setdefault(alloc.node_id, set()).add(alloc.id)
     t.allocs_by_eval.setdefault(alloc.eval_id, set()).add(alloc.id)
+
+
+def _status_of(run) -> Tuple[str, str]:
+    """(desired status, description) of an id run or a block stop run."""
+    if isinstance(run, dict):
+        return run["desired_status"], run["desired_description"]
+    return run.desired_status, run.desired_description
+
+
+def _find_live_members(t: _Tables, ids, taken: Dict[str, Set[int]]
+                       ) -> Tuple[Dict[str, List[int]], List[str]]:
+    """The ids that name live block members not yet ``taken`` (which
+    they join), as positions a block in the ids' order; and every other
+    id (an object row, no live member, one named twice)."""
+    groups: Dict[str, List[int]] = {}
+    left: List[str] = []
+    for alloc_id in ids:
+        found = None if alloc_id in t.allocs else t.live.find(alloc_id)
+        if found is None or found[1] in taken.get(found[0], ()):
+            left.append(alloc_id)
+            continue
+        taken.setdefault(found[0], set()).add(found[1])
+        groups.setdefault(found[0], []).append(found[1])
+    return groups, left
+
+
+def _stop_block_members(t: _Tables, index: int, runs,
+                        books: Optional[RepackBooks] = None
+                        ) -> Tuple[List[StoppedAllocBlock], List[dict]]:
+    """Stop the live block members among ``runs`` columnar: each source
+    block and run becomes one stopped block, and its members leave the
+    block under the exclusion rules (``_BlockTable.exclude``). A block
+    stop run over the columns of its block as it is now names its members
+    by position; every other member (one excluded since, a block re-packed
+    or gone) is named by its id, as an id run's are. An id that is an
+    object row or no live member, or a member named twice, is left for
+    the caller: returns (the stopped blocks, the id runs left)."""
+    groups: Dict[Tuple[str, int], List[int]] = {}
+    taken: Dict[str, Set[int]] = {}
+    rest: List[dict] = []
+    for k, run in enumerate(runs):
+        if isinstance(run, dict):
+            ids = run["ids"]
+        else:
+            blk = t.live.by_id.get(run.block_id)
+            if blk is not None and blk.same_columns(run.block):
+                excluded = blk.excluded
+                seen = taken.setdefault(blk.block_id, set())
+                live, dead = [], []
+                for p in run.positions.tolist():
+                    (dead if p in excluded or p in seen else live).append(p)
+                seen.update(live)
+                if live:
+                    groups[(blk.block_id, k)] = live
+                ids = [run.block.alloc_id(p) for p in dead]
+            else:
+                ids = run.alloc_ids()
+        found, left = _find_live_members(t, ids, taken)
+        for bid, positions in found.items():
+            groups.setdefault((bid, k), []).extend(positions)
+        if left:
+            status, desc = _status_of(run)
+            rest.append({"desired_status": status,
+                         "desired_description": desc, "ids": left})
+    stopped: List[StoppedAllocBlock] = []
+    if groups:
+        members: Dict[str, Set[int]] = {}
+        for (bid, k), positions in groups.items():
+            blk = t.live.by_id[bid].stopped(positions, *_status_of(runs[k]),
+                                            index)
+            t.stopped.add(blk)
+            stopped.append(blk)
+            members.setdefault(bid, set()).update(positions)
+        t.live.exclude(members, books)
+        t.indexes["allocs"] = index
+    return stopped, rest
 
 
 class RepackBooks:
@@ -1399,55 +1487,28 @@ class StateStore(_StateView):
     def stop_block_members(self, index: int, runs
                            ) -> Tuple[List[StoppedAllocBlock],
                                       List[Allocation]]:
-        """Commit the stop runs of an ``alloc_update`` entry
-        (``structs.stop_runs``: desired status, description, ids). The ids
-        that are live block members commit as stopped blocks, one per
-        source block and run, and leave their block under the exclusion
-        rules (``_BlockTable.exclude``). Every other id is rebuilt,
-        after that, into a stop copy from this store
-        (``structs.expand_stop_runs``: an object row, a stopped member, an
-        id named twice; one the store no longer holds is skipped). Returns
-        (the stopped blocks, the stop copies): the copies are for the
-        caller's ``upsert_allocs``. The watch items and the alloc log name
-        what the copies' upsert would: the members' nodes, jobs and evals."""
-        stopped: List[StoppedAllocBlock] = []
-        touched: Set[str] = set()
-        rest = []
+        """Commit the stop runs of an ``alloc_update`` entry: id runs
+        (``structs.stop_runs``: desired status, description, ids) or block
+        stop runs (``BlockStopRun``), as ``_stop_block_members`` resolves
+        them. The ids that are not live block members are rebuilt, after
+        that, into stop copies from this store (``structs.expand_stop_runs``:
+        an object row, a stopped member, an id named twice; one the store
+        no longer holds is skipped). Returns (the stopped blocks, the stop
+        copies): the copies are for the caller's ``upsert_allocs``. The
+        watch items and the alloc log name what the copies' upsert would:
+        the members' nodes, jobs and evals."""
         with self._lock:
             t = self._t
-            # (block id, run number) -> positions, in the runs' order.
-            groups: Dict[Tuple[str, int], List[int]] = {}
-            taken: Set[Tuple[str, int]] = set()
-            stop_ids: List[str] = []
-            for k, run in enumerate(runs):
-                left = []
-                for alloc_id in run["ids"]:
-                    found = (None if alloc_id in t.allocs
-                             else t.live.find(alloc_id))
-                    if found is None or found in taken:
-                        left.append(alloc_id)
-                        continue
-                    taken.add(found)
-                    stop_ids.append(alloc_id)
-                    groups.setdefault((found[0], k), []).append(found[1])
-                if left:
-                    rest.append({**run, "ids": left})
-            if groups:
-                members: Dict[str, Set[int]] = {}
-                for (bid, k), positions in groups.items():
-                    blk = t.live.by_id[bid].stopped(
-                        positions, runs[k]["desired_status"],
-                        runs[k]["desired_description"], index)
-                    t.stopped.add(blk)
-                    stopped.append(blk)
+            stopped, rest = _stop_block_members(t, index, runs,
+                                                self.repack_books)
+            if stopped:
+                touched: Set[str] = set()
+                for blk in stopped:
                     touched.update(blk.live_counts_map())
-                    members.setdefault(bid, set()).update(positions)
-                t.live.exclude(members, self.repack_books)
                 _log_alloc_nodes(t, index, touched)
-                t.indexes["allocs"] = index
                 books = self.stop_books
                 books.blocks += len(stopped)
-                books.members += len(stop_ids)
+                books.members += sum(b.n_live for b in stopped)
                 items: List[WatchItem] = [item_table("allocs")]
                 items.extend(item_alloc_job(j)
                              for j in sorted({b.job_id for b in stopped}))
@@ -1458,12 +1519,33 @@ class StateStore(_StateView):
                 if self.watch.has_waiters_for("alloc_node"):
                     items.extend(item_alloc_node(n) for n in sorted(touched))
                 if self.watch.has_waiters_for("alloc"):
-                    items.extend(item_alloc(i) for i in stop_ids)
+                    items.extend(item_alloc(i) for b in stopped
+                                 for i, _nid in b.live_members())
         if stopped:
             self.watch.notify(items)
         copies = expand_stop_runs(rest, self.alloc_by_id)
         self.stop_books.rows += len(copies)
         return stopped, copies
+
+    def block_stop_runs(self, runs) -> Tuple[list, List[dict]]:
+        """Id runs (``structs.stop_runs``) as a plan carries them: the ids
+        of live block members as block stop runs, one a block and run, in
+        the order of their first member; every other id (an object row,
+        no live member, one named twice) left in id runs. Returns (the
+        block stop runs, the id runs left)."""
+        out = []
+        rest: List[dict] = []
+        taken: Dict[str, Set[int]] = {}
+        with self._lock:
+            t = self._t
+            for run in runs:
+                found, left = _find_live_members(t, run["ids"], taken)
+                out.extend(t.live.by_id[bid].stop_run(positions,
+                                                      *_status_of(run))
+                           for bid, positions in found.items())
+                if left:
+                    rest.append({**run, "ids": left})
+        return out, rest
 
     def upsert_alloc_blocks(self, index: int, batches: List[AllocBatch]) -> None:
         """Commit columnar placement batches natively (no per-Allocation

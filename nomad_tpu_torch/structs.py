@@ -886,6 +886,24 @@ class AllocBatch:
             h = self.ids_hex[32 * i: 32 * i + 32]
         return f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}"
 
+    def alloc_ids(self, positions=None) -> List[str]:
+        """``alloc_id`` of every position, or of ``positions`` (an int
+        array), formatted as one array operation over the id column."""
+        import numpy as _np
+
+        if not self.n:
+            return []
+        h = _np.frombuffer(self.ids_hex.encode("ascii"),
+                           dtype="S1").reshape(-1, 32)
+        if positions is not None:
+            h = h[positions]
+        out = _np.full((len(h), 36), b"-", dtype="S1")
+        for dst, src, width in ((0, 0, 8), (9, 8, 4), (14, 12, 4),
+                                (19, 16, 4), (24, 20, 12)):
+            out[:, dst:dst + width] = h[:, src:src + width]
+        text = out.tobytes().decode("ascii")
+        return [text[i:i + 36] for i in range(0, len(text), 36)]
+
     def resource_vector(self) -> List[int]:
         if self.resources is None:
             return [0, 0, 0, 0]
@@ -1214,6 +1232,10 @@ class Plan:
     failed_allocs: List[Allocation] = field(default_factory=list)
     alloc_batches: List[AllocBatch] = field(default_factory=list)
     update_batches: List[AllocUpdateBatch] = field(default_factory=list)
+    # Stops of live members of stored blocks, one run a block
+    # (state/blocks.py BlockStopRun): the columnar form of node_update's
+    # stop copies, which the rolling eviction of a block writes.
+    block_stops: List[Any] = field(default_factory=list)
 
     def append_update(self, alloc: Allocation, status: str, desc: str) -> None:
         new_alloc = alloc.copy()
@@ -1237,6 +1259,24 @@ class Plan:
     def append_update_batch(self, batch: AllocUpdateBatch) -> None:
         self.update_batches.append(batch)
 
+    def append_block_stop(self, run) -> None:
+        self.block_stops.append(run)
+        self.__dict__.pop("_stop_ids", None)
+
+    def block_stop_ids(self) -> Dict[str, set]:
+        """Node id -> the alloc ids the plan's block stop runs stop there,
+        built once a plan (``append_block_stop`` drops it): the scheduler's
+        per-node view and every verify path read this one map."""
+        ids = self.__dict__.get("_stop_ids")
+        if ids is None:
+            ids = {}
+            for run in self.block_stops:
+                for alloc_id, (_pos, nid) in zip(run.alloc_ids(),
+                                                 run.members()):
+                    ids.setdefault(nid, set()).add(alloc_id)
+            self._stop_ids = ids
+        return ids
+
     def append_failed(self, alloc: Allocation) -> None:
         self.failed_allocs.append(alloc)
 
@@ -1247,6 +1287,7 @@ class Plan:
             and not self.failed_allocs
             and not self.alloc_batches
             and not self.update_batches
+            and not self.block_stops
         )
 
 
@@ -1259,6 +1300,7 @@ class PlanResult:
     failed_allocs: List[Allocation] = field(default_factory=list)
     alloc_batches: List[AllocBatch] = field(default_factory=list)
     update_batches: List[AllocUpdateBatch] = field(default_factory=list)
+    block_stops: List[Any] = field(default_factory=list)
     refresh_index: int = 0
     alloc_index: int = 0
     # Transaction-time conflict attribution (plan_pipeline): the refresh
@@ -1274,6 +1316,7 @@ class PlanResult:
             and not self.failed_allocs
             and not self.alloc_batches
             and not self.update_batches
+            and not self.block_stops
         )
 
     def full_commit(self, plan: Plan) -> Tuple[bool, int, int]:
@@ -1322,6 +1365,23 @@ def stop_runs(allocs: List[Allocation]):
                          "desired_description": a.desired_description,
                          "ids": [a.id]})
     return runs, rest
+
+
+def stop_id_runs(block_stops, allocs: List[Allocation]):
+    """(runs, rest) of a plan's stops as they cross the wire: the block
+    stop runs' ids (BlockStopRun.id_run) and then ``stop_runs(allocs)``,
+    neighbouring runs of one status and description merged, so a run
+    reads as the stop copies it stands for would."""
+    runs, rest = stop_runs(allocs)
+    out: List[Dict[str, Any]] = []
+    for run in [r.id_run() for r in block_stops] + runs:
+        if (out and out[-1]["desired_status"] == run["desired_status"]
+                and out[-1]["desired_description"]
+                == run["desired_description"]):
+            out[-1]["ids"].extend(run["ids"])
+        else:
+            out.append(run)
+    return out, rest
 
 
 def expand_stop_runs(runs, lookup) -> List[Allocation]:

@@ -675,7 +675,8 @@ class NodeMirror:
         plan = ctx.plan
         state = ctx.state
         if (state.alloc_count() == 0 and not plan.alloc_batches
-                and not plan.node_allocation and not plan.node_update):
+                and not plan.node_allocation and not plan.node_update
+                and not plan.block_stops):
             return self.clean_usage()
         if not (hasattr(state, "allocs_objects")
                 and hasattr(state, "alloc_blocks")
@@ -741,6 +742,8 @@ class NodeMirror:
                             if a.task_group == tg_name:
                                 tg_count[i] -= 1
                         break
+        self._block_stop_usage(state, plan, job_id, tg_name, used, bw_used,
+                               job_count, tg_count)
         for nid, adds in plan.node_allocation.items():
             i = index_get(nid)
             if i is None:
@@ -758,6 +761,27 @@ class NodeMirror:
         return (put_node_sharded(used, dev), put_node_sharded(job_count, dev),
                 put_node_sharded(tg_count, dev),
                 put_node_sharded(bw_used, dev))
+
+    def _block_stop_usage(self, state, plan, job_id: str, tg_name: str,
+                          used, bw_used, job_count, tg_count) -> None:
+        """Subtract the plan's block stop runs: the members still live in
+        ``state``'s blocks were counted there, so each run gives their
+        usage (and job and group counts) back in one scatter over its
+        rows, no member walked."""
+        for run in plan.block_stops:
+            rows, counts = run.live_rows(state, self.index.get)
+            if not rows.size:
+                continue
+            counts = counts.astype(np.int32)
+            np.subtract.at(used, rows,
+                           counts[:, None] * _res_vec(run.resources))
+            bw = _task_bw(run.task_resources)
+            if bw:
+                np.subtract.at(bw_used, rows, counts * bw)
+            if run.job_id == job_id:
+                np.subtract.at(job_count, rows, counts)
+                if run.tg_name == tg_name:
+                    np.subtract.at(tg_count, rows, counts)
 
     def capacity_view(self, state) -> Tuple[np.ndarray, np.ndarray]:
         """(totals[padded,4] int32, used[padded,4] int32) on the host: the
@@ -959,6 +983,8 @@ class NodeMirror:
             touched = set(obj_nodes_fn())
             touched.update(plan.node_allocation)
             touched.update(plan.node_update)
+            for run in plan.block_stops:
+                touched.update(run.node_ids)
             index_get = self.index.get
             node_iter = []
             # sorted: the walk order must be a pure function of the
@@ -1019,6 +1045,8 @@ class NodeMirror:
                         job_count[i] -= 1
                         if a.task_group == tg_name:
                             tg_count[i] -= 1
+            self._block_stop_usage(ctx.state, plan, job_id, tg_name, used,
+                                   bw_used, job_count, tg_count)
         self._plan_batch_usage(ctx.plan, job_id, tg_name, used, job_count,
                                tg_count)
         dev = self.device

@@ -1324,10 +1324,10 @@ class TPUGenericScheduler(GenericScheduler):
 
     def _evict_block_prefixes(self, destructive, occupied) -> None:
         """Rolling destructive update over whole blocks: evict the first
-        max_parallel members (materializing ONLY those — the 10k-member
-        steady state materializes max_parallel allocs, not the job), free
-        their name indices so the caller's missing-index placement refills
-        them columnar, and flag limit_reached so the next rolling eval is
+        max_parallel members as one stop run a block (``stop_prefix``:
+        positions and node runs, no Allocation built), free their name
+        indices so the caller's missing-index placement refills them
+        columnar, and flag limit_reached so the next rolling eval is
         scheduled (util.go:400-416 evictAndPlace semantics)."""
         from nomad_tpu_torch.scheduler.generic import ALLOC_UPDATING
 
@@ -1338,12 +1338,11 @@ class TPUGenericScheduler(GenericScheduler):
                 self.limit_reached = True
                 break
             k = min(limit, blk.n_live)
-            for a in blk.materialize_prefix(k):
-                plan.append_update(
-                    a, ALLOC_DESIRED_STATUS_STOP, ALLOC_UPDATING
-                )
+            run = blk.stop_prefix(k, ALLOC_DESIRED_STATUS_STOP,
+                                  ALLOC_UPDATING)
+            plan.append_block_stop(run)
             occ = occupied[blk.tg_name]
-            occ.difference_update(blk.live_name_idx()[:k].tolist())
+            occ.difference_update(blk.name_idx[run.positions].tolist())
             limit -= k
             if k < blk.n_live:
                 self.limit_reached = True

@@ -452,11 +452,51 @@ def test_stops_cross_the_wire_as_ids():
 
     wire = _wire(_stops_to_wire(plan))
     assert wire["node_update"] == {}
-    back = _stops_from_wire(pst.Plan, wire, fsm_obj.state.alloc_by_id)
+    back = _stops_from_wire(pst.Plan, wire, fsm_obj.state)
     assert ({k: [a.id for a in v] for k, v in back.node_update.items()}
             == {k: [a.id for a in v] for k, v in plan.node_update.items()})
     assert all(a.desired_status == "stop"
                for v in back.node_update.values() for a in v)
+
+
+def test_a_block_stop_run_crosses_the_wire_as_ids_and_back_as_a_run():
+    """A forwarded plan's block stop run rides the RPC tier as one id run
+    beside the stop copies' runs; the receiver rebuilds a run of the
+    members live in its blocks and stop copies of the rest."""
+    from nomad_tpu_torch import mock as port_mock
+    from nomad_tpu_torch.server.cluster import _stops_from_wire, _stops_to_wire
+
+    job = port_mock.job()
+    fsm = FSM()
+    for i in range(3):
+        nd = port_mock.node()
+        nd.id = f"node-{i}"
+        fsm.apply(1 + i, "node_register", {"node": nd})
+    fsm.apply(10, "job_register", {"job": job})
+    fsm.apply(11, "alloc_update", {"alloc_batches": [pst.AllocBatch(
+        eval_id="ev-1", job=job, tg_name=job.task_groups[0].name,
+        resources=pst.Resources(cpu=100, memory_mb=128),
+        node_ids=["node-0", "node-1", "node-2"], node_counts=[4, 3, 3],
+        name_idx=list(range(10)), ids_seed=0xF00D)]})
+    obj = port_mock.alloc()
+    obj.id, obj.node_id, obj.job_id, obj.job = "obj-1", "node-2", job.id, job
+    fsm.apply(12, "alloc_update", {"allocs": [obj]})
+    (blk,) = fsm.state.alloc_blocks()
+    desc = "alloc is being updated due to job update"
+    plan = pst.Plan(eval_id="ev-2")
+    plan.append_block_stop(blk.stop_prefix(6, "stop", desc))
+    plan.append_update(fsm.state.alloc_by_id("obj-1"), "stop", desc)
+
+    wire = _wire(_stops_to_wire(plan))
+    assert wire["node_update"] == {} and wire["block_stops"] == []
+    (run,) = wire["node_update_stopped"]
+    want = [a.id for a in blk.materialize_prefix(6)] + ["obj-1"]
+    assert run["ids"] == want
+    back = _stops_from_wire(pst.Plan, wire, fsm.state)
+    (got,) = back.block_stops
+    assert got.alloc_ids() == want[:6]
+    assert (got.node_ids, got.node_counts) == (["node-0", "node-1"], [4, 2])
+    assert [a.id for a in back.node_update["node-2"]] == ["obj-1"]
 
 
 # -- a re-packed roll on a second replica --------------------------------------
@@ -479,12 +519,13 @@ def _stopped_view(store):
         for b in store.stopped_alloc_blocks())
 
 
-def _roll_with_repacks(leader, rounds=4, per_round=8):
+def _roll_with_repacks(leader, rounds=4, per_round=8, runs=False):
     """A 40-member placement block on 8 nodes, then ``rounds`` rolling
     rounds, each one entry: the first ``per_round`` live members of the
-    placement block stopped (as id runs on the wire) and a replacement
-    block placed. The placement block re-packs at 16 and at 8 live
-    members. Returns the last index."""
+    placement block stopped (as id runs on the wire; handed to the leader
+    as stop copies, or with ``runs`` as one block stop run) and a
+    replacement block placed. The placement block re-packs at 16 and at 8
+    live members. Returns the last index."""
     from nomad_tpu_torch import mock as port_mock
 
     job = port_mock.job()
@@ -511,17 +552,23 @@ def _roll_with_repacks(leader, rounds=4, per_round=8):
     for r in range(rounds):
         (blk,) = [b for b in leader.fsm.state.job_alloc_blocks(job.id)
                   if b.block_id == placed]
+        desc = "alloc is being updated due to job update"
         stops = []
-        for a in blk.materialize_prefix(per_round):
-            a = a.copy()
-            a.desired_status = "stop"
-            a.desired_description = "alloc is being updated due to job update"
-            stops.append(a)
+        if runs:
+            stop_kw = {"block_stops": [
+                blk.stop_prefix(per_round, "stop", desc)]}
+        else:
+            for a in blk.materialize_prefix(per_round):
+                a = a.copy()
+                a.desired_status = "stop"
+                a.desired_description = desc
+                stops.append(a)
+            stop_kw = {}
         counts = [0] * 8
         for i in range(per_round):
             counts[(3 * r + i) % 8] += 1
         last = leader.apply("alloc_update", {
-            "allocs": stops,
+            "allocs": stops, **stop_kw,
             "alloc_batches": [batch(f"ev-roll-{r}", counts, 0xA000 + r)],
         }).result(10)
     return last
@@ -530,11 +577,24 @@ def _roll_with_repacks(leader, rounds=4, per_round=8):
 @pytest.mark.parametrize("replica", ["replay", "snapshot", "follower"])
 def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
                                                               replica):
+    _replicas_reach_the_roll_blocks(tmp_path, replica, runs=False)
+
+
+@pytest.mark.parametrize("replica", ["replay", "snapshot", "follower"])
+def test_a_roll_of_block_stop_runs_reaches_the_same_blocks_on_a_replica(
+        tmp_path, replica):
+    """The same roll with each round's stops handed to the leader as one
+    block stop run: the entry carries them as id runs, and every replica
+    and a journal replay reach the blocks the stop copies reach."""
+    _replicas_reach_the_roll_blocks(tmp_path, replica, runs=True)
+
+
+def _replicas_reach_the_roll_blocks(tmp_path, replica, runs):
     if replica == "follower":
         nodes, rpcs = _cluster(3, prefix="p")
         try:
             leader = _leader(nodes)
-            last = _roll_with_repacks(leader)
+            last = _roll_with_repacks(leader, runs=runs)
             assert wait_until(
                 lambda: all(n.applied_index >= last for n in nodes))
             stores = [n.fsm.state for n in nodes]
@@ -550,7 +610,7 @@ def test_a_repacked_roll_reaches_the_same_blocks_on_a_replica(tmp_path,
         node, rpc = _start_single(RaftNode, RaftConfig, RPCServer, fsm,
                                   tmp_path, **kw)
         try:
-            last = _roll_with_repacks(node)
+            last = _roll_with_repacks(node, runs=runs)
             if replica == "snapshot":
                 # A snapshot past the roll carries the re-packed block, the
                 # journal's tail the rest: entries apply until a

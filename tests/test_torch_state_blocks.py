@@ -367,9 +367,10 @@ def test_every_live_view_recounts_the_expansion(seed):
 
 
 class _ColumnarPlanner:
-    """Commits evaluated plans as the FSM does: stops and object rows
-    through upsert_allocs, blocks through upsert_alloc_blocks, in-place
-    batches through apply_update_batches."""
+    """Commits evaluated plans as the FSM does: block stop runs through
+    stop_block_members, stops and object rows through upsert_allocs,
+    blocks through upsert_alloc_blocks, in-place batches through
+    apply_update_batches."""
 
     def __init__(self, state):
         self.state = state
@@ -385,6 +386,10 @@ class _ColumnarPlanner:
         allocs = [a for lst in result.node_update.values() for a in lst]
         allocs += [a for lst in result.node_allocation.values() for a in lst]
         allocs += result.failed_allocs
+        if result.block_stops:
+            _stopped, copies = self.state.stop_block_members(
+                self.index, result.block_stops)
+            allocs = copies + allocs
         if allocs:
             self.state.upsert_allocs(self.index, allocs)
         if result.alloc_batches:
@@ -471,7 +476,9 @@ def test_rolling_update_stays_block_wise_every_round(monkeypatch):
                             orig_mat)
         rounds += 1
         assert calls["full"] == 0, rounds
-        stops = sum(len(v) for v in planner.plans[-1].node_update.values())
+        plan = planner.plans[-1]
+        stops = (sum(len(v) for v in plan.node_update.values())
+                 + sum(r.n for r in plan.block_stops))
         assert stops == 50, (rounds, stops)
         for node in state.nodes():
             run = [a for a in state.allocs_by_node(node.id)

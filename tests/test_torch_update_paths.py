@@ -177,6 +177,9 @@ def plan_view(plans, known):
     for plan in plans:
         for nid, allocs in plan.node_update.items():
             stop.extend((nid, a.name, a.id, a.desired_status) for a in allocs)
+        for run in getattr(plan, "block_stops", ()):
+            stop.extend((a.node_id, a.name, a.id, a.desired_status)
+                        for a in run.materialize())
         for nid, allocs in plan.node_allocation.items():
             for a in allocs:
                 row = (nid, a.name, a.id, res(a.resources), ports(a))
@@ -269,13 +272,15 @@ class ColumnarCommit:
         allocs = [a for lst in result.node_update.values() for a in lst]
         allocs += [a for lst in result.node_allocation.values() for a in lst]
         allocs += result.failed_allocs
+        block_stops = getattr(result, "block_stops", ())
         if self.fsm is not None:
-            runs, rest = pst.stop_runs(allocs)
+            runs, rest = pst.stop_id_runs(block_stops, allocs)
             self.fsm.apply(index, "alloc_update", {
                 "allocs": rest, "allocs_stopped": runs,
                 "alloc_batches": result.alloc_batches,
                 "update_batches": result.update_batches})
             return result, None
+        allocs = [a for run in block_stops for a in run.materialize()] + allocs
         if not self.columnar:
             for b in result.alloc_batches:
                 allocs.extend(b.materialize())
@@ -861,6 +866,48 @@ def test_block_world_matches_jax(case, seed, monkeypatch):
     tw = Twin(monkeypatch, seed, planner=planner)
     _block_cluster(tw, n_nodes)
     fn(tw)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_a_block_roll_of_stop_runs_commits_as_jax(seed, monkeypatch):
+    """A destructive roll of a 300-task block, 50 a round, through the
+    port's FSM: every port round carries its stops as one block stop run
+    and no stop copy, and after every round the committed state equals
+    nomad_tpu's: the live names and their versions, the live count and
+    usage a node."""
+    tw = Twin(monkeypatch, seed, planner="fsm")
+    _block_cluster(tw, 10)
+    job = _big_job()
+    job.update = jst.UpdateStrategy(stagger=0.01, max_parallel=50)
+    tw.job(job)
+    tw.process("tpu-batch", job.id)
+    tw.update_job(job.id, _env)
+
+    def check(plans):
+        assert [p.node_update for p in plans] == [{}]
+        assert [[r.n for r in p.block_stops] for p in plans] == [[50]]
+        assert _world_view(tw.port.state, job.id) == _world_view(
+            tw.jax.state, job.id)
+        assert sorted((a.name, a.job.modify_index)
+                      for a in live(tw.port.state, job.id)) == sorted(
+            (a.name, a.job.modify_index) for a in live(tw.jax.state, job.id))
+
+    plans, _got, _created = tw.process("tpu-batch", job.id)
+    check(plans)
+    rounds = 1
+    while True:
+        created = [e for e in tw.jax.create_evals
+                   if e.triggered_by == jst.EVAL_TRIGGER_ROLLING_UPDATE
+                   and e.job_id == job.id]
+        if len(created) < rounds:
+            break
+        plans, _got, _ = tw.process("tpu-batch", job.id,
+                                    ev=created[rounds - 1])
+        check(plans)
+        rounds += 1
+    assert rounds == 6
+    assert len(live(tw.port.state, job.id)) == BATCH
+    assert tw.port.state.stop_books.rows == 0
 
 
 @pytest.mark.parametrize("seed", [1, 2])
